@@ -1,0 +1,6 @@
+"""Plain PyTorch numerics of the biosignal application.
+
+  fir       — causal FIR and the low-pass taps
+  fft       — radix-2 Stockham FFT and the packed real FFT
+  biosignal — the MBioTracker application (preprocess/delineate/features/SVM)
+"""

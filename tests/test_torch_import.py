@@ -1,0 +1,105 @@
+"""The PyTorch port stands alone: `repro_torch` and `chip_smoke.py` import
+neither jax nor anything of the JAX package `repro`, the kernel module
+imports on a host without nvcc, and an entry asked for the default
+("cuda") device raises on a host without a card instead of moving the
+work elsewhere."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_has_sources():
+    names = {p.relative_to(PORT).as_posix() for p in SOURCES[:-1]}
+    for need in ("core/biosignal.py", "kernels/pipeline/graph.py",
+                 "kernels/pipeline/cuda.py", "serve/stream.py",
+                 "serve/resident.py"):
+        assert need in names
+    assert (PORT / "kernels/pipeline/csrc/biosignal_graph.cu").is_file()
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[p.relative_to(ROOT).as_posix() for p in SOURCES])
+def test_source_imports_no_jax_or_reference(path):
+    bad = _imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_import_loads_no_jax_or_reference_modules():
+    """Import every module of the port in a fresh interpreter; neither jax
+    nor any `repro.` module may end up in sys.modules."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, "
+        "'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n"
+        "print(bad)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          env={"PYTHONPATH": str(ROOT / "src"),
+                               "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stderr
+    n_modules, bad = proc.stdout.strip().splitlines()
+    assert int(n_modules) >= 15
+    assert bad == "[]", bad
+
+
+def test_default_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch.core.biosignal import (app_from_numpy, make_app,
+                                            synthetic_respiration)
+    from repro_torch.core.fir import lowpass_taps
+    from repro_torch.serve.resident import ResidentStream
+    from repro_torch.serve.stream import BiosignalStream
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_app()
+    with pytest.raises(RuntimeError, match="cuda"):
+        synthetic_respiration(1, 4096)
+    with pytest.raises(RuntimeError, match="cuda"):
+        BiosignalStream()
+    with pytest.raises(RuntimeError, match="cuda"):
+        ResidentStream()
+    with pytest.raises(RuntimeError, match="cuda"):
+        app_from_numpy(lowpass_taps(), [[0.0, 0.0]] * 12, [0.0, 0.0])
+
+
+def test_kernel_wrapper_refuses_cpu_tensors_without_building():
+    """The CUDA wrapper checks its inputs before it builds anything, so on
+    a host without nvcc a CPU tensor gets a ValueError, not a build."""
+    from repro_torch.kernels.pipeline import cuda
+
+    before = dict(cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda.launch_biosignal_graph(
+            torch.zeros(4096), entry="stream", window=2048, n_frames=5,
+            frame_stride=512, n_slots=1, slot_stride=0, taps=None,
+            twiddle_re=None, twiddle_im=None, untangle=None, svm_w=None,
+            svm_b=None, fft_size=512, bands=(1,) * 7, prominence=0.3,
+            min_distance=15, block_frames=1, out={})
+    assert cuda.LAUNCHES == before
+    if not torch.cuda.is_available():
+        assert cuda.build.cache_info().currsize == 0
