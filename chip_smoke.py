@@ -3,25 +3,40 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases; needs one CUDA card
-    python3 chip_smoke.py --quick    # build + kernel-vs-plain only
+    python3 chip_smoke.py --quick    # build + kernels vs plain only
 
 Phases, each printing one line (or a few):
 
-1. the card's name and power limit (nvidia-smi), then the kernel build;
+1. the card's name and power limit (nvidia-smi), then the build of the
+   four kernels (biosignal graph, ASR graph, FIR, FFT), one nvcc each,
+   all started together;
 2. the fused biosignal graph kernel held against its plain PyTorch
    version on the card, for the framed, stream and ring entries, at the
    full width (window 2048, hop 512) and every output selection; stream,
    framed and ring slot r must agree bitwise;
-3. the main path: `BiosignalStream(...).process` over a 24-hour, 64 Hz
-   synthetic recording (5,529,600 samples, 10,797 frames) for
-   batch_windows 8 and 512, with and without the filtered output, plus the
-   host-framed reference; the kernel's launch count must rise as expected,
-   and every row of every run is held against the plain version;
+A1. the three kernels of the ASR slice against their plain versions: the
+   ASR graph at every entry and output selection (window 512, hop 160;
+   stream == framed == ring slot bitwise), the FIR in float32 and
+   bfloat16 at 2 and 11 taps on rows longer than one tile, the FFT at N
+   8, 256 and 2048, forward and inverse, float32 and bfloat16;
+3. the biosignal main path: `BiosignalStream(...).process` over a
+   24-hour, 64 Hz synthetic recording (5,529,600 samples, 10,797 frames)
+   for batch_windows 8 and 512, with and without the filtered output,
+   plus the host-framed reference; the kernel's launch count must rise as
+   expected, and every row of every run is held against the plain version;
 4. `ResidentStream.process` on the same signal, bitwise equal to phase 3,
    with drained totals equal to the frame count;
-5. per-kernel times (CUDA events) beside the bound worked out from the
-   bytes and operations the graph needs on this run's data, and the plain
-   version's time;
+A2. the ASR main path over one hour of 16 kHz audio (57,600,000 samples,
+   359,997 frames of window 512, hop 160): the host-driven stream at
+   batch_windows 32 and 512, the host-framed reference, `ResidentStream`
+   at ring_depth 4, one `graph_pipeline_stream` call over the hour, all
+   bitwise equal, every row held against the plain version; then
+   `asr_staged` (the FIR and FFT kernels) over the same hour, held to the
+   fused path, and `pipeline_staged` over the biosignal day;
+5. per-kernel times (CUDA events behind a device sleep) beside the bound
+   worked out from the bytes and operations each call needs on this
+   run's data, the plain version's time and, for the FIR and the FFT, one
+   PyTorch call computing the same function;
 6. the ported kernels and the entries that launched them.
 
 The last two lines are a JSON object of per-kernel numbers and the
@@ -30,11 +45,15 @@ so the script exits non-zero and prints no result; it also does so when
 no card is present or when the repository's `src/` is missing. Details
 too long for the output go to ``chiprun_out/chip_smoke.json``.
 
-Imports torch and the port only — never jax, never the JAX package.
+Float32 matrix products and convolutions run without TF32
+(``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.backends.cudnn.allow_tf32`` are set False). Imports torch and the
+port only — never jax, never the JAX package.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
 import subprocess
@@ -45,17 +64,33 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 WINDOW, HOP, FFT = 2048, 512, 512
 DAY_SAMPLES = 24 * 3600 * 64                  # 5,529,600
+ASR_WINDOW, ASR_HOP, ASR_RATE = 512, 160, 16000
+HOUR_SAMPLES = 3600 * ASR_RATE                # 57,600,000
+HOUR_FRAMES = 359_997
 PEAK_FP32 = 67e12                             # H100 SXM, non-tensor fp32
 PEAK_BYTES = 3.35e12                          # H100 SXM HBM3
 SOURCE = "src/repro_torch/kernels/pipeline/csrc/biosignal_graph.cu"
+ASR_SOURCE = "src/repro_torch/kernels/pipeline/csrc/asr_graph.cu"
+FIR_SOURCE = "src/repro_torch/kernels/fir/csrc/fir.cu"
+FFT_SOURCE = "src/repro_torch/kernels/fft/csrc/fft.cu"
 REPLACES = {"frames": "src/repro/kernels/pipeline/graph.py:479",
             "stream": "src/repro/kernels/pipeline/graph.py:526",
             "ring": "src/repro/kernels/pipeline/graph.py:575"}
+ASR_STAGES = " (stage bodies src/repro/kernels/pipeline/asr.py:115/127/140)"
+FIR_REPLACES = "src/repro/kernels/fir/kernel.py:56"
+FFT_REPLACES = "src/repro/kernels/fft/kernel.py:86"
 # |kernel - plain| <= ATOL + RTOL * |plain|, per output. The FIR and the
 # SVM run in the same order in both, without FMA; the delineation mean,
 # the FFT-segment mean and the band sums are reductions in another order.
 TOL = {"filtered": (1e-6, 1e-6), "features": (1e-5, 1e-5),
        "margin": (1e-4, 1e-5)}
+# ASR graph: filtered exact (the same FIR in the same order); logmel within
+# 1e-5 of the largest |plain| of the compared rows (the mel sums run in
+# another order than the plain version's).
+ASR_LOGMEL_TOL = 1e-5
+# standalone kernels: max |kernel - plain| <= tol * max |plain|
+FIR_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+FFT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
 def card_line() -> str:
@@ -204,55 +239,144 @@ def bound_ms(nbytes: int, ops: int) -> tuple:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--quick", action="store_true",
-                    help="phases 1-2 only (build + kernel vs plain)")
-    args = ap.parse_args(argv)
+def asr_graph_work(n_frames: int, in_samples: int, outputs: tuple,
+                   mel_nnz: int, n_taps: int = 2, n_mels: int = 64) -> tuple:
+    """(bytes, operations) of the ASR graph for ``n_frames`` frames read
+    from ``in_samples`` input samples: each input read once (signal and
+    tables, the dense mel table included), each requested output written
+    once. Operations per frame: the FIR multiply-adds over the samples an
+    output needs (the window for ``filtered``, the FFT segment for
+    ``logmel``); for ``logmel`` the Hann product, the Stockham butterflies
+    (10 each), the untangle (16 per bin), |X|^2, the mel product over the
+    ``mel_nnz`` nonzero weights of this run's filterbank (a multiply-add
+    each: the zeros need no work) and log1p."""
+    S, N, m = ASR_WINDOW, ASR_WINDOW, ASR_WINDOW // 2
+    stages = int(math.log2(m))
+    tables = 4 * (n_taps + N + 2 * stages * (m // 2) + 2 * m
+                  + (m + 1) * n_mels)
+    out_bytes = {"filtered": 4 * S, "logmel": 4 * n_mels}
+    nbytes = 4 * in_samples + tables + n_frames * sum(
+        out_bytes[o] for o in outputs)
+    ops = 2 * n_taps * (S if "filtered" in outputs else N)
+    if "logmel" in outputs:
+        ops += N                                      # Hann
+        ops += stages * (m // 2) * 10                 # butterflies
+        ops += 16 * m + 1 + 3 * (m + 1)               # untangle, power
+        ops += 2 * mel_nnz + n_mels                   # mel product, log1p
+    return nbytes, ops * n_frames
 
+
+def fir_work(rows: int, samples: int, n_taps: int, elem: int) -> tuple:
+    """(bytes, operations) of a causal FIR over (rows, samples): the input
+    read once, the output written once, 2 * n_taps operations a sample."""
+    return (2 * elem * rows * samples + 4 * n_taps,
+            2 * n_taps * rows * samples)
+
+
+def fft_work(rows: int, n: int, elem: int) -> tuple:
+    """(bytes, operations) of a complex radix-2 FFT over (rows, n) planes:
+    two planes read and two written, the (log2 n, n/2) table read once,
+    10 operations a butterfly."""
+    stages = int(math.log2(n))
+    return (4 * elem * rows * n + 2 * 4 * stages * (n // 2),
+            10 * stages * (n // 2) * rows)
+
+
+def synthetic_audio(n: int, seed: int, device):
+    """``n`` samples of a 16 kHz speech-band stand-in, made on the device
+    from ``seed``: a 220 Hz tone under a slow envelope, a frequency-
+    modulated 1.25 kHz tone and white noise; float32 within about
+    [-1, 1]."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "False)", file=sys.stderr)
-        return 2
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print(f"chip_smoke: {ROOT / 'src' / 'repro_torch'} not found; run "
-              f"from a checkout of the repository", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=device).manual_seed(seed)
+    t = torch.arange(n, device=device, dtype=torch.float64) / ASR_RATE
+    x = 0.5 * (0.5 + 0.5 * torch.sin(2 * math.pi * 0.3 * t)) * \
+        torch.sin(2 * math.pi * 220.0 * t)
+    x += 0.3 * torch.sin(2 * math.pi * 1250.0 * t
+                         + 2.0 * torch.sin(2 * math.pi * 0.1 * t))
+    del t
+    return x.float() + 0.05 * torch.randn(n, generator=g, device=device)
 
-    from repro_torch.core.biosignal import make_app, synthetic_respiration
-    from repro_torch.kernels.pipeline import cuda
+
+def check_asr(name: str, got: dict, want: dict) -> float:
+    """Raise unless the ASR outputs ``got`` match ``want``: filtered
+    bitwise, logmel within `ASR_LOGMEL_TOL` of the largest |want|;
+    returns the largest logmel difference."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{name}: keys {sorted(got)} != {sorted(want)}")
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name}/{k}: {g.dtype}{tuple(g.shape)} vs "
+                                 f"{w.dtype}{tuple(w.shape)}")
+        if not bool(g.isfinite().all()):
+            raise AssertionError(f"{name}/{k}: non-finite values")
+        if k == "filtered":
+            if not bool((g == w).all()):
+                raise AssertionError(f"{name}/filtered: not bitwise equal")
+            continue
+        diff = float((g - w).abs().max())
+        scale = max(1.0, float(w.abs().max()))
+        if diff > ASR_LOGMEL_TOL * scale:
+            raise AssertionError(f"{name}/logmel: |diff| {diff:.3e} > "
+                                 f"{ASR_LOGMEL_TOL} x {scale:.3f}")
+        worst = max(worst, diff)
+    return worst
+
+
+def check_scaled(name: str, got, want, tol: float) -> float:
+    """Raise unless max |got - want| <= tol * max |want|, in float32;
+    returns the max |difference|."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.dtype}{tuple(got.shape)} vs "
+                             f"{want.dtype}{tuple(want.shape)}")
+    diff = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    if not diff <= tol * scale:
+        raise AssertionError(f"{name}: |diff| {diff:.3e} > {tol} x "
+                             f"{scale:.3e}")
+    return diff
+
+
+def counted(fn):
+    """Run ``fn()`` with every launch count set to 0 just before; return
+    (its result, the counts just after)."""
+    import torch
+
+    from repro_torch.kernels import _cuda
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, copy.deepcopy(_cuda.LAUNCHES)
+
+
+def expect_launches(tag: str, got: dict, want: dict) -> None:
+    """Raise unless ``got`` (kernel -> entry -> count) holds exactly the
+    ``want`` counts ({(kernel, entry): n}) and zero elsewhere."""
+    for kernel, entries in got.items():
+        for entry, n in entries.items():
+            if n != want.get((kernel, entry), 0):
+                raise AssertionError(f"{tag}: launches {got}, expected "
+                                     f"{want}")
+
+
+def biosignal_kernels_vs_plain(app, graph, operands, dev) -> dict:
+    """Phase 2: the biosignal kernel against its plain version at every
+    entry and output selection; returns max |diff| per entry."""
+    import torch
+
+    from repro_torch.core.biosignal import synthetic_respiration
     from repro_torch.kernels.pipeline.graph import (
-        get_graph_factory, graph_frames_call, graph_frames_plain,
-        graph_ring_call, graph_ring_plain, graph_stream_call,
-        graph_stream_plain, ring_chunk_samples, stream_frame_count)
+        graph_frames_call, graph_frames_plain, graph_ring_call,
+        graph_ring_plain, graph_stream_call, graph_stream_plain,
+        ring_chunk_samples)
     from repro_torch.kernels.pipeline.kernel import OUTPUTS
-    from repro_torch.serve.resident import ResidentConfig, ResidentStream
-    from repro_torch.serve.stream import (BiosignalStream, StreamConfig,
-                                          frame_signal)
+    from repro_torch.serve.stream import frame_signal
 
-    report: dict = {}
-    # ---- phase 1: card, build
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    print(card)
-    b = cuda.build()
-    print(f"build: {b.seconds:.2f} s nvcc ({b.path.name}, "
-          f"{'cached' if b.seconds == 0.0 else 'fresh'})")
-    report["build"] = {"seconds": b.seconds, "log": b.log}
-    ptx = [ln.strip() for ln in b.log.splitlines() if "registers" in ln]
-    if ptx:
-        print(f"ptxas: {ptx[0]}")
-
-    dev = torch.device("cuda", 0)
-    app = make_app(device=dev)
-    graph, operands = get_graph_factory("biosignal")(app)
-
-    # ---- phase 2: kernel vs plain on the card, every entry and selection
     n_cmp = 64
     cmp_sig = synthetic_respiration(1, (n_cmp - 1) * HOP + WINDOW, seed=1,
                                     device=dev)[0][0]
@@ -287,16 +411,175 @@ def main(argv=None) -> int:
                                     hop=HOP, **kw)
             check_equal(f"ring[{r}]==stream{sel}",
                         {k: v[r] for k, v in kr.items()}, one)
-    print(f"kernel vs plain on the card: {len(selections)} output "
+    print(f"biosignal kernel vs plain on the card: {len(selections)} output "
           f"selections x (frames, stream, ring) at window {WINDOW} hop "
           f"{HOP}, {n_cmp} frames: class exact, max |diff| "
           f"frames {max_err['frames']:.3e} stream {max_err['stream']:.3e} "
           f"ring {max_err['ring']:.3e}; stream == framed == ring slot "
           f"bitwise")
+    return max_err
+
+
+def asr_kernels_vs_plain(asr_graph, asr_ops, dev) -> dict:
+    """Phase A1: the ASR graph, FIR and FFT kernels against their plain
+    versions; returns max |diff| per kernel (and ASR entry)."""
+    import torch
+
+    from repro_torch.core.fir import lowpass_taps
+    from repro_torch.kernels.fft.kernel import fft_cuda, fft_plain
+    from repro_torch.kernels.fir.kernel import fir_cuda, fir_plain
+    from repro_torch.kernels.pipeline.graph import (
+        graph_frames_call, graph_frames_plain, graph_ring_call,
+        graph_ring_plain, graph_stream_call, graph_stream_plain,
+        ring_chunk_samples)
+    from repro_torch.serve.stream import frame_signal
+
+    W, H = ASR_WINDOW, ASR_HOP
+    n_cmp = 70
+    sig = synthetic_audio((n_cmp - 1) * H + W, seed=1, device=dev)
+    frames = frame_signal(sig, W, H)
+    bw, depth = 16, 4
+    span, stride = ring_chunk_samples(W, H, bw), bw * H
+    ring = sig[: (depth - 1) * stride + span].as_strided((depth, span),
+                                                         (stride, 1))
+    err = {"asr_graph[frames]": 0.0, "asr_graph[stream]": 0.0,
+           "asr_graph[ring]": 0.0}
+    selections = [("filtered", "logmel"), ("logmel",), ("filtered",)]
+    for sel in selections:
+        kw = dict(graph=asr_graph, outputs=sel)
+        for entry, k, p in (
+                ("stream",
+                 graph_stream_call(sig, asr_ops, window=W, hop=H, **kw),
+                 graph_stream_plain(sig, asr_ops, window=W, hop=H, **kw)),
+                ("frames", graph_frames_call(frames, asr_ops, **kw),
+                 graph_frames_plain(frames, asr_ops, **kw)),
+                ("ring",
+                 graph_ring_call(ring, asr_ops, window=W, hop=H, **kw),
+                 graph_ring_plain(ring, asr_ops, window=W, hop=H, **kw))):
+            tag = f"asr_graph[{entry}]"
+            err[tag] = max(err[tag], check_asr(f"{tag}{sel}", k, p))
+            if entry == "stream":
+                ks = k
+            elif entry == "frames":
+                check_equal(f"asr stream==framed{sel}", ks, k)
+            else:
+                check_equal(f"asr ring==stream{sel}",
+                            {o: v.reshape(-1, *v.shape[2:])
+                             for o, v in k.items()},
+                            {o: v[: depth * bw] for o, v in ks.items()})
+    g = torch.Generator(device=dev).manual_seed(3)
+    err["fir[rows]"] = 0.0
+    n_fir = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for k in (2, 11):
+            x = torch.randn(5, 5000, generator=g, device=dev).to(dtype)
+            taps = torch.as_tensor(lowpass_taps(k), device=dev)
+            got = fir_cuda(x, taps, seq_block=2048)      # 3 tiles a row
+            name = str(dtype).replace("torch.", "")
+            err["fir[rows]"] = max(err["fir[rows]"], check_scaled(
+                f"fir {name} k={k}", got, fir_plain(x, taps),
+                FIR_TOL[name]))
+            n_fir += 1
+    err["fft[rows]"] = 0.0
+    n_fft = 0
+    for n in (8, 256, 2048):
+        for dtype in (torch.float32, torch.bfloat16):
+            re = torch.randn(64, n, generator=g, device=dev).to(dtype)
+            im = torch.randn(64, n, generator=g, device=dev).to(dtype)
+            name = str(dtype).replace("torch.", "")
+            for inverse in (False, True):
+                gr, gi = fft_cuda(re, im, inverse=inverse)
+                pr, pi = fft_plain(re, im, inverse=inverse)
+                for a, b in ((gr, pr), (gi, pi)):
+                    err["fft[rows]"] = max(err["fft[rows]"], check_scaled(
+                        f"fft {name} N={n} inverse={inverse}", a, b,
+                        FFT_TOL[name]))
+                n_fft += 1
+    print(f"ASR graph vs plain on the card: {len(selections)} output "
+          f"selections x (frames, stream, ring) at window {W} hop {H}, "
+          f"{n_cmp} frames: filtered bitwise, logmel max |diff| "
+          + ", ".join(f"{e} {err[f'asr_graph[{e}]']:.3e}"
+                      for e in ("frames", "stream", "ring"))
+          + f" (tol {ASR_LOGMEL_TOL} x max|logmel|); stream == framed == "
+          f"ring slot bitwise")
+    print(f"FIR vs plain: {n_fir} cases (float32/bfloat16 x 2, 11 taps, "
+          f"rows of 5000 over 2048-sample tiles), max |diff| "
+          f"{err['fir[rows]']:.3e} (tol {FIR_TOL}); FFT vs plain: {n_fft} "
+          f"cases (N 8/256/2048 x float32/bfloat16 x forward/inverse), max "
+          f"|diff| {err['fft[rows]']:.3e} (tol {FFT_TOL}, x max|plain|)")
+    return err
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--quick", action="store_true",
+                    help="phases 1, 2 and A1 only (build + kernels vs "
+                         "plain)")
+    args = ap.parse_args(argv)
+
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: {ROOT / 'src' / 'repro_torch'} not found; run "
+              f"from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch.core.biosignal import make_app, synthetic_respiration
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.fft.kernel import fft_cuda, fft_plain
+    from repro_torch.kernels.fir.kernel import fir_cuda, fir_plain
+    from repro_torch.kernels.pipeline.asr import (asr_staged,
+                                                  make_asr_frontend)
+    from repro_torch.kernels.pipeline.graph import (
+        get_graph_factory, graph_frames_call, graph_frames_plain,
+        graph_ring_call, graph_ring_plain, graph_stream_call,
+        graph_stream_plain, ring_chunk_samples, stream_frame_count)
+    from repro_torch.kernels.pipeline.kernel import OUTPUTS
+    from repro_torch.kernels.pipeline.ops import graph_pipeline_stream
+    from repro_torch.kernels.pipeline.ref import pipeline_staged
+    from repro_torch.serve.resident import ResidentConfig, ResidentStream
+    from repro_torch.serve.stream import (BiosignalStream, StreamConfig,
+                                          frame_signal)
+
+    report: dict = {}
+    # ---- phase 1: card, build (one nvcc per source, all at once)
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(card)
+    t0 = time.perf_counter()
+    builds = _cuda.build_all()
+    wall = time.perf_counter() - t0
+    print(f"build: {len(builds)} kernels in {wall:.2f} s wall ("
+          + ", ".join(f"{k} {b.seconds:.2f} s" for k, b in builds.items())
+          + " of nvcc)")
+    report["build"] = {k: {"seconds": b.seconds, "log": b.log}
+                       for k, b in builds.items()}
+    for k, b in builds.items():
+        ptx = [ln.strip() for ln in b.log.splitlines() if "registers" in ln]
+        if ptx:
+            print(f"ptxas {k}: {ptx[0]}")
+
+    dev = torch.device("cuda", 0)
+    app = make_app(device=dev)
+    graph, operands = get_graph_factory("biosignal")(app)
+    asr_app = make_asr_frontend(device=dev)
+    asr_graph, asr_ops = get_graph_factory("asr")(asr_app)
+
+    # ---- phases 2 and A1: every kernel against its plain version
+    max_err = biosignal_kernels_vs_plain(app, graph, operands, dev)
+    max_err.update(asr_kernels_vs_plain(asr_graph, asr_ops, dev))
     if args.quick:
         return 0
 
-    # ---- phase 3: the main path over a 24-hour recording
+    # ---- phase 3: the biosignal main path over a 24-hour recording
     sig = synthetic_respiration(1, DAY_SAMPLES, seed=0, device=dev)[0][0]
     n = stream_frame_count(DAY_SAMPLES, WINDOW, HOP)
     if n != 10_797:
@@ -307,19 +590,18 @@ def main(argv=None) -> int:
             cfg = StreamConfig(window=WINDOW, hop=HOP, batch_windows=B,
                                outputs=sel)
             stream = BiosignalStream(app, cfg)
-            torch.cuda.synchronize()
-            cuda.reset_launches()
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            out = stream.process(sig)
-            t1.record()
-            t1.synchronize()
-            got = dict(cuda.LAUNCHES)
-            want = -(-n // B)
-            if got["stream"] != want or got["frames"] or got["ring"]:
-                raise AssertionError(f"B={B} {sel}: launches {got}, "
-                                     f"expected {want} stream launches")
+
+            def run():
+                t0.record()
+                out = stream.process(sig)
+                t1.record()
+                return out
+
+            out, got = counted(run)
+            expect_launches(f"B={B} {sel}", got,
+                            {("biosignal_graph", "stream"): -(-n // B)})
             for k, v in out.items():
                 if v.shape[0] != n:
                     raise AssertionError(f"{k}: {v.shape[0]} rows != {n}")
@@ -330,10 +612,10 @@ def main(argv=None) -> int:
             ms = t0.elapsed_time(t1)
             tag = f"B={B} {'all' if sel == OUTPUTS else 'no-filtered'}"
             rates[tag] = n / (ms / 1e3)
-            launches[tag] = got["stream"]
+            launches[tag] = got["biosignal_graph"]["stream"]
             main_out[(B, sel)] = out
             print(f"main path {tag}: {n} frames in {ms:.1f} ms = "
-                  f"{rates[tag]:.0f} windows/s, {got['stream']} stream "
+                  f"{rates[tag]:.0f} windows/s, {launches[tag]} stream "
                   f"launches [{kind}; {card}]")
     # every row of every main-path run against the plain version over the
     # whole day, in slices of frames; the same slices give this data's
@@ -363,42 +645,36 @@ def main(argv=None) -> int:
           f"{cand_cum[n] / n:.1f} candidates, {ext_cum[n] / n:.1f} extrema "
           f"per frame")
     # the host-framed reference (framed kernel entry), bitwise equal
-    for B in (8,):
-        cfg = StreamConfig(window=WINDOW, hop=HOP, batch_windows=B,
-                           framing="host", outputs=("features", "margin",
-                                                    "class"))
-        torch.cuda.synchronize()
-        cuda.reset_launches()
-        host = BiosignalStream(app, cfg).process(sig)
-        torch.cuda.synchronize()
-        got = dict(cuda.LAUNCHES)
-        if got["frames"] != -(-n // B) or got["stream"] or got["ring"]:
-            raise AssertionError(f"host framing launches {got}")
-        check_equal("host framing == kernel framing", host,
-                    main_out[(B, ("features", "margin", "class"))])
-        launches["frames"] = got["frames"]
-        print(f"host-framed reference B={B}: bitwise equal to the raw-chunk "
-              f"path, {got['frames']} frames launches")
+    feat = ("features", "margin", "class")
+    cfg = StreamConfig(window=WINDOW, hop=HOP, batch_windows=8,
+                       framing="host", outputs=feat)
+    host, got = counted(lambda: BiosignalStream(app, cfg).process(sig))
+    expect_launches("host framing", got,
+                    {("biosignal_graph", "frames"): -(-n // 8)})
+    check_equal("host framing == kernel framing", host, main_out[(8, feat)])
+    launches["frames"] = got["biosignal_graph"]["frames"]
+    print(f"host-framed reference B=8: bitwise equal to the raw-chunk "
+          f"path, {launches['frames']} frames launches")
 
     # ---- phase 4: the resident loop, bitwise equal to phase 3
-    for B, sel in ((8, ("features", "margin", "class")), (512, OUTPUTS)):
+    for B, sel in ((8, feat), (512, OUTPUTS)):
         rcfg = ResidentConfig(ring_depth=4, drain_interval=4)
         rs = ResidentStream(app, StreamConfig(window=WINDOW, hop=HOP,
                                               batch_windows=B, outputs=sel),
                             rcfg)
-        torch.cuda.synchronize()
-        cuda.reset_launches()
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        res = rs.process(sig)
-        t1.record()
-        t1.synchronize()
-        got = dict(cuda.LAUNCHES)
+
+        def run():
+            t0.record()
+            out = rs.process(sig)
+            t1.record()
+            return out
+
+        res, got = counted(run)
         sweeps = -(-n // (4 * B))
-        if got["ring"] != sweeps or got["stream"] or got["frames"]:
-            raise AssertionError(f"resident launches {got}, expected "
-                                 f"{sweeps} ring launches")
+        expect_launches(f"resident B={B}", got,
+                        {("biosignal_graph", "ring"): sweeps})
         check_equal(f"resident B={B}", res, main_out[(B, sel)])
         if rs.last_drains[-1] != n:
             raise AssertionError(f"drained {rs.last_drains[-1]} != {n}")
@@ -406,14 +682,142 @@ def main(argv=None) -> int:
         tag = f"resident B={B} ring_depth=4"
         rates[tag] = n / (ms / 1e3)
         if B == 8:
-            launches["ring"] = got["ring"]
+            launches["ring"] = got["biosignal_graph"]["ring"]
         print(f"{tag}: bitwise equal to the host-driven stream, drained "
               f"{rs.last_drains[-1]} = {n} frames in "
-              f"{len(rs.last_drains)} drains, {got['ring']} ring launches, "
+              f"{len(rs.last_drains)} drains, {sweeps} ring launches, "
               f"{rates[tag]:.0f} windows/s [{kind}; {card}]")
+    del main_out
+
+    # ---- phase A2: the ASR main path over one hour of 16 kHz audio
+    W, H = ASR_WINDOW, ASR_HOP
+    audio = synthetic_audio(HOUR_SAMPLES, seed=0, device=dev)
+    na = stream_frame_count(HOUR_SAMPLES, W, H)
+    if na != HOUR_FRAMES:
+        raise AssertionError(f"{na} frames in an hour, expected "
+                             f"{HOUR_FRAMES}")
+    mel, both = ("logmel",), ("filtered", "logmel")
+    asr_out, asr_launches = {}, {}
+    runs = [  # (tag, stream config, resident depth or None, entry)
+        ("stream B=32", StreamConfig(window=W, hop=H, batch_windows=32,
+                                     graph="asr", outputs=mel), None,
+         "stream"),
+        ("stream B=512", StreamConfig(window=W, hop=H, batch_windows=512,
+                                      graph="asr", outputs=mel), None,
+         "stream"),
+        ("stream B=512 +filtered", StreamConfig(
+            window=W, hop=H, batch_windows=512, graph="asr", outputs=both),
+         None, "stream"),
+        ("host-framed B=32", StreamConfig(
+            window=W, hop=H, batch_windows=32, graph="asr", outputs=mel,
+            framing="host"), None, "frames"),
+        ("resident B=32", StreamConfig(window=W, hop=H, batch_windows=32,
+                                       graph="asr", outputs=mel), 4,
+         "ring"),
+        ("resident B=512 +filtered", StreamConfig(
+            window=W, hop=H, batch_windows=512, graph="asr", outputs=both),
+         4, "ring"),
+    ]
+    for tag, cfg, depth, entry in runs:
+        if depth is None:
+            runner = BiosignalStream(asr_app, cfg)
+            want = -(-na // cfg.batch_windows)
+        else:
+            runner = ResidentStream(asr_app, cfg, ResidentConfig(
+                ring_depth=depth, drain_interval=4))
+            want = -(-na // (depth * cfg.batch_windows))
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+
+        def run():
+            t0.record()
+            out = runner.process(audio)
+            t1.record()
+            return out
+
+        out, got = counted(run)
+        expect_launches(f"asr {tag}", got, {("asr_graph", entry): want})
+        if depth is not None and runner.last_drains[-1] != na:
+            raise AssertionError(f"asr {tag}: drained "
+                                 f"{runner.last_drains[-1]} != {na}")
+        ms = t0.elapsed_time(t1)
+        rates[f"asr {tag}"] = na / (ms / 1e3)
+        asr_launches[tag] = want
+        asr_out[tag] = out
+        print(f"ASR {tag}: {na} frames in {ms:.1f} ms = "
+              f"{rates[f'asr {tag}']:.0f} frames/s, {want} {entry} launches "
+              f"[{kind}; {card}]")
+    one, got = counted(lambda: graph_pipeline_stream(
+        "asr", asr_app, audio, window=W, hop=H, outputs=mel))
+    expect_launches("asr graph_pipeline_stream", got,
+                    {("asr_graph", "stream"): 1})
+    asr_out["one call"] = one
+    ref = asr_out["stream B=32"]
+    for tag, out in asr_out.items():
+        for k, v in out.items():
+            if v.shape[0] != na:
+                raise AssertionError(f"asr {tag}/{k}: {v.shape[0]} rows")
+        check_equal(f"asr {tag} == stream B=32", {"logmel": out["logmel"]},
+                    ref)
+    check_equal("asr resident == stream, filtered",
+                asr_out["resident B=512 +filtered"],
+                asr_out["stream B=512 +filtered"])
+    # every row of every run against the plain version, in slices
+    worst = 0.0
+    for f0 in range(0, na, 8192):
+        f1 = min(na, f0 + 8192)
+        plain = graph_stream_plain(audio[f0 * H: (f1 - 1) * H + W], asr_ops,
+                                   graph=asr_graph, window=W, hop=H,
+                                   outputs=both)
+        for tag, out in asr_out.items():
+            worst = max(worst, check_asr(
+                f"asr {tag} frames {f0}:{f1}",
+                {k: v[f0:f1] for k, v in out.items()},
+                {k: plain[k] for k in out}))
+        del plain
+    max_err["asr main"] = worst
+    print(f"ASR main path vs plain on the card: all {na} rows of the "
+          f"{len(asr_out)} runs (incl. one graph_pipeline_stream call), "
+          f"filtered bitwise, logmel max |diff| {worst:.3e}; stream == "
+          f"framed == ring == resident == one call bitwise")
+    # the kernel-at-a-time baseline over the same hour
+    t_st = time.perf_counter()
+    staged, got = counted(lambda: asr_staged(asr_app, audio, window=W,
+                                             hop=H))
+    staged_s = time.perf_counter() - t_st
+    expect_launches("asr_staged", got, {("fir", "rows"): 1,
+                                        ("fft", "rows"): 1})
+    fused = asr_out["stream B=512 +filtered"]
+    err_st = check_asr("asr_staged vs fused", staged, fused)
+    max_err["asr_staged"] = err_st
+    staged_launches = {"fir": got["fir"]["rows"], "fft": got["fft"]["rows"]}
+    rates["asr_staged"] = na / staged_s
+    print(f"asr_staged over the hour: {staged_s * 1e3:.1f} ms wall = "
+          f"{rates['asr_staged']:.0f} frames/s, 1 FIR + 1 FFT launch; "
+          f"filtered bitwise, logmel max |diff| {err_st:.3e} against the "
+          f"fused path [{kind}; {card}]")
+    del staged, asr_out, fused, one, ref
+    # the biosignal kernel-at-a-time baseline over the day's frames
+    day_frames = frame_signal(sig, WINDOW, HOP)
+    bst, got = counted(lambda: pipeline_staged(
+        day_frames, app.fir_taps, app.svm_w, app.svm_b))
+    expect_launches("pipeline_staged", got, {("fir", "rows"): 1,
+                                             ("fft", "rows"): 1})
+    bplain = app(day_frames)
+    max_err["pipeline_staged"] = check_close(
+        "pipeline_staged vs the staged app",
+        {k: bst[k] for k in ("filtered", "features", "margin")},
+        {k: bplain[k] for k in ("filtered", "features", "margin")})
+    agree = float((bst["class"] == bplain["class"]).float().mean())
+    print(f"pipeline_staged over the day ({n} x {WINDOW}, 11 taps): 1 FIR "
+          f"+ 1 FFT launch, max |diff| {max_err['pipeline_staged']:.3e} "
+          f"against BiosignalApp, class agreement {agree:.6f}")
+    if agree != 1.0:
+        raise AssertionError(f"pipeline_staged class agreement {agree}")
+    del bst, bplain, day_frames
 
     # ---- phase 5: per-kernel times beside the bound and the plain time
-    feat = ("features", "margin", "class")
+    kernels, wide = [], {}
     chunk8 = sig[: ring_chunk_samples(WINDOW, HOP, 8)]
     frames8 = frame_signal(chunk8, WINDOW, HOP)
     ring8 = sig[: 3 * 8 * HOP + ring_chunk_samples(WINDOW, HOP, 8)] \
@@ -440,14 +844,13 @@ def main(argv=None) -> int:
                                           outputs=feat),
                  32, 3 * 8 * HOP + ring_chunk_samples(WINDOW, HOP, 8)),
     }
-    kernels = []
     for entry, (kfn, pfn, nf, nin) in cases.items():
         ms = event_ms(kfn, 200)
         pms = event_ms(pfn, 10)
         wall = host_ms(kfn, 200)
         nbytes, ops = graph_work(nf, nin, feat, cand_cum[nf], ext_cum[nf])
         bms, by = bound_ms(nbytes, ops)
-        report.setdefault("wall_ms_per_call", {})[entry] = wall
+        report.setdefault("wall_ms_per_call", {})[f"biosignal {entry}"] = wall
         kernels.append({
             "name": f"biosignal_graph[{entry}]", "route": "cuda",
             "source": SOURCE, "replaces": REPLACES[entry],
@@ -457,12 +860,11 @@ def main(argv=None) -> int:
             if entry == "stream" else max_err[entry], "ms": ms,
             "plain_ms": pms,
             "bound_ms": bms, "bound_by": by, "library_ms": None})
-        print(f"time {entry}: {nf} frames (main-path dispatch, "
+        print(f"time biosignal {entry}: {nf} frames (main-path dispatch, "
               f"features+margin+class) kernel {ms:.4f} ms device, "
               f"{wall:.4f} ms per call with the wrapper, plain {pms:.3f} ms, "
               f"bound {bms:.6f} ms ({by}) [{card}]")
     # the same kernel at wider dispatches (no JSON entry: PERF.md reads it)
-    wide = {}
     for label, x, nf, sel in (
             ("stream B=512", sig[: ring_chunk_samples(WINDOW, HOP, 512)],
              512, feat),
@@ -474,19 +876,163 @@ def main(argv=None) -> int:
         nbytes, ops = graph_work(nf, x.numel(), sel, cand_cum[nf],
                                  ext_cum[nf])
         bms, by = bound_ms(nbytes, ops)
-        wide[label] = {"frames": nf, "ms": ms, "bound_ms": bms,
-                       "bound_by": by}
-        print(f"time {label}: {nf} frames kernel {ms:.4f} ms, bound "
-              f"{bms:.5f} ms ({by}), {nf / (ms / 1e3):.0f} windows/s "
+        wide[f"biosignal {label}"] = {"frames": nf, "ms": ms,
+                                      "bound_ms": bms, "bound_by": by}
+        print(f"time biosignal {label}: {nf} frames kernel {ms:.4f} ms, "
+              f"bound {bms:.5f} ms ({by}), {nf / (ms / 1e3):.0f} windows/s "
+              f"[{card}]")
+
+    # the ASR graph at the main path's dispatch (B=32; the ring 4 x 32);
+    # its bound counts the mel product over this filterbank's nonzeros
+    mel_nnz = int((asr_app.mel_weights != 0).sum())
+    report["mel_nnz"] = mel_nnz
+    print(f"mel filterbank: {mel_nnz} nonzero weights of "
+          f"{asr_app.mel_weights.numel()}")
+    span32 = ring_chunk_samples(W, H, 32)
+    chunk32 = audio[:span32]
+    frames32 = frame_signal(chunk32, W, H)
+    ring32 = audio[: 3 * 32 * H + span32].as_strided((4, span32),
+                                                     (32 * H, 1))
+    kw = dict(graph=asr_graph, outputs=mel)
+    acases = {
+        "stream": (lambda: graph_stream_call(chunk32, asr_ops, window=W,
+                                             hop=H, **kw),
+                   lambda: graph_stream_plain(chunk32, asr_ops, window=W,
+                                              hop=H, **kw),
+                   32, chunk32.numel(), "stream B=32"),
+        "frames": (lambda: graph_frames_call(frames32, asr_ops, **kw),
+                   lambda: graph_frames_plain(frames32, asr_ops, **kw),
+                   32, frames32.numel(), "host-framed B=32"),
+        "ring": (lambda: graph_ring_call(ring32, asr_ops, window=W, hop=H,
+                                         **kw),
+                 lambda: graph_ring_plain(ring32, asr_ops, window=W, hop=H,
+                                          **kw),
+                 128, 3 * 32 * H + span32, "resident B=32"),
+    }
+    for entry, (kfn, pfn, nf, nin, run_tag) in acases.items():
+        ms = event_ms(kfn, 200)
+        pms = event_ms(pfn, 10)
+        wall = host_ms(kfn, 200)
+        bms, by = bound_ms(*asr_graph_work(nf, nin, mel, mel_nnz))
+        report.setdefault("wall_ms_per_call", {})[f"asr {entry}"] = wall
+        kernels.append({
+            "name": f"asr_graph[{entry}]", "route": "cuda",
+            "source": ASR_SOURCE, "replaces": REPLACES[entry] + ASR_STAGES,
+            "launches": asr_launches[run_tag],
+            "max_abs_err": max(max_err[f"asr_graph[{entry}]"],
+                               max_err["asr main"]),
+            "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None})
+        print(f"time asr {entry}: {nf} frames (main-path dispatch, logmel) "
+              f"kernel {ms:.4f} ms device, {wall:.4f} ms per call with the "
+              f"wrapper, plain {pms:.3f} ms, bound {bms:.6f} ms ({by}) "
+              f"[{card}]")
+    for label, x, nf, sel in (
+            ("stream B=512", audio[: ring_chunk_samples(W, H, 512)], 512,
+             mel),
+            ("stream whole hour", audio, na, mel),
+            ("stream whole hour +filtered", audio, na, both)):
+        ms = event_ms(lambda: graph_stream_call(
+            x, asr_ops, graph=asr_graph, window=W, hop=H, outputs=sel), 10)
+        bms, by = bound_ms(*asr_graph_work(nf, x.numel(), sel, mel_nnz))
+        wide[f"asr {label}"] = {"frames": nf, "ms": ms, "bound_ms": bms,
+                                "bound_by": by}
+        print(f"time asr {label}: {nf} frames kernel {ms:.4f} ms, bound "
+              f"{bms:.5f} ms ({by}), {nf / (ms / 1e3):.0f} frames/s "
+              f"[{card}]")
+
+    # the hour end to end, warm, both outputs: the kernel-at-a-time
+    # baseline against one fused call (host clock, synchronised)
+    for label, fn, reps in (
+            ("fused one call", lambda: graph_pipeline_stream(
+                "asr", asr_app, audio, window=W, hop=H, outputs=both), 5),
+            ("asr_staged", lambda: asr_staged(asr_app, audio, window=W,
+                                              hop=H), 3)):
+        ms = host_ms(fn, reps)
+        wide[f"asr hour warm {label}"] = {"frames": na, "wall_ms": ms}
+        print(f"time asr hour warm, filtered+logmel, {label}: {ms:.3f} ms "
+              f"wall per call, {na / (ms / 1e3):.0f} frames/s [{card}]")
+
+    # the FIR and the FFT at the shapes asr_staged gives them: the hour's
+    # (359,997 x 512) frames, 2 taps; its (359,997 x 256) packed halves
+    hour_frames = frame_signal(audio, W, H)
+    taps2 = asr_app.fir_taps
+    got = fir_cuda(hour_frames, taps2)
+    fir_err = check_scaled("fir at the path's shape", got,
+                           fir_plain(hour_frames, taps2), FIR_TOL["float32"])
+    k = taps2.shape[0]
+    wconv = taps2.flip(0).reshape(1, 1, k)
+    padded = F.pad(hour_frames, (k - 1, 0)).unsqueeze(1)   # left-padded
+    lib = F.conv1d(padded, wconv).squeeze(1)
+    lib_err = float((lib - got).abs().max())
+    del got, lib
+    zr = torch.randn(na, W // 2, device=dev)
+    zi = torch.randn(na, W // 2, device=dev)
+    gr, gi = fft_cuda(zr, zi)
+    pr, pi = fft_plain(zr, zi)
+    fft_err = max(check_scaled("fft at the path's shape", gr, pr,
+                               FFT_TOL["float32"]),
+                  check_scaled("fft at the path's shape", gi, pi,
+                               FFT_TOL["float32"]))
+    zc = torch.complex(zr, zi)
+    lib_fft_err = float(max((torch.fft.fft(zc).real - gr).abs().max(),
+                            (torch.fft.fft(zc).imag - gi).abs().max()))
+    del gr, gi, pr, pi
+    rows = [
+        ("fir", FIR_SOURCE, FIR_REPLACES, "rows",
+         lambda: fir_cuda(hour_frames, taps2),
+         lambda: fir_plain(hour_frames, taps2),
+         lambda: F.conv1d(padded, wconv),
+         fir_work(na, W, k, 4), max(max_err["fir[rows]"], fir_err)),
+        ("fft", FFT_SOURCE, FFT_REPLACES, "rows",
+         lambda: fft_cuda(zr, zi), lambda: fft_plain(zr, zi),
+         lambda: torch.fft.fft(zc), fft_work(na, W // 2, 4),
+         max(max_err["fft[rows]"], fft_err)),
+    ]
+    for name, src, rep, entry, kfn, pfn, lfn, work, err in rows:
+        ms = event_ms(kfn, 20)
+        pms = event_ms(pfn, 3)
+        lms = event_ms(lfn, 20)
+        bms, by = bound_ms(*work)
+        kernels.append({
+            "name": f"{name}[{entry}]", "route": "cuda", "source": src,
+            "replaces": rep, "launches": staged_launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bms,
+            "bound_by": by, "library_ms": lms})
+        print(f"time {name}: {na} rows at the asr_staged shape, kernel "
+              f"{ms:.4f} ms, plain {pms:.3f} ms, library {lms:.4f} ms, "
+              f"bound {bms:.5f} ms ({by}) [{card}]")
+    print(f"library agreement: conv1d (cudnn, TF32 off) vs the FIR kernel "
+          f"max |diff| {lib_err:.3e}; torch.fft.fft vs the FFT kernel max "
+          f"|diff| {lib_fft_err:.3e}")
+    # the FIR and FFT at the biosignal staged shapes (no JSON entry)
+    day_frames = frame_signal(sig, WINDOW, HOP)
+    seg = day_frames[:, :FFT].contiguous()
+    zr2, zi2 = seg[:, 0::2].contiguous(), seg[:, 1::2].contiguous()
+    for label, fn, work in (
+            ("fir pipeline_staged (10,797 x 2048, 11 taps)",
+             lambda: fir_cuda(day_frames, app.fir_taps),
+             fir_work(n, WINDOW, 11, 4)),
+            ("fft pipeline_staged (10,797 x 256)",
+             lambda: fft_cuda(zr2, zi2), fft_work(n, FFT // 2, 4))):
+        ms = event_ms(fn, 50)
+        bms, by = bound_ms(*work)
+        wide[label] = {"ms": ms, "bound_ms": bms, "bound_by": by}
+        print(f"time {label}: kernel {ms:.4f} ms, bound {bms:.5f} ms ({by}) "
               f"[{card}]")
 
     # ---- phase 6: kernels and the entries that launched them
     print(f"kernels: {SOURCE} (cuda) launched by frames "
           f"({launches['frames']}), stream ({launches['B=8 no-filtered']}), "
-          f"ring ({launches['ring']}) on the main-path runs")
-    report.update({"card": card, "kind": kind, "rates_windows_per_s": rates,
-                   "launches": launches, "kernels": kernels, "wide": wide,
-                   "max_abs_err": max_err,
+          f"ring ({launches['ring']}); {ASR_SOURCE} (cuda) by frames "
+          f"({asr_launches['host-framed B=32']}), stream "
+          f"({asr_launches['stream B=32']}), ring "
+          f"({asr_launches['resident B=32']}); {FIR_SOURCE} and "
+          f"{FFT_SOURCE} (cuda) by asr_staged ({staged_launches['fir']}, "
+          f"{staged_launches['fft']}) on the main-path runs")
+    report.update({"card": card, "kind": kind, "rates": rates,
+                   "launches": launches, "asr_launches": asr_launches,
+                   "kernels": kernels, "wide": wide, "max_abs_err": max_err,
                    "per_frame": {"candidates": cand_cum[n] / n,
                                  "extrema": ext_cum[n] / n}})
     out_dir = ROOT / "chiprun_out"

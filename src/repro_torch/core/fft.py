@@ -23,8 +23,14 @@ def _twiddle(n: int, dtype=np.float32):
     return np.cos(ang).astype(dtype), np.sin(ang).astype(dtype)
 
 
-def fft_stages(re: torch.Tensor, im: torch.Tensor, *, inverse: bool = False):
-    """Stockham DIF stages; natural-order output. re/im: (..., N)."""
+def fft_stages(re: torch.Tensor, im: torch.Tensor, *, inverse: bool = False,
+               table=None):
+    """Stockham DIF stages; natural-order output. re/im: (..., N).
+
+    ``table`` = (wr, wi), the packed (log2 N, N/2) twiddle table the
+    kernels read (stage s uses row s's first n/2 entries; for the inverse
+    transform, the inverse table); ``None`` computes each stage's
+    twiddles here. Both give the same float32 values."""
     n_total = re.shape[-1]
     if n_total & (n_total - 1):
         raise ValueError(f"N={n_total} not a power of 2")
@@ -33,12 +39,18 @@ def fft_stages(re: torch.Tensor, im: torch.Tensor, *, inverse: bool = False):
     re = re[..., None, :]
     im = im[..., None, :]
     n = n_total
+    stage = 0
     while n > 1:
         ar, ai = re[..., :, : n // 2], im[..., :, : n // 2]
         br, bi = re[..., :, n // 2:], im[..., :, n // 2:]
-        wr_np, wi_np = _twiddle(n, np.float32)
-        wr = torch.as_tensor(wr_np, device=re.device)
-        wi = torch.as_tensor(-wi_np if inverse else wi_np, device=re.device)
+        if table is not None:
+            wr, wi = table[0][stage, : n // 2], table[1][stage, : n // 2]
+        else:
+            wr_np, wi_np = _twiddle(n, np.float32)
+            wr = torch.as_tensor(wr_np, device=re.device)
+            wi = torch.as_tensor(-wi_np if inverse else wi_np,
+                                 device=re.device)
+        stage += 1
         t0r, t0i = ar + br, ai + bi
         dr, di = ar - br, ai - bi
         t1r = dr * wr - di * wi

@@ -10,8 +10,9 @@ operands, and declares the per-frame outputs. Three entries run a graph:
   dispatch of the resident loop (`serve/resident.py`).
 
 Each entry dispatches on the device of its input tensor: a CUDA tensor
-launches the graph's registered kernel (for ``"biosignal"``,
-`csrc/biosignal_graph.cu` through `cuda.py`), a CPU tensor runs the plain
+launches the graph's registered kernel (`csrc/biosignal_graph.cu` for
+``"biosignal"``, `csrc/asr_graph.cu` for ``"asr"``, both through
+`cuda.py`), a CPU tensor runs the plain
 PyTorch version — the FIR, then the stage bodies in dataflow order. There
 is no fallback between the two: a CUDA tensor whose graph has no kernel
 raises.
@@ -298,13 +299,14 @@ def register_graph_factory(name: str, factory: Callable, *,
 
 def _registration(name: str) -> _Registration:
     if name not in _GRAPHS:
+        import repro_torch.kernels.pipeline.asr  # noqa: F401 (registers "asr")
         import repro_torch.kernels.pipeline.kernel  # noqa: F401 (biosignal)
     try:
         return _GRAPHS[name]
     except KeyError:
         raise UnknownGraphError(
-            f"unknown graph {name!r}; registered: {sorted(_GRAPHS)} (the "
-            f"ASR graph comes with the port's ASR slice)") from None
+            f"unknown graph {name!r}; registered: "
+            f"{sorted(_GRAPHS)}") from None
 
 
 def get_graph_factory(name: str) -> Callable:

@@ -27,7 +27,8 @@ from repro_torch.core.biosignal import (MIN_DISTANCE, MIN_PROMINENCE,
                                         band_edges, band_power_features,
                                         delineate, interval_time_features,
                                         make_app, svm_predict)
-from repro_torch.core.fft import untangle_rfft
+from repro_torch.core.fft import fft_stages, untangle_rfft
+from repro_torch.kernels.fft.kernel import twiddle_table
 from repro_torch.kernels.pipeline import cuda
 from repro_torch.kernels.pipeline.graph import (OutputSpec, build_graph,
                                                 canonical_graph_outputs,
@@ -40,22 +41,6 @@ from repro_torch.kernels.pipeline.stages import register_stage
 
 OUTPUTS = ("filtered", "features", "margin", "class")
 N_FEATURES = 12
-
-
-def twiddle_table(n: int) -> tuple[np.ndarray, np.ndarray]:
-    """(stages, n//2) packed forward twiddles; stage s covers group length
-    n >> s (row s holds cos/sin(-2*pi*j/(n >> s)) tiled across the
-    groups)."""
-    stages = int(np.log2(n))
-    wr = np.zeros((stages, n // 2), np.float32)
-    wi = np.zeros((stages, n // 2), np.float32)
-    for s in range(stages):
-        m = n >> s               # current group length
-        j = np.arange(m // 2)
-        ang = -2.0 * np.pi * j / m
-        wr[s] = np.tile(np.cos(ang), n // m).astype(np.float32)
-        wi[s] = np.tile(np.sin(ang), n // m).astype(np.float32)
-    return wr, wi
 
 
 def untangle_table(fft_size: int) -> np.ndarray:
@@ -77,37 +62,20 @@ def _fft_tables(fft_size: int, device: torch.device) -> tuple:
                  for a in (wr, wi, untangle_table(fft_size)))
 
 
-def _packed_rfft(seg, wr, wi, u, *, fft_size: int):
+def _packed_rfft(seg, wr, wi, u):
     """Packed real FFT of (rb, fft_size) rows from the twiddle table: N
     real -> N/2+1 complex via Stockham stages on the packed half-length
-    signal + the untangle epilogue — the stage order the kernel runs."""
-    rb = seg.shape[0]
+    signal + the untangle epilogue — the stage order the kernels run."""
     zr, zi = seg[:, 0::2], seg[:, 1::2]            # pack: z = even + i*odd
-    m = fft_size // 2
-    g, n = 1, m
-    re = zr.reshape(rb, 1, m)
-    im = zi.reshape(rb, 1, m)
-    for s in range(int(np.log2(m))):
-        ar, ai = re[..., : n // 2], im[..., : n // 2]
-        br, bi = re[..., n // 2:], im[..., n // 2:]
-        w_r = wr[s, : n // 2]
-        w_i = wi[s, : n // 2]
-        t0r, t0i = ar + br, ai + bi
-        dr, di = ar - br, ai - bi
-        t1r = dr * w_r - di * w_i
-        t1i = dr * w_i + di * w_r
-        # words-interleaving regroup (self-sorting Stockham)
-        re = torch.stack([t0r, t1r], dim=1).reshape(rb, 2 * g, n // 2)
-        im = torch.stack([t0i, t1i], dim=1).reshape(rb, 2 * g, n // 2)
-        g, n = 2 * g, n // 2
-    return untangle_rfft(re.reshape(rb, m), im.reshape(rb, m), u[0], u[1])
+    re, im = fft_stages(zr, zi, table=(wr, wi))
+    return untangle_rfft(re, im, u[0], u[1])
 
 
 def _rfft_band_powers(seg, wr, wi, u, *, fft_size: int) -> list:
     """Mean-subtracted `_packed_rfft` power reduced to the 6 log-band
     powers of `core.biosignal.extract_features`."""
     seg = seg - seg.mean(dim=-1, keepdim=True)
-    Xr, Xi = _packed_rfft(seg, wr, wi, u, fft_size=fft_size)
+    Xr, Xi = _packed_rfft(seg, wr, wi, u)
     return band_power_features(Xr * Xr + Xi * Xi, fft_size)
 
 

@@ -16,6 +16,7 @@ Not in this slice: ``n_columns > 1`` (the column deal of
 """
 from __future__ import annotations
 
+from repro_torch.kernels import not_in_slice
 from repro_torch.kernels.pipeline.graph import (default_app,
                                                 get_graph_factory,
                                                 graph_frames_call,
@@ -35,18 +36,6 @@ __all__ = ["OUTPUTS", "canonical_outputs", "biosignal_pipeline",
            "ring_chunk_samples", "stream_frame_count", "default_app"]
 
 
-def _not_in_slice(autotune: bool = False, n_columns: int = 1,
-                  column_weights=None) -> None:
-    if autotune:
-        raise NotImplementedError(
-            "autotune=True comes with the port of core/autotune.py (timed "
-            "with CUDA events), a later slice")
-    if n_columns != 1 or column_weights is not None:
-        raise NotImplementedError(
-            "n_columns > 1 / column_weights come with the port of the "
-            "column deal (kernels/pipeline/shard.py), a later slice")
-
-
 def biosignal_pipeline(signal, taps, w, b, *, fft_size: int = 512,
                        block_rows: int | None = None,
                        autotune: bool = False, outputs=None,
@@ -54,7 +43,7 @@ def biosignal_pipeline(signal, taps, w, b, *, fft_size: int = 512,
     """The full MBioTracker pipeline on (R, S) windows in one fused launch
     (CUDA) or the plain version (CPU). Returns the staged app's output
     dict restricted to ``outputs`` (default: all four keys)."""
-    _not_in_slice(autotune, n_columns)
+    not_in_slice(autotune, n_columns)
     return pipeline_frames(signal, taps, w, b, fft_size=fft_size,
                            block_rows=block_rows,
                            outputs=canonical_outputs(outputs))
@@ -69,7 +58,7 @@ def biosignal_pipeline_stream(signal, taps, w, b, *, window: int, hop: int,
     """The pipeline over a RAW 1-D signal with (window, hop) framing.
     Equals ``biosignal_pipeline`` on the host-framed windows, to the last
     bit on one device."""
-    _not_in_slice(autotune, n_columns, column_weights)
+    not_in_slice(autotune, n_columns, column_weights)
     return pipeline_stream(signal, taps, w, b, window=window, hop=hop,
                            fft_size=fft_size, block_frames=block_frames,
                            outputs=canonical_outputs(outputs))
@@ -99,7 +88,7 @@ def graph_pipeline(name: str, app, frames, *,
     """A REGISTERED stage graph on pre-framed (R, S) windows. ``app``
     binds the graph's operand tables (``None``: the graph's default app,
     on the frames' device)."""
-    _not_in_slice(autotune)
+    not_in_slice(autotune)
     graph, operands = _bind(name, app, frames.device)
     return graph_frames_call(frames, operands, graph=graph,
                              block_rows=block_rows, outputs=outputs)
@@ -110,7 +99,7 @@ def graph_pipeline_stream(name: str, app, signal, *, window: int, hop: int,
                           autotune: bool = False, outputs=None) -> dict:
     """A registered stage graph over a RAW 1-D signal with (window, hop)
     framing."""
-    _not_in_slice(autotune)
+    not_in_slice(autotune)
     graph, operands = _bind(name, app, signal.device)
     return graph_stream_call(signal, operands, graph=graph, window=window,
                              hop=hop, block_frames=block_frames,

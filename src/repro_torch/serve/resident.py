@@ -31,8 +31,7 @@ import dataclasses
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.pipeline.graph import (canonical_graph_outputs,
-                                                default_app,
+from repro_torch.kernels.pipeline.graph import (default_app,
                                                 get_graph_factory,
                                                 graph_alloc_outputs,
                                                 graph_empty_outputs,
@@ -40,7 +39,8 @@ from repro_torch.kernels.pipeline.graph import (canonical_graph_outputs,
                                                 ring_chunk_samples,
                                                 stream_frame_count)
 from repro_torch.serve.stream import (StreamConfig, StreamTelemetry,
-                                      _check_stream_config, _no_fault_hooks)
+                                      _check_stream_config, _no_fault_hooks,
+                                      stream_outputs)
 
 DEFAULT_RING_DEPTH = 4
 
@@ -101,7 +101,7 @@ class ResidentStream:
         self._graph, operands = get_graph_factory(cfg.graph)(self.app)
         self._operands = tuple(t.to(self.device) for t in operands)
         self.cfg = dataclasses.replace(
-            cfg, outputs=canonical_graph_outputs(self._graph, cfg.outputs))
+            cfg, outputs=stream_outputs(self._graph, cfg))
         self.telemetry = telemetry
         self.stream_id = stream_id if stream_id is not None else id(self)
         self.column = column

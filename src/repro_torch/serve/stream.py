@@ -30,6 +30,7 @@ from typing import Iterator
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import not_in_slice
 from repro_torch.kernels.pipeline.graph import (canonical_graph_outputs,
                                                 default_app,
                                                 get_graph_factory,
@@ -38,7 +39,6 @@ from repro_torch.kernels.pipeline.graph import (canonical_graph_outputs,
                                                 graph_stream_call,
                                                 stream_frame_count)
 from repro_torch.kernels.pipeline.kernel import OUTPUTS
-from repro_torch.kernels.pipeline.ops import _not_in_slice
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +63,8 @@ class StreamConfig:
     depth: int = 1              # max in-flight batches (1 = double buffer)
     column_weights: tuple | None = None   # non-uniform deal (later slice)
     graph: str = "biosignal"    # which registered stage graph runs
+    #                             ("asr": the ASR front-end); the default
+    #                             `outputs` then means all of its outputs
 
 
 # single source of the framing arithmetic (shared with the kernel)
@@ -83,7 +85,7 @@ def frame_signal(signal, window: int, hop: int) -> torch.Tensor:
 
 
 def _check_stream_config(cfg: StreamConfig, fft_size: int) -> None:
-    _not_in_slice(cfg.autotune, cfg.n_columns, cfg.column_weights)
+    not_in_slice(cfg.autotune, cfg.n_columns, cfg.column_weights)
     if cfg.window < fft_size:
         raise ValueError(f"window {cfg.window} < fft_size {fft_size}")
     if not 0 < cfg.hop <= cfg.window:
@@ -92,6 +94,15 @@ def _check_stream_config(cfg: StreamConfig, fft_size: int) -> None:
         raise ValueError("batch_windows and depth must be positive")
     if cfg.framing not in ("kernel", "host"):
         raise ValueError(f"framing {cfg.framing!r}")
+
+
+def stream_outputs(graph, cfg: StreamConfig) -> tuple:
+    """The config's output selection, canonical for its graph. The
+    default `OUTPUTS` (the biosignal graph's four) means ALL of the
+    configured graph's outputs, so ``StreamConfig(graph="asr")`` needs no
+    ``outputs=``."""
+    return canonical_graph_outputs(
+        graph, None if cfg.outputs is OUTPUTS else cfg.outputs)
 
 
 def _no_fault_hooks(injector, retry) -> None:
@@ -248,7 +259,7 @@ class BiosignalStream:
         self._graph, operands = get_graph_factory(cfg.graph)(self.app)
         self._app_operands = operands
         self.cfg = dataclasses.replace(
-            cfg, outputs=canonical_graph_outputs(self._graph, cfg.outputs))
+            cfg, outputs=stream_outputs(self._graph, cfg))
         self.device = self.app.device
         self._operands = operands
         if device is not None:

@@ -4,6 +4,7 @@ imports on a host without nvcc, and an entry asked for the default
 ("cuda") device raises on a host without a card instead of moving the
 work elsewhere."""
 import ast
+import copy
 import subprocess
 import sys
 from pathlib import Path
@@ -30,10 +31,18 @@ def _imported_roots(path: Path) -> set:
 def test_port_has_sources():
     names = {p.relative_to(PORT).as_posix() for p in SOURCES[:-1]}
     for need in ("core/biosignal.py", "kernels/pipeline/graph.py",
-                 "kernels/pipeline/cuda.py", "serve/stream.py",
+                 "kernels/_cuda.py", "kernels/pipeline/cuda.py",
+                 "kernels/pipeline/asr.py",
+                 "kernels/pipeline/ref.py", "kernels/fir/kernel.py",
+                 "kernels/fir/ops.py", "kernels/fir/ref.py",
+                 "kernels/fft/kernel.py", "kernels/fft/ops.py",
+                 "kernels/fft/ref.py", "serve/stream.py",
                  "serve/resident.py"):
         assert need in names
-    assert (PORT / "kernels/pipeline/csrc/biosignal_graph.cu").is_file()
+    for src in ("pipeline/csrc/biosignal_graph.cu",
+                "pipeline/csrc/asr_graph.cu", "fir/csrc/fir.cu",
+                "fft/csrc/fft.cu"):
+        assert (PORT / "kernels" / src).is_file()
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -62,7 +71,7 @@ def test_import_loads_no_jax_or_reference_modules():
                                "PATH": "/usr/bin:/bin"})
     assert proc.returncode == 0, proc.stderr
     n_modules, bad = proc.stdout.strip().splitlines()
-    assert int(n_modules) >= 15
+    assert int(n_modules) >= 24
     assert bad == "[]", bad
 
 
@@ -88,11 +97,14 @@ def test_default_device_raises_without_a_card():
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_without_building():
-    """The CUDA wrapper checks its inputs before it builds anything, so on
-    a host without nvcc a CPU tensor gets a ValueError, not a build."""
+    """The CUDA wrappers check their inputs before they build anything, so
+    on a host without nvcc a CPU tensor gets a ValueError, not a build."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.fft.kernel import fft_cuda
+    from repro_torch.kernels.fir.kernel import fir_cuda
     from repro_torch.kernels.pipeline import cuda
 
-    before = dict(cuda.LAUNCHES)
+    before = copy.deepcopy(_cuda.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda.launch_biosignal_graph(
             torch.zeros(4096), entry="stream", window=2048, n_frames=5,
@@ -100,6 +112,17 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_building():
             twiddle_re=None, twiddle_im=None, untangle=None, svm_w=None,
             svm_b=None, fft_size=512, bands=(1,) * 7, prominence=0.3,
             min_distance=15, block_frames=1, out={})
-    assert cuda.LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda.launch_asr_graph(
+            torch.zeros(4096), entry="ring", window=512, n_frames=5,
+            frame_stride=160, n_slots=1, slot_stride=0, taps=None,
+            hann=None, twiddle_re=None, twiddle_im=None, untangle=None,
+            mel_w=None, fft_size=512, block_frames=8, out={})
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fir_cuda(torch.zeros(2, 64), [1.0, -0.97])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fft_cuda(torch.zeros(2, 64), torch.zeros(2, 64))
+    assert _cuda.LAUNCHES == before
     if not torch.cuda.is_available():
-        assert cuda.build.cache_info().currsize == 0
+        assert _cuda.build.cache_info().currsize == 0
+        assert _cuda.library.cache_info().currsize == 0

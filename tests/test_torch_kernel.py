@@ -1,22 +1,35 @@
-"""The fused biosignal graph kernel (`csrc/biosignal_graph.cu`) against
-its plain PyTorch version. This file imports torch and the port only, so
-it also runs on a machine with the card and no jax:
+"""The port's CUDA kernels against their plain PyTorch versions: the fused
+biosignal graph (`csrc/biosignal_graph.cu`), the fused ASR graph
+(`csrc/asr_graph.cu`), the standalone FIR (`kernels/fir/csrc/fir.cu`) and
+FFT (`kernels/fft/csrc/fft.cu`). This file imports torch and the port
+only, so it also runs on a machine with the card and no jax:
 
     python -m pytest -q -m cuda tests/test_torch_kernel.py
 
 The `cuda`-marked tests skip without a card. Tolerances on the card:
-class, filtered and the interval time features exact (same comparisons,
-integer arithmetic, and the FIR in the same order without FMA on both
-sides); band powers rtol/atol 1e-5 and margin rtol 1e-5 atol 1e-4 (the
-delineation mean, the segment mean and the band sums reduce in another
-order)."""
+
+* biosignal: class, filtered and the interval time features exact (same
+  comparisons, integer arithmetic, and the FIR in the same order without
+  FMA on both sides); band powers rtol/atol 1e-5 and margin rtol 1e-5
+  atol 1e-4 (the delineation mean, the segment mean and the band sums
+  reduce in another order);
+* ASR: filtered exact (the same FIR); logmel within 1e-5 of its largest
+  magnitude (the mel sums run in another order than the plain version's);
+* FIR and FFT: within 1e-5 / 1e-4 in float32 and 2e-2 / 5e-2 in bfloat16
+  (the stated bounds; both kernels repeat the plain version's operations
+  in its order, so they usually agree to the last bit)."""
 import re
 
 import pytest
 import torch
 
 from repro_torch.core.biosignal import make_app, synthetic_respiration
+from repro_torch.core.fir import lowpass_taps
+from repro_torch.kernels import _cuda
+from repro_torch.kernels.fft.kernel import fft_cuda, fft_plain
+from repro_torch.kernels.fir.kernel import fir_cuda, fir_plain
 from repro_torch.kernels.pipeline import cuda
+from repro_torch.kernels.pipeline.asr import make_asr_frontend
 from repro_torch.kernels.pipeline.graph import (
     get_graph_factory, graph_frames_call, graph_frames_plain,
     graph_ring_call, graph_ring_plain, graph_stream_call,
@@ -24,26 +37,38 @@ from repro_torch.kernels.pipeline.graph import (
 from repro_torch.kernels.pipeline.kernel import OUTPUTS
 from repro_torch.serve.stream import frame_signal
 
-SOURCE = cuda.SOURCE.read_text()
-
 
 def test_binding_matches_the_source():
     """The C symbols and output bits the ctypes binding relies on are the
-    ones the source defines."""
-    for sym in ("biosignal_graph_launch", "biosignal_graph_smem_bytes",
-                "biosignal_graph_error_string"):
-        assert re.search(rf"\b{sym}\(", SOURCE), sym
-    for name, bit in cuda._OUT_BITS.items():
-        const = "kOut" + name.capitalize()
-        assert re.search(rf"constexpr int {const} = {bit};", SOURCE), name
-    assert "-use_fast_math" not in cuda.NVCC_FLAGS
-    assert "arch=compute_90a,code=sm_90a" in cuda.NVCC_FLAGS
+    ones each source defines."""
+    for kernel, spec in _cuda.KERNELS.items():
+        text = spec.source.read_text()
+        for sym in (*spec.signatures, f"{kernel}_error_string"):
+            assert re.search(rf"\b{sym}\(", text), (kernel, sym)
+        # the note each source opens with
+        assert re.search(r"Replaces\b[\s\S]{0,120}src/repro/kernels/", text)
+        assert "What bounds it on this card" in text, kernel
+    for kernel, bits in cuda.OUT_BITS.items():
+        text = _cuda.KERNELS[kernel].source.read_text()
+        for name, bit in bits.items():
+            const = "kOut" + name.capitalize()
+            assert re.search(rf"constexpr int {const} = {bit};", text), name
+    assert "-use_fast_math" not in _cuda.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
 
 
 def test_launch_counts_reset():
-    cuda.LAUNCHES["ring"] += 2
-    cuda.reset_launches()
-    assert cuda.LAUNCHES == {"frames": 0, "stream": 0, "ring": 0}
+    _cuda.LAUNCHES["biosignal_graph"]["ring"] += 2
+    _cuda.LAUNCHES["asr_graph"]["stream"] += 1
+    _cuda.LAUNCHES["fft"]["rows"] += 3
+    _cuda.reset_launches()
+    assert _cuda.LAUNCHES == {k: dict.fromkeys(v.entries, 0)
+                              for k, v in _cuda.KERNELS.items()}
+    assert set(_cuda.LAUNCHES) == \
+        {"biosignal_graph", "asr_graph", "fir", "fft"}
+    assert _cuda.KERNELS["asr_graph"].entries == ("frames", "stream", "ring")
+    assert _cuda.KERNELS["fir"].entries == _cuda.KERNELS["fft"].entries == \
+        ("rows",)
 
 
 @pytest.fixture
@@ -78,7 +103,7 @@ def test_kernel_matches_plain_on_card(card, outputs, window, hop):
     sig = synthetic_respiration(1, 11 * hop + window + 5, seed=window,
                                 device=card)[0][0]
     kw = dict(graph=graph, outputs=outputs)
-    cuda.reset_launches()
+    _cuda.reset_launches()
     stream = graph_stream_call(sig, operands, window=window, hop=hop, **kw)
     frames = frame_signal(sig, window, hop)
     framed = graph_frames_call(frames, operands, block_rows=3, **kw)
@@ -87,7 +112,8 @@ def test_kernel_matches_plain_on_card(card, outputs, window, hop):
     ring = sig[: (depth - 1) * stride + span].as_strided(
         (depth, span), (stride, 1))
     ringed = graph_ring_call(ring, operands, window=window, hop=hop, **kw)
-    assert cuda.LAUNCHES == {"frames": 1, "stream": 1, "ring": 1}
+    assert _cuda.LAUNCHES["biosignal_graph"] == {"frames": 1, "stream": 1,
+                                                "ring": 1}
     _close(stream, graph_stream_plain(sig, operands, window=window, hop=hop,
                                       **kw))
     _close(framed, graph_frames_plain(frames, operands, **kw))
@@ -140,3 +166,141 @@ def test_kernel_refuses_what_it_does_not_take(card):
     cpu_ops = tuple(t.cpu() for t in operands)
     with pytest.raises(ValueError, match="taps"):
         graph_stream_call(sig, cpu_ops, graph=graph, window=2048, hop=512)
+
+
+# ------------------------------------------------------------- ASR graph
+
+def _audio(n: int, seed: int, device) -> torch.Tensor:
+    """A chirp plus noise at 16 kHz, drawn in numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 16000.0
+    x = np.sin(2 * np.pi * (200 + 40 * t) * t) + \
+        0.1 * rng.standard_normal(n)
+    return torch.as_tensor(x.astype(np.float32), device=device)
+
+
+def _close_asr(got: dict, want: dict):
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        g = got[k]
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        if k == "filtered":
+            assert torch.equal(g, w), k
+        else:
+            scale = max(1.0, float(w.abs().max()))
+            assert float((g - w).abs().max()) / scale < 1e-5, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("outputs", [("filtered", "logmel"), ("logmel",),
+                                     ("filtered",)])
+@pytest.mark.parametrize("window,hop", [(512, 160), (1024, 256)])
+def test_asr_kernel_matches_plain_on_card(card, outputs, window, hop):
+    app = make_asr_frontend(device=card)
+    graph, operands = get_graph_factory("asr")(app)
+    sig = _audio(21 * hop + window + 5, seed=window, device=card)
+    kw = dict(graph=graph, outputs=outputs)
+    _cuda.reset_launches()
+    stream = graph_stream_call(sig, operands, window=window, hop=hop, **kw)
+    frames = frame_signal(sig, window, hop)
+    framed = graph_frames_call(frames, operands, block_rows=3, **kw)
+    bw, depth = 6, 3
+    span, stride = ring_chunk_samples(window, hop, bw), bw * hop
+    ring = sig[: (depth - 1) * stride + span].as_strided(
+        (depth, span), (stride, 1))
+    ringed = graph_ring_call(ring, operands, window=window, hop=hop, **kw)
+    assert _cuda.LAUNCHES["asr_graph"] == {"frames": 1, "stream": 1,
+                                          "ring": 1}
+    _close_asr(stream, graph_stream_plain(sig, operands, window=window,
+                                          hop=hop, **kw))
+    _close_asr(framed, graph_frames_plain(frames, operands, **kw))
+    _close_asr(ringed, graph_ring_plain(ring, operands, window=window,
+                                        hop=hop, **kw))
+    for k in stream:                          # one per-frame code path
+        assert torch.equal(stream[k], framed[k]), k
+        for r in range(depth):
+            assert torch.equal(ringed[k][r],
+                               stream[k][r * bw: r * bw + bw]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_frames", [1, 8, 13])
+@pytest.mark.parametrize("valid_frames", [None, 10, 0])
+def test_asr_kernel_counts_the_frames_it_retires(card, block_frames,
+                                                 valid_frames):
+    app = make_asr_frontend(device=card)
+    graph, operands = get_graph_factory("asr")(app)
+    bw, depth, window, hop = 6, 3, 512, 160
+    span, stride = ring_chunk_samples(window, hop, bw), bw * hop
+    sig = _audio((depth - 1) * stride + span, seed=2, device=card)
+    ring = sig.as_strided((depth, span), (stride, 1))
+    counts = torch.full((2,), 5, dtype=torch.int32, device=card)
+    kw = dict(graph=graph, window=window, hop=hop, outputs=("logmel",),
+              valid_frames=valid_frames)
+    graph_ring_call(ring, operands, block_frames=block_frames,
+                    retired=counts[1], **kw)
+    want = depth * bw if valid_frames is None else valid_frames
+    assert counts.tolist() == [5, 5 + want]
+
+
+# --------------------------------------------------- standalone FIR / FFT
+
+_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 5e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [2, 11])
+@pytest.mark.parametrize("shape,seq_block,block_rows", [
+    ((5, 3000), 1024, None), ((3, 512), 2048, 2), ((1, 70000), 2048, 1)])
+def test_fir_kernel_matches_plain_on_card(card, dtype, k, shape, seq_block,
+                                          block_rows):
+    """Rows longer than one tile: each tile reads the k-1 samples before
+    it, so the filter runs over the whole row."""
+    g = torch.Generator(device=card).manual_seed(k)
+    x = torch.randn(shape, generator=g, device=card).to(dtype)
+    taps = torch.as_tensor(lowpass_taps(k), device=card)
+    _cuda.reset_launches()
+    got = fir_cuda(x, taps, seq_block=seq_block, block_rows=block_rows)
+    assert _cuda.LAUNCHES["fir"]["rows"] == 1
+    want = fir_plain(x, taps)
+    assert got.dtype == dtype and got.shape == x.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=_TOL[dtype][0],
+                               rtol=_TOL[dtype][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n,rows", [(8, 300), (256, 37), (2048, 3),
+                                    (8192, 2)])
+def test_fft_kernel_matches_plain_on_card(card, dtype, inverse, n, rows):
+    g = torch.Generator(device=card).manual_seed(n)
+    re = torch.randn(rows, n, generator=g, device=card).to(dtype)
+    im = torch.randn(rows, n, generator=g, device=card).to(dtype)
+    _cuda.reset_launches()
+    gr, gi = fft_cuda(re, im, inverse=inverse)
+    assert _cuda.LAUNCHES["fft"]["rows"] == 1
+    wr, wi = fft_plain(re, im, inverse=inverse)
+    tol = _TOL[dtype][1]
+    scale = float(torch.maximum(wr.abs().max(), wi.abs().max()).float())
+    for a, b in ((gr, wr), (gi, wi)):
+        assert a.dtype == dtype and a.shape == re.shape
+        assert float((a.float() - b.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+def test_fir_and_fft_refuse_what_they_do_not_take(card):
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fir_cuda(torch.zeros(2, 64, device=card, dtype=torch.float64),
+                 [1.0, -0.97])
+    with pytest.raises(ValueError, match="taps"):
+        fir_cuda(torch.zeros(2, 64, device=card), torch.ones(65))
+    with pytest.raises(ValueError, match="power of 2"):
+        fft_cuda(torch.zeros(2, 12, device=card),
+                 torch.zeros(2, 12, device=card))
+    with pytest.raises(ValueError, match="shared memory"):
+        fft_cuda(torch.zeros(1, 16384, device=card),
+                 torch.zeros(1, 16384, device=card))
