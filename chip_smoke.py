@@ -8,8 +8,8 @@ NVIDIA GPU.
 Phases, each printing one line (or a few):
 
 1. the card's name and power limit (nvidia-smi), then the build of the
-   four kernels (biosignal graph, ASR graph, FIR, FFT), one nvcc each,
-   all started together;
+   seven kernels (biosignal graph, ASR graph, FIR, FFT, shuffle, RoPE,
+   flash attention), one nvcc each, all started together;
 2. the fused biosignal graph kernel held against its plain PyTorch
    version on the card, for the framed, stream and ring entries, at the
    full width (window 2048, hop 512) and every output selection; stream,
@@ -19,6 +19,11 @@ A1. the three kernels of the ASR slice against their plain versions: the
    stream == framed == ring slot bitwise), the FIR in float32 and
    bfloat16 at 2 and 11 taps on rows longer than one tile, the FFT at N
    8, 256 and 2048, forward and inverse, float32 and bfloat16;
+A3. the shuffle, RoPE and flash-attention kernels against their plain
+   versions at edge shapes: every shuffle op and half at N 2/64/128/256
+   and shifts 0/32/-5/2N+3 (bitwise); both RoPE layouts at dh 32/120/128
+   and positions up to 8192; attention with GQA, windows, Sq != Skv
+   without causal, S not a multiple of the kernel's tile, dh 24 to 256;
 3. the biosignal main path: `BiosignalStream(...).process` over a
    24-hour, 64 Hz synthetic recording (5,529,600 samples, 10,797 frames)
    for batch_windows 8 and 512, with and without the filtered output,
@@ -33,10 +38,27 @@ A2. the ASR main path over one hour of 16 kHz audio (57,600,000 samples,
    bitwise equal, every row held against the plain version; then
    `asr_staged` (the FIR and FFT kernels) over the same hour, held to the
    fused path, and `pipeline_staged` over the biosignal day;
+S. the standalone entries at their users' full widths, each run with the
+   launch counts set to 0 just before and read just after, every output
+   against the plain version: `shuffle` (S1: every op on the hour's ASR
+   frames split into A and B, 359,997 x 256 float32, and three ops on
+   each half; S2: every op on a million VWRs of 128 int32 words, bitwise),
+   `rope` (R1: a qwen1.5-0.5b prefill's q, (4, 2048, 16, 64), theta 1e6,
+   both layouts in float32 and bfloat16; R2: an h2o-danube3-4b q, (1,
+   8192, 32, 120), theta 1e4, bfloat16; one int32 position per slot) and
+   `flash_attention` (F1: qwen1.5-0.5b prefill, B 4, S 2048, 16 heads, dh
+   64, causal; F2: h2o-danube3-4b, S 8192, 32 heads over 8 kv heads, dh
+   120, causal, window 4096; F3: whisper-medium's encoder, B 8, S 1500, 16
+   heads, dh 64, no mask, chunks 300; each in bfloat16 and float32), the
+   plain attention computed one kv-head group at a time, and what the
+   check would read from a kernel that drops one 64-key tile of each
+   row's band (the run fails unless the tolerance flags it);
 5. per-kernel times (CUDA events behind a device sleep) beside the bound
    worked out from the bytes and operations each call needs on this
-   run's data, the plain version's time and, for the FIR and the FFT, one
-   PyTorch call computing the same function;
+   run's data (for attention over the live pairs of the mask, at the
+   bfloat16 tensor-core peak for bfloat16 and the fp32 peak for float32),
+   the plain version's time and, for the FIR, the FFT and attention, one
+   PyTorch call computing the same function (timed here only);
 6. the ported kernels and the entries that launched them.
 
 The last two lines are a JSON object of per-kernel numbers and the
@@ -68,6 +90,7 @@ ASR_WINDOW, ASR_HOP, ASR_RATE = 512, 160, 16000
 HOUR_SAMPLES = 3600 * ASR_RATE                # 57,600,000
 HOUR_FRAMES = 359_997
 PEAK_FP32 = 67e12                             # H100 SXM, non-tensor fp32
+PEAK_BF16 = 989e12                            # H100 SXM, dense bf16 tensor
 PEAK_BYTES = 3.35e12                          # H100 SXM HBM3
 SOURCE = "src/repro_torch/kernels/pipeline/csrc/biosignal_graph.cu"
 ASR_SOURCE = "src/repro_torch/kernels/pipeline/csrc/asr_graph.cu"
@@ -79,6 +102,13 @@ REPLACES = {"frames": "src/repro/kernels/pipeline/graph.py:479",
 ASR_STAGES = " (stage bodies src/repro/kernels/pipeline/asr.py:115/127/140)"
 FIR_REPLACES = "src/repro/kernels/fir/kernel.py:56"
 FFT_REPLACES = "src/repro/kernels/fft/kernel.py:86"
+SHUFFLE_SOURCE = "src/repro_torch/kernels/shuffle/csrc/shuffle.cu"
+ROPE_SOURCE = "src/repro_torch/kernels/rope/csrc/rope.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/" \
+    "flash_attention.cu"
+SHUFFLE_REPLACES = "src/repro/kernels/shuffle/kernel.py:86"
+ROPE_REPLACES = "src/repro/kernels/rope/kernel.py:55"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:102"
 # |kernel - plain| <= ATOL + RTOL * |plain|, per output. The FIR and the
 # SVM run in the same order in both, without FMA; the delineation mean,
 # the FFT-segment mean and the band sums are reductions in another order.
@@ -91,6 +121,47 @@ ASR_LOGMEL_TOL = 1e-5
 # standalone kernels: max |kernel - plain| <= tol * max |plain|
 FIR_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 FFT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# shuffle: bitwise. RoPE: max |kernel - plain| <= tol * max |plain| (the
+# same float32 operations in the same order and the same expf/sinf/cosf;
+# bfloat16 within one rounding). Attention: |kernel - plain| <= atol + rtol
+# |plain| per element, (atol, rtol) below. Both sum in float32 in another
+# order: float32 outputs read at most ~1.5e-6 at |out| up to ~4 (PR 13's
+# runs), so 3e-5 + 3e-5 |plain|, the JAX package's float32 tolerance.
+# bfloat16 outputs are those float32 values rounded once each, so they
+# differ by at most one bfloat16 step, <= 2^-7 |plain|, plus the float32
+# difference, which 1e-4 covers 60 times over. A kernel that drops one
+# 64-key tile from every row's band moves outputs by ~1e-2 at these
+# sizes: `dropped_tile_reading` measures that on every run and the run
+# fails unless this tolerance flags it.
+ROPE_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+FLASH_TOL = {"float32": (3e-5, 3e-5), "bfloat16": (1e-4, 2.0 ** -7)}
+FLASH_DROP_TILE = 64
+SHUFFLE_HALVES = ("both", "lower", "upper")
+# phase A3's attention shapes: (B, Sq, Skv, H, KV, dh), causal, window
+FLASH_EDGES = [((2, 128, 128, 4, 2, 64), True, None),    # GQA
+               ((1, 200, 200, 4, 1, 120), True, None),   # MQA, S % 64
+               ((2, 256, 256, 4, 2, 32), True, 96),      # window
+               ((1, 150, 150, 2, 2, 24), True, 32),      # dh 24
+               ((1, 96, 160, 4, 2, 64), False, None),    # Sq < Skv
+               ((1, 160, 96, 4, 4, 128), False, None),   # Sq > Skv
+               ((1, 100, 100, 2, 1, 256), False, 40)]    # dh 256
+# phase S's attention: tag, (B, S, H, KV, dh), causal, window, chunk,
+# dtypes; F1 qwen1.5-0.5b prefill, F2 h2o-danube3-4b at its window, F3
+# whisper-medium's encoder over the 1,500 frames of its front-end
+FLASH_PATH = [("F1", (4, 2048, 16, 16, 64), True, None, 256,
+               ("bfloat16", "float32")),
+              ("F2", (1, 8192, 32, 8, 120), True, 4096, 256,
+               ("bfloat16", "float32")),
+              ("F3", (8, 1500, 16, 16, 64), False, None, 300,
+               ("bfloat16", "float32"))]
+# phase S's RoPE: tag, q (B, S, H, dh), theta, (layout, dtype) runs; R1
+# qwen1.5-0.5b prefill, R2 h2o-danube3-4b
+ROPE_PATH = [("R1", (4, 2048, 16, 64), 1e6,
+              tuple((lay, dt) for lay in ("neox", "interleaved")
+                    for dt in ("float32", "bfloat16"))),
+             ("R2", (1, 8192, 32, 120), 1e4, (("neox", "bfloat16"),))]
+# phase S2's shuffle: a million VWRs of 128 32-bit words
+VWR_ROWS, VWR_WORDS = 1 << 20, 128
 
 
 def card_line() -> str:
@@ -234,8 +305,8 @@ def graph_work(n_frames: int, in_samples: int, outputs: tuple,
     return nbytes, ops * n_frames + data_ops
 
 
-def bound_ms(nbytes: int, ops: int) -> tuple:
-    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+def bound_ms(nbytes: int, ops: int, peak: float = PEAK_FP32) -> tuple:
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -510,6 +581,458 @@ def asr_kernels_vs_plain(asr_graph, asr_ops, dev) -> dict:
     return err
 
 
+# ---------------------------------------------------------------------------
+# The standalone shuffle-unit, RoPE and flash-attention kernels
+# ---------------------------------------------------------------------------
+
+def shuffle_work(rows: int, out_n: int, elem: int) -> tuple:
+    """(bytes, operations) of one shuffle: a permutation, so each output
+    word is one word of A or B, read once, and is written once; the words
+    no output takes (the other half, the pruned words) need not move. No
+    arithmetic on the data."""
+    return 2 * elem * rows * out_n, 0
+
+
+def rope_work(rows: int, n_pos: int, dh: int, elem: int,
+              pos_elem: int) -> tuple:
+    """(bytes, operations) of the rotary pass over ``rows`` rows that share
+    ``n_pos`` positions: x read and written once, each position read once;
+    the dh/2 inverse frequencies (2 products each), one angle per position
+    and frequency, and per pair the rotation (4 products, 2 sums); the
+    exp, sin and cos are not counted."""
+    half = dh // 2
+    return (2 * elem * rows * dh + pos_elem * n_pos,
+            2 * half + n_pos * half + 6 * rows * half)
+
+
+def live_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """The (query, key) pairs of one head that the mask keeps."""
+    import numpy as np
+
+    qpos = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(qpos, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, qpos - window + 1) if window is not None else 0
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_work(B: int, sq: int, skv: int, H: int, KV: int, dh: int,
+               elem: int, causal: bool, window) -> tuple:
+    """(bytes, operations) of attention: q, k, v read once and the output
+    written once; 4 dh operations per live (query, key) pair (the QK^T and
+    PV products), over this run's mask."""
+    nbytes = elem * dh * (2 * B * sq * H + 2 * B * skv * KV)
+    return nbytes, 4 * dh * B * H * live_pairs(sq, skv, causal, window)
+
+
+def plain_attention_by_group(q, k, v, *, causal: bool, window=None):
+    """`flash_attention_plain` one kv head (and its group of query heads)
+    at a time, so the O(S^2) score tensor of one group fits; rows cannot
+    be split, since positions count from 0."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_plain
+
+    KV, G = k.shape[2], q.shape[2] // k.shape[2]
+    out = torch.empty_like(q)
+    for h in range(KV):
+        out[:, :, h * G:(h + 1) * G] = flash_attention_plain(
+            q[:, :, h * G:(h + 1) * G], k[:, :, h:h + 1], v[:, :, h:h + 1],
+            causal=causal, window=window)
+    return out
+
+
+def check_bitwise(name: str, got, want) -> None:
+    """Raise unless ``got`` and ``want`` hold the same words."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.dtype}{tuple(got.shape)} vs "
+                             f"{want.dtype}{tuple(want.shape)}")
+    view = torch.int32 if got.element_size() == 4 else torch.int16
+    if not torch.equal(got.view(view), want.view(view)):
+        raise AssertionError(f"{name}: not bitwise equal")
+
+
+def check_elementwise(name: str, got, want, tol: tuple) -> float:
+    """Raise unless |got - want| <= atol + rtol |want| everywhere (in
+    float32), ``tol = (atol, rtol)``, and got is finite; returns the max
+    |difference|."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.dtype}{tuple(got.shape)} vs "
+                             f"{want.dtype}{tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    if not bool(g.isfinite().all()):
+        raise AssertionError(f"{name}: non-finite values")
+    atol, rtol = tol
+    diff = (g - w).abs()
+    excess = diff - (atol + rtol * w.abs())
+    if bool((excess > 0).any()):
+        i = int(excess.argmax())
+        raise AssertionError(f"{name}: |diff| {diff.flatten()[i].item():.3e}"
+                             f" > {atol} + {rtol} x |plain| "
+                             f"{w.flatten()[i].abs().item():.3e} at flat "
+                             f"index {i}")
+    return float(diff.max())
+
+
+def dropped_tile_reading(q, k, v, want, *, causal: bool, window,
+                         tol: tuple) -> tuple:
+    """What the attention check reads from a kernel that skips one
+    `FLASH_DROP_TILE`-key tile of every row's band (the tile before the
+    one holding the row's newest key): that output is made in plain
+    PyTorch for the first kv head and its group of query heads, rounded to
+    q's dtype and held against ``want``, the plain output. Returns (max
+    |diff|, the share of those outputs that ``tol`` flags)."""
+    import torch
+
+    from repro_torch.models.attention import NEG_INF
+
+    B, sq, H, dh = q.shape
+    skv, G = k.shape[1], H // k.shape[2]
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(skv, device=q.device)[None, :]
+    newest = qp.clamp(max=skv - 1) if causal else \
+        torch.full_like(qp, skv - 1)
+    mask = kp // FLASH_DROP_TILE != newest // FLASH_DROP_TILE - 1
+    if causal:
+        mask &= qp >= kp
+    if window is not None:
+        mask &= qp - kp < window
+    s = torch.einsum("bqhd,bsd->bhqs", q[:, :, :G].float(),
+                     k[:, :, 0].float()) / math.sqrt(dh)
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    del s
+    out = torch.einsum("bhqs,bsd->bqhd", p, v[:, :, 0].float()).to(q.dtype)
+    w = want[:, :, :G].float()
+    diff = (out.float() - w).abs()
+    flagged = diff > tol[0] + tol[1] * w.abs()
+    return float(diff.max()), float(flagged.float().mean())
+
+
+def standalone_kernels_vs_plain(dev) -> dict:
+    """Phase A3: the shuffle, RoPE and flash-attention kernels against
+    their plain versions at edge shapes; returns max |diff| per kernel."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda, flash_attention_plain)
+    from repro_torch.kernels.rope.kernel import (LAYOUTS, rope_cuda,
+                                                 rope_plain)
+    from repro_torch.kernels.shuffle.kernel import (OPS, shuffle_cuda,
+                                                    shuffle_plain)
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    n_shuffle = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        for n in (2, 64, 128, 256):
+            if dtype == torch.int32:
+                a, b = (torch.randint(-2 ** 31, 2 ** 31 - 1, (37, n),
+                                      generator=g, device=dev,
+                                      dtype=torch.int32) for _ in range(2))
+            else:
+                a, b = (torch.randn(37, n, generator=g, device=dev)
+                        .to(dtype) for _ in range(2))
+            for op in OPS:
+                for half in SHUFFLE_HALVES:
+                    for amount in (0, 32, -5, 2 * n + 3):
+                        check_bitwise(
+                            f"shuffle {op} {half} {amount} N={n} {dtype}",
+                            shuffle_cuda(a, b, op, half=half, amount=amount),
+                            shuffle_plain(a, b, op, half=half,
+                                          amount=amount))
+                        n_shuffle += 1
+    err = {f"{k} {d}": 0.0 for k in ("rope", "flash_attention")
+           for d in ("float32", "bfloat16")}
+    err["shuffle"] = 0.0
+    n_rope = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for dh in (32, 120, 128):
+            x = torch.randn(300, dh, generator=g, device=dev).to(dtype)
+            name = str(dtype).replace("torch.", "")
+            # one position a row (int32), then one per 3 rows (int64, the
+            # heads of a slot) and one per 5 rows (float32)
+            for heads, pdt in ((1, torch.int32), (3, torch.int64),
+                               (5, torch.float32)):
+                pos = torch.randint(0, 8192, (300 // heads,), generator=g,
+                                    device=dev).to(pdt)
+                for layout in LAYOUTS:
+                    for theta in (1e4, 1e6):
+                        kw = dict(theta=theta, layout=layout, heads=heads)
+                        err[f"rope {name}"] = max(
+                            err[f"rope {name}"], check_scaled(
+                                f"rope {layout} dh={dh} theta={theta} "
+                                f"heads={heads} {pdt} {name}",
+                                rope_cuda(x, pos, **kw),
+                                rope_plain(x, pos, **kw), ROPE_TOL[name]))
+                        n_rope += 1
+    n_flash = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for (B, sq, skv, H, KV, dh), causal, window in FLASH_EDGES:
+            q = torch.randn(B, sq, H, dh, generator=g, device=dev).to(dtype)
+            k = torch.randn(B, skv, KV, dh, generator=g, device=dev) \
+                .to(dtype)
+            v = torch.randn(B, skv, KV, dh, generator=g, device=dev) \
+                .to(dtype)
+            name = str(dtype).replace("torch.", "")
+            err[f"flash_attention {name}"] = max(
+                err[f"flash_attention {name}"], check_elementwise(
+                    f"flash {(B, sq, skv, H, KV, dh)} causal={causal} "
+                    f"window={window} {name}",
+                    flash_attention_cuda(q, k, v, causal=causal,
+                                         window=window),
+                    flash_attention_plain(q, k, v, causal=causal,
+                                          window=window),
+                    FLASH_TOL[name]))
+            n_flash += 1
+    print(f"shuffle vs plain on the card: {n_shuffle} cases (5 ops x "
+          f"{len(SHUFFLE_HALVES)} halves x amounts 0/32/-5/2N+3 x N "
+          f"2/64/128/256 x float32/bfloat16/int32), all bitwise; RoPE vs "
+          f"plain: {n_rope} cases (both layouts x dh 32/120/128 x theta "
+          f"1e4/1e6 x float32/bfloat16 x positions int32 a row, int64 per "
+          f"3 rows, float32 per 5 rows, < 8192), max |diff| "
+          f"float32 {err['rope float32']:.3e} bfloat16 "
+          f"{err['rope bfloat16']:.3e} (tol {ROPE_TOL}, x max|plain|); "
+          f"flash vs plain: {n_flash} cases (GQA, MQA, windows, Sq != Skv "
+          f"without causal, S % 64 != 0, dh 24-256), max |diff| float32 "
+          f"{err['flash_attention float32']:.3e} bfloat16 "
+          f"{err['flash_attention bfloat16']:.3e} (tol (atol, rtol) "
+          f"{FLASH_TOL})")
+    return err
+
+
+def standalone_path(audio, dev, card: str) -> dict:
+    """Phase S: the shuffle, RoPE and flash-attention entries at the full
+    widths of their users, each run with the launch counts set to 0 just
+    before it and read just after, every output held against the plain
+    version. Returns what phase 5 times, {case: dict}, and the launches
+    of every run, {kernel: {entry: n}}."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rope.kernel import rope_plain
+    from repro_torch.kernels.rope.ops import rope
+    from repro_torch.kernels.shuffle.kernel import OPS, shuffle_plain
+    from repro_torch.kernels.shuffle.ops import shuffle
+    from repro_torch.serve.stream import frame_signal
+
+    cases, totals = {}, {}
+
+    def tally(got: dict) -> None:
+        for kernel in ("shuffle", "rope", "flash_attention"):
+            for entry, n in got[kernel].items():
+                totals.setdefault(kernel, {}).setdefault(entry, 0)
+                totals[kernel][entry] += n
+
+    # S1: each ASR frame of the hour as A = its first and B = its second
+    # 256 samples, so bit_reverse is the 512-point FFT's reorder
+    frames = frame_signal(audio, ASR_WINDOW, ASR_HOP)
+    a1 = frames[:, : ASR_WINDOW // 2].contiguous()
+    b1 = frames[:, ASR_WINDOW // 2:].contiguous()
+    del frames
+    # S2: the paper's VWR of 128 32-bit words, a million rows
+    g = torch.Generator(device=dev).manual_seed(21)
+    a2, b2 = (torch.randint(-2 ** 31, 2 ** 31 - 1, (VWR_ROWS, VWR_WORDS),
+                            generator=g, device=dev, dtype=torch.int32)
+              for _ in range(2))
+    for tag, a, b, runs in (
+            ("S1", a1, b1, [(op, "both") for op in OPS] +
+             [(op, h) for op in ("interleave", "bit_reverse",
+                                 "circular_shift")
+              for h in ("lower", "upper")]),
+            ("S2", a2, b2, [(op, "both") for op in OPS])):
+        outs, got = counted(lambda: [shuffle(a, b, op, half=h, amount=32)
+                                     for op, h in runs])
+        want = {}
+        for op, h in runs:
+            want[("shuffle", op)] = want.get(("shuffle", op), 0) + 1
+        expect_launches(f"shuffle {tag}", got, want)
+        tally(got)
+        for (op, h), out in zip(runs, outs):
+            check_bitwise(f"shuffle {tag} {op} {h}", out,
+                          shuffle_plain(a, b, op, half=h, amount=32))
+            cases[f"shuffle {tag} {op} {h}"] = {
+                "kernel": "shuffle", "entry": op, "label": f"{tag} {h}",
+                "edge": "shuffle",
+                "launches": got["shuffle"][op], "max_abs_err": 0.0,
+                "args": (a, b, op, h)}
+        del outs
+        print(f"shuffle {tag} ({a.shape[0]} x {a.shape[1]} {a.dtype}): "
+              f"{len(runs)} entry calls (" +
+              ", ".join(f"{o}/{h}" for o, h in runs) +
+              f"), launches {got['shuffle']}, all bitwise equal to plain "
+              f"[{card}]")
+    # R1: qwen1.5-0.5b prefill q (B 4, S 2048, H 16, dh 64), theta 1e6;
+    # R2: h2o-danube3-4b q (1, 8192, 32, 120), theta 1e4, bfloat16
+    for tag, shape, theta, named in ROPE_PATH:
+        runs = [(lay, getattr(torch, dt)) for lay, dt in named]
+        B, S, H, dh = shape
+        x32 = torch.randn(shape, generator=g, device=dev)
+        # one int32 position per (batch row, slot), shared by the H heads
+        pos = torch.arange(S, device=dev, dtype=torch.int32).repeat(B, 1)
+        xs = {dt: x32.to(dt) for _, dt in runs}
+        outs, got = counted(lambda: [rope(xs[dt], pos, theta=theta,
+                                          layout=lay) for lay, dt in runs])
+        want = {}
+        for lay, _ in runs:
+            want[("rope", lay)] = want.get(("rope", lay), 0) + 1
+        expect_launches(f"rope {tag}", got, want)
+        tally(got)
+        for (lay, dt), out in zip(runs, outs):
+            name = str(dt).replace("torch.", "")
+            err = check_scaled(f"rope {tag} {lay} {name}",
+                               out.reshape(-1, dh),
+                               rope_plain(xs[dt].reshape(-1, dh),
+                                          pos.reshape(-1), theta=theta,
+                                          layout=lay, heads=H),
+                               ROPE_TOL[name])
+            cases[f"rope {tag} {lay} {name}"] = {
+                "kernel": "rope", "entry": lay, "label": f"{tag} {name}",
+                "edge": f"rope {name}",
+                "launches": got["rope"][lay],
+                "max_abs_err": err, "theta": theta,
+                "args": (xs[dt], pos)}
+        del outs
+        print(f"rope {tag} (x {shape}, positions arange({S}) per batch row,"
+              f" theta {theta:g}): {len(runs)} entry calls, launches "
+              f"{got['rope']}, max |diff| vs plain "
+              + ", ".join(f"{c['entry']} "
+                          f"{c['max_abs_err']:.3e}" for k, c in cases.items()
+                          if k.startswith(f"rope {tag}"))
+              + f" (tol {ROPE_TOL} x max|plain|) [{card}]")
+    # F1: qwen1.5-0.5b prefill; F2: h2o-danube3-4b at its 4096 window;
+    # F3: whisper-medium encoder self-attention over 1,500 frames
+    for tag, (B, S, H, KV, dh), causal, window, chunk, dtypes in FLASH_PATH:
+        for name in dtypes:
+            dt = getattr(torch, name)
+            q = torch.randn(B, S, H, dh, generator=g, device=dev).to(dt)
+            k = torch.randn(B, S, KV, dh, generator=g, device=dev).to(dt)
+            v = torch.randn(B, S, KV, dh, generator=g, device=dev).to(dt)
+            out, got = counted(lambda: flash_attention(
+                q, k, v, causal=causal, window=window, q_chunk=chunk,
+                kv_chunk=chunk))
+            expect_launches(f"flash {tag} {name}", got,
+                            {("flash_attention", "attention"): 1})
+            tally(got)
+            want = plain_attention_by_group(q, k, v, causal=causal,
+                                            window=window)
+            err = check_elementwise(f"flash {tag} {name}", out, want,
+                                    FLASH_TOL[name])
+            drop_err, drop_flagged = dropped_tile_reading(
+                q, k, v, want, causal=causal, window=window,
+                tol=FLASH_TOL[name])
+            if drop_flagged == 0.0:
+                raise AssertionError(
+                    f"flash {tag} {name}: the tolerance {FLASH_TOL[name]} "
+                    f"would not see a dropped {FLASH_DROP_TILE}-key tile "
+                    f"(max |diff| {drop_err:.3e})")
+            del want
+            cases[f"flash {tag} {name}"] = {
+                "kernel": "flash_attention", "entry": "attention",
+                "label": f"{tag} {name}", "edge": f"flash_attention {name}",
+                "launches": got["flash_attention"]["attention"],
+                "max_abs_err": err, "args": (q, k, v, causal, window),
+                "dropped_tile": (drop_err, drop_flagged)}
+            print(f"flash {tag} {name} (B {B}, S {S}, H {H}, KV {KV}, dh "
+                  f"{dh}, causal {causal}, window {window}, chunks {chunk}):"
+                  f" 1 launch, max |diff| vs plain {err:.3e} over every "
+                  f"element (tol (atol, rtol) {FLASH_TOL[name]}); a dropped "
+                  f"{FLASH_DROP_TILE}-key tile would read max |diff| "
+                  f"{drop_err:.3e} and fail at {100 * drop_flagged:.1f}% of "
+                  f"kv head 0's outputs [{card}]")
+    return cases, totals
+
+
+def standalone_times(cases: dict, edge_err: dict, card: str) -> list:
+    """Phase 5 rows 7-9: device time of each phase-S case beside its bound,
+    the plain version's time and, for attention, one PyTorch call
+    (`scaled_dot_product_attention` with ``enable_gqa``; a boolean band
+    mask for a window), timed here only; returns the JSON entries."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.rope.kernel import rope_plain
+    from repro_torch.kernels.rope.ops import rope
+    from repro_torch.kernels.shuffle.kernel import (shuffle_cuda,
+                                                    shuffle_plain)
+
+    kernels = []
+    for key, c in cases.items():
+        lib_ms, lib_name = None, None
+        if c["kernel"] == "shuffle":
+            a, b, op, h = c["args"]
+            out_n = a.shape[1] if (h != "both" or op.startswith("prune")) \
+                else 2 * a.shape[1]
+            ms = event_ms(lambda: shuffle_cuda(a, b, op, half=h), 20)
+            pms = event_ms(lambda: shuffle_plain(a, b, op, half=h), 3)
+            bms, by = bound_ms(*shuffle_work(a.shape[0], out_n,
+                                             a.element_size()))
+            src, rep = SHUFFLE_SOURCE, SHUFFLE_REPLACES
+        elif c["kernel"] == "rope":
+            # the entry on the card is the one launch: it reads the (B, S)
+            # positions itself, one per slot
+            x, pos = c["args"]
+            lay, theta = c["entry"], c["theta"]
+            H, dh = x.shape[-2:]
+            ms = event_ms(lambda: rope(x, pos, theta=theta, layout=lay), 20)
+            pms = event_ms(lambda: rope_plain(
+                x.reshape(-1, dh), pos.reshape(-1), theta=theta, layout=lay,
+                heads=H), 3)
+            bms, by = bound_ms(*rope_work(x.numel() // dh, pos.numel(), dh,
+                                          x.element_size(),
+                                          pos.element_size()))
+            src, rep = ROPE_SOURCE, ROPE_REPLACES
+        else:
+            q, k, v, causal, window = c["args"]
+            B, S, H, dh = q.shape
+            KV = k.shape[2]
+            ms = event_ms(lambda: flash_attention_cuda(
+                q, k, v, causal=causal, window=window), 5)
+            pms = event_ms(lambda: plain_attention_by_group(
+                q, k, v, causal=causal, window=window), 2)
+            peak = PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_FP32
+            bms, by = bound_ms(*flash_work(B, S, S, H, KV, dh,
+                                           q.element_size(), causal,
+                                           window), peak)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            mask = None
+            if window is not None:
+                i = torch.arange(S, device=q.device)[:, None]
+                j = torch.arange(S, device=q.device)[None, :]
+                mask = (i - j < window) & ((i >= j) if causal else True)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask,
+                    is_causal=causal and mask is None, enable_gqa=True)
+
+            lib_ms = event_ms(sdpa, 3)
+            lib_err = float((sdpa().transpose(1, 2).float() -
+                             flash_attention_cuda(q, k, v, causal=causal,
+                                                  window=window).float())
+                            .abs().max())
+            peak_name = "989 bf16 tensor" if peak == PEAK_BF16 else \
+                "67 fp32"
+            lib_name = (f"scaled_dot_product_attention, max |diff| vs the "
+                        f"kernel {lib_err:.3e}; bound at the {peak_name} "
+                        f"TFLOP/s peak")
+            src, rep = FLASH_SOURCE, FLASH_REPLACES
+        entry = {"name": f"{c['kernel']}[{c['entry']}] {c['label']}",
+                 "route": "cuda", "source": src, "replaces": rep,
+                 "launches": c["launches"],
+                 "max_abs_err": max(c["max_abs_err"], edge_err[c["edge"]]),
+                 "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                 "library_ms": lib_ms}
+        kernels.append(entry)
+        print(f"time {key}: kernel {ms:.4f} ms, plain {pms:.3f} ms, "
+              + (f"library {lib_ms:.4f} ms ({lib_name}), "
+                 if lib_ms is not None else "")
+              + f"bound {bms:.5f} ms ({by}) [{card}]")
+    return kernels
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -536,8 +1059,12 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.fft.kernel import fft_cuda, fft_plain
     from repro_torch.kernels.fir.kernel import fir_cuda, fir_plain
+    # the standalone kernels declare themselves to _cuda when imported
+    from repro_torch.kernels.flash_attention import kernel as _flash  # noqa
     from repro_torch.kernels.pipeline.asr import (asr_staged,
                                                   make_asr_frontend)
+    from repro_torch.kernels.rope import kernel as _rope  # noqa: F401
+    from repro_torch.kernels.shuffle import kernel as _shuffle  # noqa
     from repro_torch.kernels.pipeline.graph import (
         get_graph_factory, graph_frames_call, graph_frames_plain,
         graph_ring_call, graph_ring_plain, graph_stream_call,
@@ -576,6 +1103,7 @@ def main(argv=None) -> int:
     # ---- phases 2 and A1: every kernel against its plain version
     max_err = biosignal_kernels_vs_plain(app, graph, operands, dev)
     max_err.update(asr_kernels_vs_plain(asr_graph, asr_ops, dev))
+    max_err.update(standalone_kernels_vs_plain(dev))
     if args.quick:
         return 0
 
@@ -816,6 +1344,9 @@ def main(argv=None) -> int:
         raise AssertionError(f"pipeline_staged class agreement {agree}")
     del bst, bplain, day_frames
 
+    # ---- phase S: the standalone shuffle, RoPE and attention entries
+    std_cases, std_launches = standalone_path(audio, dev, card)
+
     # ---- phase 5: per-kernel times beside the bound and the plain time
     kernels, wide = [], {}
     chunk8 = sig[: ring_chunk_samples(WINDOW, HOP, 8)]
@@ -1021,6 +1552,13 @@ def main(argv=None) -> int:
         print(f"time {label}: kernel {ms:.4f} ms, bound {bms:.5f} ms ({by}) "
               f"[{card}]")
 
+    # the standalone kernels at phase S's shapes (rows 7-9)
+    report["dropped_tile"] = {key: c["dropped_tile"]
+                              for key, c in std_cases.items()
+                              if "dropped_tile" in c}
+    kernels += standalone_times(std_cases, max_err, card)
+    del std_cases
+
     # ---- phase 6: kernels and the entries that launched them
     print(f"kernels: {SOURCE} (cuda) launched by frames "
           f"({launches['frames']}), stream ({launches['B=8 no-filtered']}), "
@@ -1029,9 +1567,20 @@ def main(argv=None) -> int:
           f"({asr_launches['stream B=32']}), ring "
           f"({asr_launches['resident B=32']}); {FIR_SOURCE} and "
           f"{FFT_SOURCE} (cuda) by asr_staged ({staged_launches['fir']}, "
-          f"{staged_launches['fft']}) on the main-path runs")
+          f"{staged_launches['fft']}) on the main-path runs; "
+          f"{SHUFFLE_SOURCE} (cuda) by shuffle ("
+          + ", ".join(f"{e} {n}" for e, n in std_launches["shuffle"].items())
+          + f"); {ROPE_SOURCE} (cuda) by rope ("
+          + ", ".join(f"{e} {n}" for e, n in std_launches["rope"].items())
+          + f"); {FLASH_SOURCE} (cuda) by flash_attention "
+          f"({std_launches['flash_attention']['attention']}) on phase S")
+    for kernel, entries in std_launches.items():
+        if not all(entries.values()):
+            raise AssertionError(f"{kernel}: an entry launched no kernel on "
+                                 f"phase S: {entries}")
     report.update({"card": card, "kind": kind, "rates": rates,
                    "launches": launches, "asr_launches": asr_launches,
+                   "standalone_launches": std_launches,
                    "kernels": kernels, "wide": wide, "max_abs_err": max_err,
                    "per_frame": {"candidates": cand_cum[n] / n,
                                  "extrema": ext_cum[n] / n}})

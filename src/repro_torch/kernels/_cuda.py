@@ -3,8 +3,8 @@
 Each kernel is one CUDA C++ source with a plain C interface. The module
 that launches a kernel declares it here with `declare`: its name, its
 source, its entries and the ctypes signatures of its symbols. The graph
-kernels are declared in `pipeline/cuda.py`, the standalone FIR and FFT in
-`fir/kernel.py` and `fft/kernel.py`.
+kernels are declared in `pipeline/cuda.py`, each standalone kernel in its
+own `kernel.py` (`fir`, `fft`, `shuffle`, `rope`, `flash_attention`).
 
 A source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library, at first use, under ``build/repro_torch/<hash>/`` of the checkout

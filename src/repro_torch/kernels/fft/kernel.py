@@ -20,7 +20,7 @@ from repro_torch.core.fft import fft_stages
 from repro_torch.kernels import _cuda
 
 __all__ = ["twiddle_table", "device_twiddles", "fft_plain", "fft_cuda",
-           "fft_rows", "MAX_N"]
+           "MAX_N"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_N = 8192            # four float32 planes of N per row in shared memory
@@ -117,13 +117,3 @@ def fft_cuda(re: torch.Tensor, im: torch.Tensor, *, inverse: bool = False,
                 int(inverse), DTYPES[re.dtype])
     return out_re, out_im
 
-
-def fft_rows(re: torch.Tensor, im: torch.Tensor, *, inverse: bool = False,
-             block_rows: int | None = None) -> tuple:
-    """The FFT over (R, N) rows, dispatched by the device of ``re``: a CUDA
-    tensor launches the kernel, a CPU tensor runs `fft_plain`."""
-    if re.device.type == "cuda":
-        return fft_cuda(re, im, inverse=inverse, block_rows=block_rows)
-    if re.device.type != "cpu":
-        raise ValueError(f"tensor on unsupported device {re.device}")
-    return fft_plain(re, im, inverse=inverse)

@@ -11,8 +11,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.fft import untangle_rfft
-from repro_torch.kernels import not_in_slice
-from repro_torch.kernels.fft.kernel import fft_rows
+from repro_torch.kernels import not_in_slice, on_cuda
+from repro_torch.kernels.fft.kernel import fft_cuda, fft_plain
 
 __all__ = ["fft", "rfft"]
 
@@ -27,7 +27,9 @@ def fft(re: torch.Tensor, im: torch.Tensor | None = None, *,
     not_in_slice(autotune)
     if im is None:
         im = torch.zeros_like(re)
-    return fft_rows(re, im, inverse=inverse, block_rows=block_rows)
+    if on_cuda(re):
+        return fft_cuda(re, im, inverse=inverse, block_rows=block_rows)
+    return fft_plain(re, im, inverse=inverse)
 
 
 def rfft(x: torch.Tensor) -> tuple:

@@ -17,7 +17,7 @@ import torch
 from repro_torch.core.fir import fir_direct
 from repro_torch.kernels import _cuda
 
-__all__ = ["fir_plain", "fir_cuda", "fir_rows", "MAX_TAPS"]
+__all__ = ["fir_plain", "fir_cuda", "MAX_TAPS"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_TAPS = 64
@@ -77,13 +77,3 @@ def fir_cuda(x: torch.Tensor, taps, *, seq_block: int = 2048,
                 DTYPES[x.dtype])
     return y
 
-
-def fir_rows(x: torch.Tensor, taps, *, seq_block: int = 2048,
-             block_rows: int | None = None) -> torch.Tensor:
-    """The FIR over (R, S) rows, dispatched by the device of ``x``: a CUDA
-    tensor launches the kernel, a CPU tensor runs `fir_plain`."""
-    if x.device.type == "cuda":
-        return fir_cuda(x, taps, seq_block=seq_block, block_rows=block_rows)
-    if x.device.type != "cpu":
-        raise ValueError(f"tensor on unsupported device {x.device}")
-    return fir_plain(x, taps)

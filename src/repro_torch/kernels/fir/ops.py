@@ -9,8 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import not_in_slice
-from repro_torch.kernels.fir.kernel import fir_rows
+from repro_torch.kernels import not_in_slice, on_cuda
+from repro_torch.kernels.fir.kernel import fir_cuda, fir_plain
 
 __all__ = ["fir"]
 
@@ -22,7 +22,7 @@ def fir(x: torch.Tensor, taps, *, seq_block: int = 2048,
     bfloat16 ``x``: y[t] = sum_i taps[i] * x[t - i] over the whole row,
     accumulated in float32, returned in ``x``'s dtype."""
     not_in_slice(autotune)
-    if x.ndim == 1:
-        return fir_rows(x[None, :], taps, seq_block=seq_block,
-                        block_rows=block_rows)[0]
-    return fir_rows(x, taps, seq_block=seq_block, block_rows=block_rows)
+    rows = x[None, :] if x.ndim == 1 else x
+    y = fir_cuda(rows, taps, seq_block=seq_block, block_rows=block_rows) \
+        if on_cuda(x) else fir_plain(rows, taps)
+    return y[0] if x.ndim == 1 else y

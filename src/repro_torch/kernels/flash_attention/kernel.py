@@ -1,0 +1,103 @@
+"""The flash-attention kernel (`csrc/flash_attention.cu`) and its plain
+version.
+
+`flash_attention_cuda` launches the hand-written online-softmax kernel for
+Hopper on CUDA tensors; `flash_attention_plain` is
+`models.attention.reference_attention`, the CPU path and what the kernel
+is held to on the card. Both take q (B, Sq, H, dh) and k, v (B, Skv, KV,
+dh) in float32 or bfloat16 with H % KV == 0 (query head h reads kv head
+h // (H / KV)), a causal mask aligned top-left (query i sees key j <= i,
+both counted from 0, also when Sq != Skv) and an optional sliding window
+(i - j < window); they compute in float32 and return q's dtype. The
+kernel reads q, k and v in that layout through their strides (the head
+dimension must be contiguous, else it is copied) and takes dh <= 256.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _cuda
+from repro_torch.models.attention import reference_attention
+
+__all__ = ["MAX_DH", "flash_attention_plain", "flash_attention_cuda"]
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_DH = 256            # the kernel pads dh to 64 * (1..4) in shared memory
+
+_p, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+_cuda.declare("flash_attention",
+              Path(__file__).resolve().parent / "csrc" /
+              "flash_attention.cu", ("attention",), {
+    "flash_attention_launch": ([
+        _p, _p, _p, _p,                        # q, k, v, out
+        _i, _i, _i, _i, _i, _i,                # B, H, KV, Sq, Skv, dh
+        _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll,   # strides
+        _f, _i, _i, _ll,                       # scale, causal, window
+        _i, _p], _i),                          # dtype, stream
+    "flash_attention_smem_bytes": ([_i], ctypes.c_size_t),
+})
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"need q (B, Sq, H, dh) and k, v (B, Skv, KV, dh), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, _, H, dh = q.shape
+    if k.shape[0] != B or k.shape[3] != dh:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         f"in batch or head dimension")
+    KV = k.shape[2]
+    if KV < 1 or H % KV:
+        raise ValueError(f"H={H} must be a multiple of KV={KV}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"attention takes float32 or bfloat16 q, k, v of "
+                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"q on {q.device}, k on {k.device}, v on "
+                         f"{v.device}")
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          window=None) -> torch.Tensor:
+    """The kernel's function in plain PyTorch (`reference_attention`), on
+    any device."""
+    _check(q, k, v)
+    return reference_attention(q, k, v, causal=causal, window=window)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window=None) -> torch.Tensor:
+    """Launch the flash-attention kernel on CUDA q, k, v; returns a new
+    contiguous (B, Sq, H, dh) tensor of q's dtype."""
+    _check(q, k, v)
+    _cuda.check_cuda_input(q, tuple(DTYPES))
+    B, Sq, H, dh = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    if dh > MAX_DH:
+        raise ValueError(f"dh={dh} > {MAX_DH}: the kernel keeps q, k and v "
+                         f"tiles of dh padded to a multiple of 64 in shared "
+                         f"memory")
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    out = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device)
+    if B == 0 or Sq == 0:
+        return out
+    if Skv == 0:
+        raise ValueError("attention over zero keys")
+    _cuda.check_smem("flash_attention", _cuda.library(
+        "flash_attention").flash_attention_smem_bytes(dh), f"dh={dh}")
+    _cuda.launch("flash_attention", "attention", q, "flash_attention_launch",
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, H, KV, Sq, Skv, dh, *q.stride()[:3], *k.stride()[:3],
+                 *v.stride()[:3], 1.0 / math.sqrt(dh), int(causal),
+                 int(window is not None),
+                 0 if window is None else int(window), DTYPES[q.dtype])
+    return out
+

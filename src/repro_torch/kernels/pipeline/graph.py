@@ -32,6 +32,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core.fir import fir_direct
+from repro_torch.device import resolve_device
 from repro_torch.kernels.pipeline.stages import (OperandMismatchError,
                                                  StageGraphError,
                                                  UnknownGraphError,
@@ -252,10 +253,12 @@ def _output_shapes(graph: StageGraph, rows: tuple, window: int,
 
 
 def graph_empty_outputs(graph: StageGraph, window: int, dtype,
-                        outputs=None, device="cpu") -> dict:
+                        outputs=None, device="cuda") -> dict:
     """The zero-frame result for a graph, with the SAME keys/shapes/
-    dtypes as a non-empty call, on ``device``."""
+    dtypes as a non-empty call, on ``device`` (raises for the default
+    ``"cuda"`` on a host without a card)."""
     outputs = canonical_graph_outputs(graph, outputs)
+    device = resolve_device(device)
     return {o: torch.zeros(shape, dtype=dt, device=device)
             for o, (shape, dt) in _output_shapes(graph, (0,), window, dtype,
                                                  outputs).items()}

@@ -88,9 +88,10 @@ def canonical_outputs(outputs) -> tuple:
 
 
 def empty_outputs(window: int, F: int, C: int, dtype, outputs=None,
-                  device="cpu") -> dict:
+                  device="cuda") -> dict:
     """The zero-frame result, with the SAME keys/shapes/dtypes as a
-    non-empty call."""
+    non-empty call, on ``device`` (raises for the default ``"cuda"`` on a
+    host without a card)."""
     return graph_empty_outputs(biosignal_graph(11, F, C, 512), window, dtype,
                                outputs, device)
 

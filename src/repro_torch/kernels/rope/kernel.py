@@ -1,0 +1,121 @@
+"""The rotary-embedding kernel (`csrc/rope.cu`) and its plain version.
+
+`rope_cuda` launches the hand-written kernel for Hopper on CUDA tensors;
+`rope_plain` is the JAX kernel's float32 formula in PyTorch operations,
+the CPU path and what the kernel is held to on the card. Both rotate the
+rows of an (R, dh) float32 or bfloat16 array, compute in float32 and
+return the input's dtype. Row r takes position ``positions[r // heads]``:
+``heads`` consecutive rows (the heads of one sequence slot) share one
+position, so the entry needs no broadcast copy of the positions. Both
+build the inverse frequencies the same way, ``exp((i * f32(2/dh)) *
+f32(-ln theta))`` in float32 (`rope_constants`), so a comparison on the
+card measures the kernel and not two tables.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _cuda
+
+__all__ = ["LAYOUTS", "rope_constants", "inv_freq", "rope_plain",
+           "rope_cuda"]
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# positions the kernel reads and converts to float32 itself (round to
+# nearest, as ``.to(torch.float32)`` does); others are converted first
+POS_DTYPES = {torch.float32: 0, torch.int32: 1, torch.int64: 2}
+# the layouts, as the kernel numbers them; each is an entry of the count
+LAYOUTS = ("interleaved", "neox")
+
+_p, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+_cuda.declare("rope", Path(__file__).resolve().parent / "csrc" / "rope.cu",
+              LAYOUTS, {
+    # x, positions, out, R, dh, heads, f32(2/dh), f32(-ln theta), neox,
+    # dtype, positions' dtype, stream
+    "rope_launch": ([_p, _p, _p, _ll, _i, _i, _f, _f, _i, _i, _i, _p], _i),
+})
+
+
+def rope_constants(dh: int, theta: float) -> tuple:
+    """(float32(2 / dh), float32(-ln theta)): the two constants of the
+    inverse frequencies, rounded to float32 as the JAX kernel's weakly
+    typed scalars are."""
+    return (float(np.float32(2.0 / dh)),
+            float(np.float32(-np.log(theta))))
+
+
+def inv_freq(dh: int, theta: float, device) -> torch.Tensor:
+    """The (dh/2,) float32 inverse frequencies in the kernel's order."""
+    c1, c2 = (torch.tensor(c, dtype=torch.float32, device=device)
+              for c in rope_constants(dh, theta))
+    idx = torch.arange(dh // 2, dtype=torch.float32, device=device)
+    return torch.exp(idx * c1 * c2)
+
+
+def _check(x: torch.Tensor, positions: torch.Tensor, layout: str,
+           heads: int) -> None:
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    if x.ndim != 2 or x.shape[1] < 2 or x.shape[1] % 2:
+        raise ValueError(f"x must be (R, dh) with dh even, got "
+                         f"{tuple(x.shape)}")
+    if x.dtype not in DTYPES:
+        raise ValueError(f"rope takes float32 or bfloat16 x, got {x.dtype}")
+    if heads < 1 or x.shape[0] % heads:
+        raise ValueError(f"heads {heads} must be positive and divide the "
+                         f"{x.shape[0]} rows")
+    if tuple(positions.shape) != (x.shape[0] // heads,):
+        raise ValueError(f"positions must be ({x.shape[0] // heads},), got "
+                         f"{tuple(positions.shape)}")
+    if positions.device != x.device:
+        raise ValueError(f"x on {x.device}, positions on "
+                         f"{positions.device}")
+
+
+def rope_plain(x: torch.Tensor, positions: torch.Tensor, *,
+               theta: float = 10000.0, layout: str = "interleaved",
+               heads: int = 1) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, on any device."""
+    _check(x, positions, layout, heads)
+    dh = x.shape[1]
+    pos = positions.to(torch.float32).repeat_interleave(heads)
+    ang = pos[:, None] * inv_freq(dh, theta, x.device)[None, :]
+    c, s = torch.cos(ang), torch.sin(ang)
+    xf = x.float()
+    if layout == "interleaved":
+        x1, x2 = xf[:, 0::2], xf[:, 1::2]
+        out = torch.stack([x1 * c - x2 * s, x1 * s + x2 * c],
+                          dim=-1).reshape(x.shape)
+    else:
+        x1, x2 = xf[:, : dh // 2], xf[:, dh // 2:]
+        out = torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+    return out.to(x.dtype)
+
+
+def rope_cuda(x: torch.Tensor, positions: torch.Tensor, *,
+              theta: float = 10000.0, layout: str = "interleaved",
+              heads: int = 1) -> torch.Tensor:
+    """Launch the rotary kernel over the rows of a CUDA (R, dh) array; the
+    kernel reads float32, int32 or int64 positions and converts them to
+    float32, as the JAX wrapper does (other dtypes are converted here)."""
+    _check(x, positions, layout, heads)
+    _cuda.check_cuda_input(x, tuple(DTYPES))
+    x = x.contiguous()
+    if positions.dtype not in POS_DTYPES:
+        positions = positions.to(torch.float32)
+    pos = positions.contiguous()
+    R, dh = x.shape
+    out = torch.empty_like(x)
+    if R == 0:
+        return out
+    c1, c2 = rope_constants(dh, theta)
+    _cuda.launch("rope", layout, x, "rope_launch", x.data_ptr(),
+                 pos.data_ptr(), out.data_ptr(), R, dh, heads, c1, c2,
+                 LAYOUTS.index(layout), DTYPES[x.dtype],
+                 POS_DTYPES[pos.dtype])
+    return out

@@ -37,11 +37,19 @@ def test_port_has_sources():
                  "kernels/fir/ops.py", "kernels/fir/ref.py",
                  "kernels/fft/kernel.py", "kernels/fft/ops.py",
                  "kernels/fft/ref.py", "serve/stream.py",
-                 "serve/resident.py"):
+                 "serve/resident.py", "core/shuffle.py",
+                 "kernels/shuffle/kernel.py", "kernels/shuffle/ops.py",
+                 "kernels/shuffle/ref.py", "kernels/rope/kernel.py",
+                 "kernels/rope/ops.py", "kernels/rope/ref.py",
+                 "models/attention.py", "kernels/flash_attention/kernel.py",
+                 "kernels/flash_attention/ops.py",
+                 "kernels/flash_attention/ref.py"):
         assert need in names
     for src in ("pipeline/csrc/biosignal_graph.cu",
                 "pipeline/csrc/asr_graph.cu", "fir/csrc/fir.cu",
-                "fft/csrc/fft.cu"):
+                "fft/csrc/fft.cu", "shuffle/csrc/shuffle.cu",
+                "rope/csrc/rope.cu",
+                "flash_attention/csrc/flash_attention.cu"):
         assert (PORT / "kernels" / src).is_file()
 
 
@@ -81,6 +89,10 @@ def test_default_device_raises_without_a_card():
     from repro_torch.core.biosignal import (app_from_numpy, make_app,
                                             synthetic_respiration)
     from repro_torch.core.fir import lowpass_taps
+    from repro_torch.kernels.pipeline.asr import make_asr_frontend
+    from repro_torch.kernels.pipeline.graph import (get_graph_factory,
+                                                    graph_empty_outputs)
+    from repro_torch.kernels.pipeline.kernel import empty_outputs
     from repro_torch.serve.resident import ResidentStream
     from repro_torch.serve.stream import BiosignalStream
 
@@ -94,6 +106,11 @@ def test_default_device_raises_without_a_card():
         ResidentStream()
     with pytest.raises(RuntimeError, match="cuda"):
         app_from_numpy(lowpass_taps(), [[0.0, 0.0]] * 12, [0.0, 0.0])
+    with pytest.raises(RuntimeError, match="cuda"):
+        empty_outputs(2048, 12, 2, torch.float32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        graph_empty_outputs(get_graph_factory("asr")(
+            make_asr_frontend(device="cpu"))[0], 512, torch.float32)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_without_building():
@@ -102,7 +119,11 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_building():
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.fft.kernel import fft_cuda
     from repro_torch.kernels.fir.kernel import fir_cuda
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
     from repro_torch.kernels.pipeline import cuda
+    from repro_torch.kernels.rope.kernel import rope_cuda
+    from repro_torch.kernels.shuffle.kernel import shuffle_cuda
 
     before = copy.deepcopy(_cuda.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -122,6 +143,12 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_building():
         fir_cuda(torch.zeros(2, 64), [1.0, -0.97])
     with pytest.raises(ValueError, match="CUDA tensor"):
         fft_cuda(torch.zeros(2, 64), torch.zeros(2, 64))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        shuffle_cuda(torch.zeros(2, 64), torch.zeros(2, 64), "interleave")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rope_cuda(torch.zeros(2, 64), torch.zeros(2))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention_cuda(*(torch.zeros(1, 8, 2, 16),) * 3)
     assert _cuda.LAUNCHES == before
     if not torch.cuda.is_available():
         assert _cuda.build.cache_info().currsize == 0

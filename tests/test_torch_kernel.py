@@ -28,7 +28,10 @@ from repro_torch.core.fir import lowpass_taps
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.fft.kernel import fft_cuda, fft_plain
 from repro_torch.kernels.fir.kernel import fir_cuda, fir_plain
+from repro_torch.kernels.flash_attention import kernel as _flash  # noqa
 from repro_torch.kernels.pipeline import cuda
+from repro_torch.kernels.rope import kernel as _rope  # noqa: F401
+from repro_torch.kernels.shuffle import kernel as _shuffle  # noqa: F401
 from repro_torch.kernels.pipeline.asr import make_asr_frontend
 from repro_torch.kernels.pipeline.graph import (
     get_graph_factory, graph_frames_call, graph_frames_plain,
@@ -65,10 +68,16 @@ def test_launch_counts_reset():
     assert _cuda.LAUNCHES == {k: dict.fromkeys(v.entries, 0)
                               for k, v in _cuda.KERNELS.items()}
     assert set(_cuda.LAUNCHES) == \
-        {"biosignal_graph", "asr_graph", "fir", "fft"}
+        {"biosignal_graph", "asr_graph", "fir", "fft", "shuffle", "rope",
+         "flash_attention"}
     assert _cuda.KERNELS["asr_graph"].entries == ("frames", "stream", "ring")
     assert _cuda.KERNELS["fir"].entries == _cuda.KERNELS["fft"].entries == \
         ("rows",)
+    assert _cuda.KERNELS["shuffle"].entries == (
+        "interleave", "prune_even", "prune_odd", "bit_reverse",
+        "circular_shift")
+    assert _cuda.KERNELS["rope"].entries == ("interleaved", "neox")
+    assert _cuda.KERNELS["flash_attention"].entries == ("attention",)
 
 
 @pytest.fixture

@@ -150,7 +150,7 @@ def test_zero_frames_match_reference_shapes(apps, outputs):
     assert sorted(got) == sorted(want)
     for k, w in want.items():
         assert got[k].shape == w.shape and got[k].numpy().dtype == w.dtype
-    e = empty_outputs(WINDOW, 12, 2, torch.float32, outputs)
+    e = empty_outputs(WINDOW, 12, 2, torch.float32, outputs, device="cpu")
     assert {k: (v.shape, v.dtype) for k, v in e.items()} == \
         {k: (v.shape, v.dtype) for k, v in got.items()}
 
