@@ -23,7 +23,9 @@ A3. the shuffle, RoPE and flash-attention kernels against their plain
    versions at edge shapes: every shuffle op and half at N 2/64/128/256
    and shifts 0/32/-5/2N+3 (bitwise); both RoPE layouts at dh 32/120/128
    and positions up to 8192; attention with GQA, windows, Sq != Skv
-   without causal, S not a multiple of the kernel's tile, dh 24 to 256;
+   without causal, S not a multiple of the kernel's tile, dh 20 (rows of
+   40 bytes) to 256, one query over 777 keys, a 64-key window over 4,096
+   keys, 32 heads at S 65, dh 200, dh 18 and 25 (4- and 2-byte copies);
 3. the biosignal main path: `BiosignalStream(...).process` over a
    24-hour, 64 Hz synthetic recording (5,529,600 samples, 10,797 frames)
    for batch_windows 8 and 512, with and without the filtered output,
@@ -58,7 +60,9 @@ S. the standalone entries at their users' full widths, each run with the
    run's data (for attention over the live pairs of the mask, at the
    bfloat16 tensor-core peak for bfloat16 and the fp32 peak for float32),
    the plain version's time and, for the FIR, the FFT and attention, one
-   PyTorch call computing the same function (timed here only);
+   PyTorch call computing the same function (timed here only); for
+   attention also the rate over the 4 dh operations per live pair, the
+   share of the bound and the ratio to that call;
 6. the ported kernels and the entries that launched them.
 
 The last two lines are a JSON object of per-kernel numbers and the
@@ -124,17 +128,12 @@ FFT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # shuffle: bitwise. RoPE: max |kernel - plain| <= tol * max |plain| (the
 # same float32 operations in the same order and the same expf/sinf/cosf;
 # bfloat16 within one rounding). Attention: |kernel - plain| <= atol + rtol
-# |plain| per element, (atol, rtol) below. Both sum in float32 in another
-# order: float32 outputs read at most ~1.5e-6 at |out| up to ~4 (PR 13's
-# runs), so 3e-5 + 3e-5 |plain|, the JAX package's float32 tolerance.
-# bfloat16 outputs are those float32 values rounded once each, so they
-# differ by at most one bfloat16 step, <= 2^-7 |plain|, plus the float32
-# difference, which 1e-4 covers 60 times over. A kernel that drops one
-# 64-key tile from every row's band moves outputs by ~1e-2 at these
+# |plain| per element, (atol, rtol) = `FLASH_TOL` of
+# kernels/flash_attention/kernel.py, which says why. A kernel that drops
+# one 64-key tile from every row's band moves outputs by ~1e-2 at these
 # sizes: `dropped_tile_reading` measures that on every run and the run
 # fails unless this tolerance flags it.
 ROPE_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
-FLASH_TOL = {"float32": (3e-5, 3e-5), "bfloat16": (1e-4, 2.0 ** -7)}
 FLASH_DROP_TILE = 64
 SHUFFLE_HALVES = ("both", "lower", "upper")
 # phase A3's attention shapes: (B, Sq, Skv, H, KV, dh), causal, window
@@ -144,7 +143,14 @@ FLASH_EDGES = [((2, 128, 128, 4, 2, 64), True, None),    # GQA
                ((1, 150, 150, 2, 2, 24), True, 32),      # dh 24
                ((1, 96, 160, 4, 2, 64), False, None),    # Sq < Skv
                ((1, 160, 96, 4, 4, 128), False, None),   # Sq > Skv
-               ((1, 100, 100, 2, 1, 256), False, 40)]    # dh 256
+               ((1, 100, 100, 2, 1, 256), False, 40),    # dh 256
+               ((1, 130, 130, 4, 2, 20), True, None),    # 40-byte rows
+               ((1, 1, 777, 4, 2, 64), False, None),     # Sq 1
+               ((1, 64, 4096, 4, 2, 64), True, 64),      # off-band tiles
+               ((8, 65, 65, 32, 8, 64), True, None),     # many heads
+               ((1, 150, 150, 4, 2, 200), True, None),   # dh 200
+               ((1, 90, 90, 2, 1, 18), True, None),      # 4-byte copies
+               ((1, 90, 90, 2, 1, 25), False, 30)]       # 2-byte copies
 # phase S's attention: tag, (B, S, H, KV, dh), causal, window, chunk,
 # dtypes; F1 qwen1.5-0.5b prefill, F2 h2o-danube3-4b at its window, F3
 # whisper-medium's encoder over the 1,500 frames of its front-end
@@ -642,6 +648,34 @@ def plain_attention_by_group(q, k, v, *, causal: bool, window=None):
     return out
 
 
+def ptxas_summary(kernel: str, log: str) -> str:
+    """One line from ``nvcc -Xptxas -v``: the kernel's instantiations, their
+    register range and those that spill (bytes of spill stores); the flash
+    kernel's are named by namespace and template arguments, tc<dh padded
+    to 8, TMA> and f32<dh / 64 rounded up>."""
+    import re
+
+    regs, spills, name = [], {}, ""
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)", ln)
+        if m:
+            t = re.search(r"(tc|f32)12flash_kernelILi(\d+)E(?:Lb(\d))?",
+                          m.group(1))
+            args = ",".join(x for x in t.groups()[1:] if x) if t else ""
+            name = f"{t.group(1)}<{args}>" if t else m.group(1)
+        if m := re.search(r"Used (\d+) registers", ln):
+            regs.append(int(m.group(1)))
+        if (m := re.search(r"(\d+) bytes spill stores", ln)) and \
+                int(m.group(1)):
+            spills[name] = int(m.group(1))
+    if not regs:
+        return f"ptxas {kernel}: no register report (cached build)"
+    return (f"ptxas {kernel}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+            f"registers, spill stores " +
+            (", ".join(f"{k} {v} B" for k, v in spills.items()) or "none"))
+
+
 def check_bitwise(name: str, got, want) -> None:
     """Raise unless ``got`` and ``want`` hold the same words."""
     import torch
@@ -716,7 +750,7 @@ def standalone_kernels_vs_plain(dev) -> dict:
     import torch
 
     from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_cuda, flash_attention_plain)
+        FLASH_TOL, flash_attention_cuda, flash_attention_plain)
     from repro_torch.kernels.rope.kernel import (LAYOUTS, rope_cuda,
                                                  rope_plain)
     from repro_torch.kernels.shuffle.kernel import (OPS, shuffle_cuda,
@@ -794,7 +828,8 @@ def standalone_kernels_vs_plain(dev) -> dict:
           f"float32 {err['rope float32']:.3e} bfloat16 "
           f"{err['rope bfloat16']:.3e} (tol {ROPE_TOL}, x max|plain|); "
           f"flash vs plain: {n_flash} cases (GQA, MQA, windows, Sq != Skv "
-          f"without causal, S % 64 != 0, dh 24-256), max |diff| float32 "
+          f"without causal, S % 64 != 0, Sq 1, off-band tiles, 32 heads, "
+          f"dh 18-256), max |diff| float32 "
           f"{err['flash_attention float32']:.3e} bfloat16 "
           f"{err['flash_attention bfloat16']:.3e} (tol (atol, rtol) "
           f"{FLASH_TOL})")
@@ -809,6 +844,7 @@ def standalone_path(audio, dev, card: str) -> dict:
     of every run, {kernel: {entry: n}}."""
     import torch
 
+    from repro_torch.kernels.flash_attention.kernel import FLASH_TOL
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.rope.kernel import rope_plain
     from repro_torch.kernels.rope.ops import rope
@@ -993,9 +1029,9 @@ def standalone_times(cases: dict, edge_err: dict, card: str) -> list:
             pms = event_ms(lambda: plain_attention_by_group(
                 q, k, v, causal=causal, window=window), 2)
             peak = PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_FP32
-            bms, by = bound_ms(*flash_work(B, S, S, H, KV, dh,
-                                           q.element_size(), causal,
-                                           window), peak)
+            work = flash_work(B, S, S, H, KV, dh, q.element_size(), causal,
+                              window)
+            bms, by = bound_ms(*work, peak)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             mask = None
             if window is not None:
@@ -1018,6 +1054,15 @@ def standalone_times(cases: dict, edge_err: dict, card: str) -> list:
             lib_name = (f"scaled_dot_product_attention, max |diff| vs the "
                         f"kernel {lib_err:.3e}; bound at the {peak_name} "
                         f"TFLOP/s peak")
+            # what the redesign is judged on: the rate over the 4 dh
+            # operations per live pair, the share of the bound, the ratio
+            # to one PyTorch call
+            judged = {"tflops": work[1] / ms / 1e9, "bound_share": bms / ms,
+                      "vs_library": ms / lib_ms}
+            lib_name += (f"; {judged['tflops']:.1f} TFLOP/s over 4 dh per "
+                         f"live pair, {100 * judged['bound_share']:.1f}% of "
+                         f"the bound, {judged['vs_library']:.2f}x the "
+                         f"library's time")
             src, rep = FLASH_SOURCE, FLASH_REPLACES
         entry = {"name": f"{c['kernel']}[{c['entry']}] {c['label']}",
                  "route": "cuda", "source": src, "replaces": rep,
@@ -1025,6 +1070,8 @@ def standalone_times(cases: dict, edge_err: dict, card: str) -> list:
                  "max_abs_err": max(c["max_abs_err"], edge_err[c["edge"]]),
                  "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                  "library_ms": lib_ms}
+        if c["kernel"] == "flash_attention":
+            entry.update(judged)
         kernels.append(entry)
         print(f"time {key}: kernel {ms:.4f} ms, plain {pms:.3f} ms, "
               + (f"library {lib_ms:.4f} ms ({lib_name}), "
@@ -1093,6 +1140,7 @@ def main(argv=None) -> int:
         ptx = [ln.strip() for ln in b.log.splitlines() if "registers" in ln]
         if ptx:
             print(f"ptxas {k}: {ptx[0]}")
+    print(ptxas_summary("flash_attention", builds["flash_attention"].log))
 
     dev = torch.device("cuda", 0)
     app = make_app(device=dev)

@@ -10,7 +10,9 @@ h // (H / KV)), a causal mask aligned top-left (query i sees key j <= i,
 both counted from 0, also when Sq != Skv) and an optional sliding window
 (i - j < window); they compute in float32 and return q's dtype. The
 kernel reads q, k and v in that layout through their strides (the head
-dimension must be contiguous, else it is copied) and takes dh <= 256.
+dimension must be contiguous, else it is copied) and takes dh <= 256:
+bfloat16 runs on the tensor cores (wgmma), float32 on the CUDA cores.
+`FLASH_TOL` is what the kernel is held to against the plain version.
 """
 from __future__ import annotations
 
@@ -23,10 +25,21 @@ import torch
 from repro_torch.kernels import _cuda
 from repro_torch.models.attention import reference_attention
 
-__all__ = ["MAX_DH", "flash_attention_plain", "flash_attention_cuda"]
+__all__ = ["FLASH_TOL", "MAX_DH", "flash_attention_plain",
+           "flash_attention_cuda"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_DH = 256            # the kernel pads dh to 64 * (1..4) in shared memory
+MAX_DH = 256            # the widest head either kernel keeps in shared memory
+# What the kernel is held to against `flash_attention_plain`, per dtype:
+# |kernel - plain| <= atol + rtol |plain| per element, (atol, rtol). Both
+# sum in float32 in another order: float32 outputs read at most ~1.5e-6
+# at |out| up to ~4, so 3e-5 + 3e-5 |plain|, the JAX package's float32
+# tolerance. bfloat16 outputs are those float32 values rounded once each,
+# so they differ by at most one bfloat16 step, <= 2^-7 |plain|, plus the
+# float32 difference, which 1e-4 covers 60 times over. That leaves no room
+# for a second rounding inside: p must reach the P V product with more
+# than bfloat16's 8 bits, which is why the kernel splits it into hi + lo.
+FLASH_TOL = {"float32": (3e-5, 3e-5), "bfloat16": (1e-4, 2.0 ** -7)}
 
 _p, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
@@ -39,7 +52,7 @@ _cuda.declare("flash_attention",
         _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll,   # strides
         _f, _i, _i, _ll,                       # scale, causal, window
         _i, _p], _i),                          # dtype, stream
-    "flash_attention_smem_bytes": ([_i], ctypes.c_size_t),
+    "flash_attention_smem_bytes": ([_i, _i], ctypes.c_size_t),
 })
 
 
@@ -91,8 +104,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     if Skv == 0:
         raise ValueError("attention over zero keys")
-    _cuda.check_smem("flash_attention", _cuda.library(
-        "flash_attention").flash_attention_smem_bytes(dh), f"dh={dh}")
+    lib = _cuda.library("flash_attention")
+    _cuda.check_smem("flash_attention", lib.flash_attention_smem_bytes(
+        dh, DTYPES[q.dtype]), f"dh={dh}")
     _cuda.launch("flash_attention", "attention", q, "flash_attention_launch",
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, H, KV, Sq, Skv, dh, *q.stride()[:3], *k.stride()[:3],

@@ -21,19 +21,23 @@ The `cuda`-marked tests skip without a card. Tolerances on the card:
   holds the full-size runs to the same limits.
 
 The CPU tests at the end check what the entries refuse before anything is
-built."""
+built, and why the bfloat16 kernel splits P into two bfloat16 halves."""
+import math
+
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.flash_attention.kernel import (
-    flash_attention_cuda, flash_attention_plain)
+    FLASH_TOL, flash_attention_cuda, flash_attention_plain)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rope.kernel import LAYOUTS, rope_cuda, rope_plain
 from repro_torch.kernels.rope.ops import rope
 from repro_torch.kernels.shuffle.kernel import (OPS, shuffle_cuda,
                                                 shuffle_plain)
 from repro_torch.kernels.shuffle.ops import shuffle
+from repro_torch.models.attention import NEG_INF
 
 
 @pytest.fixture
@@ -151,8 +155,7 @@ def test_rope_entry_broadcasts_positions_on_card(card):
 
 def _flash_close(got: torch.Tensor, want: torch.Tensor) -> None:
     assert got.dtype == want.dtype and got.shape == want.shape
-    atol, rtol = (3e-5, 3e-5) if want.dtype == torch.float32 else \
-        (1e-4, 2.0 ** -7)
+    atol, rtol = FLASH_TOL[str(want.dtype).replace("torch.", "")]
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
 
@@ -167,6 +170,13 @@ def _flash_close(got: torch.Tensor, want: torch.Tensor) -> None:
     ((1, 96, 160, 4, 2, 64), False, None),     # Sq < Skv, no mask
     ((1, 160, 96, 4, 4, 128), False, None),    # Sq > Skv, no mask
     ((1, 100, 100, 2, 1, 256), False, 40),     # window without causal
+    ((1, 130, 130, 4, 2, 20), True, None),     # dh 20: 40-byte rows
+    ((1, 1, 777, 4, 2, 64), False, None),      # one partial query tile
+    ((1, 64, 4096, 4, 2, 64), True, 64),       # nearly every tile off-band
+    ((8, 65, 65, 32, 8, 64), True, None),      # many heads, short S
+    ((1, 150, 150, 4, 2, 200), True, None),    # dh 200: N % 16 != 0
+    ((1, 90, 90, 2, 1, 18), True, None),       # dh 18: 4-byte copies
+    ((1, 90, 90, 2, 1, 25), False, 30),        # dh 25: 2-byte copies
 ])
 def test_flash_kernel_matches_plain_on_card(card, shape, causal, window,
                                             dtype):
@@ -185,8 +195,9 @@ def test_flash_kernel_matches_plain_on_card(card, shape, causal, window,
 @pytest.mark.cuda
 def test_flash_kernel_reads_strided_inputs_on_card(card):
     """q, k and v as views of a fused (B, S, H + 2 KV, dh) projection and
-    of a (B, H, S, dh) layout: the kernel reads them through their
-    strides."""
+    of a (B, H, S, dh) layout, and a bfloat16 q whose base lies 8 bytes
+    past a 16-byte boundary: the kernel reads them through their strides
+    (with 8-byte copies for the last)."""
     g = torch.Generator(device=card).manual_seed(11)
     qkv = torch.randn(2, 130, 8, 64, generator=g, device=card)
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
@@ -199,6 +210,16 @@ def test_flash_kernel_reads_strided_inputs_on_card(card):
     _flash_close(got, flash_attention_plain(
         qt.transpose(1, 2).contiguous(), k.contiguous(), v.contiguous(),
         causal=False))
+    flat = torch.randn(4 + 2 * 130 * 4 * 64, generator=g, device=card) \
+        .to(torch.bfloat16)
+    qo = flat[4:].view(2, 130, 4, 64)
+    assert qo.data_ptr() % 16 == 8
+    kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    got = flash_attention(qo, kb, vb, causal=True, q_chunk=130,
+                          kv_chunk=130)
+    _flash_close(got, flash_attention_plain(qo.contiguous(),
+                                            kb.contiguous(),
+                                            vb.contiguous()))
 
 
 @pytest.mark.cuda
@@ -262,3 +283,33 @@ def test_entries_check_before_they_dispatch():
     with pytest.raises(ValueError, match="multiple of KV"):
         flash_attention(q, torch.zeros(1, 96, 3, 8), torch.zeros(1, 96, 3, 8),
                         q_chunk=32, kv_chunk=32)
+
+
+def test_flash_bfloat16_needs_p_split_into_hi_and_lo():
+    """Why the bfloat16 kernel splits P before the tensor-core P V product:
+    bfloat16 q, k and v at (1, 1024, 4, 64), causal. P = exp(s - max)
+    rounded once to bfloat16 breaks `FLASH_TOL` at some outputs; P as
+    bf16(p) + bf16(p - bf16(p)), both products summed in float32, holds
+    it everywhere."""
+    B, S, H, dh = 1, 1024, 4, 64
+    rng = np.random.default_rng(14)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, dh),
+                                                    dtype=np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    want = flash_attention_plain(q, k, v, causal=True).float()
+    s = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) / math.sqrt(dh)
+    s = torch.where(torch.ones(S, S, dtype=torch.bool).tril(), s, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+
+    def out(*parts):
+        o = sum(torch.einsum("bhqs,bshd->bhqd", x, v.float()) for x in parts)
+        return (o / l).transpose(1, 2).to(torch.bfloat16).float()
+
+    atol, rtol = FLASH_TOL["bfloat16"]
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    once = (out(hi) - want).abs() > atol + rtol * want.abs()
+    split = (out(hi, lo) - want).abs() > atol + rtol * want.abs()
+    assert once.float().mean() > 0.005, once.float().mean()
+    assert not split.any(), int(split.sum())
