@@ -18,7 +18,10 @@ A1. the three kernels of the ASR slice against their plain versions: the
    ASR graph at every entry and output selection (window 512, hop 160;
    stream == framed == ring slot bitwise), the FIR in float32 and
    bfloat16 at 2 and 11 taps on rows longer than one tile, the FFT at N
-   8, 256 and 2048, forward and inverse, float32 and bfloat16;
+   2 to 8192 (`FFT_CASES`), forward and inverse, float32 and bfloat16,
+   each also measured as a transform with its first stage's twiddles
+   conjugated would read (`wrong_fft_reading`; the run fails unless
+   `FFT_TOL` flags it);
 A3. the shuffle, RoPE and flash-attention kernels against their plain
    versions at edge shapes: every shuffle op and half at N 2/64/128/256
    and shifts 0/32/-5/2N+3 (bitwise); both RoPE layouts at dh 32/120/128
@@ -39,7 +42,10 @@ A2. the ASR main path over one hour of 16 kHz audio (57,600,000 samples,
    at ring_depth 4, one `graph_pipeline_stream` call over the hour, all
    bitwise equal, every row held against the plain version; then
    `asr_staged` (the FIR and FFT kernels) over the same hour, held to the
-   fused path, and `pipeline_staged` over the biosignal day;
+   fused path, `pipeline_staged` over the biosignal day (class agreement
+   1.0; the smallest |margin| printed), and the FFT at `asr_staged`'s
+   shape (359,997 x 256) in float32 and bfloat16 against its plain
+   version and against what a conjugated first stage would read;
 S. the standalone entries at their users' full widths, each run with the
    launch counts set to 0 just before and read just after, every output
    against the plain version: `shuffle` (S1: every op on the hour's ASR
@@ -60,7 +66,8 @@ S. the standalone entries at their users' full widths, each run with the
    run's data (for attention over the live pairs of the mask, at the
    bfloat16 tensor-core peak for bfloat16 and the fp32 peak for float32),
    the plain version's time and, for the FIR, the FFT and attention, one
-   PyTorch call computing the same function (timed here only); for
+   PyTorch call computing the same function (timed here only); the FFT
+   also in bfloat16 at the same shape; for
    attention also the rate over the 4 dh operations per live pair, the
    share of the bound and the ratio to that call;
 6. the ported kernels and the entries that launched them.
@@ -122,9 +129,15 @@ TOL = {"filtered": (1e-6, 1e-6), "features": (1e-5, 1e-5),
 # 1e-5 of the largest |plain| of the compared rows (the mel sums run in
 # another order than the plain version's).
 ASR_LOGMEL_TOL = 1e-5
-# standalone kernels: max |kernel - plain| <= tol * max |plain|
+# standalone kernels: max |kernel - plain| <= tol * max |plain|; the FFT's
+# tolerance is `FFT_TOL` of kernels/fft/kernel.py, which says why. A
+# transform with its first stage's twiddles conjugated must read above it:
+# `wrong_fft_reading` measures that on every run and the run fails unless
+# the tolerance flags it.
 FIR_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
-FFT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# phase A1's FFT cases (N, rows): rows that no block's rows divide
+FFT_CASES = [(2, 301), (4, 61), (8, 61), (32, 61), (256, 61), (512, 61),
+             (2048, 61), (4096, 61), (8192, 61)]
 # shuffle: bitwise. RoPE: max |kernel - plain| <= tol * max |plain| (the
 # same float32 operations in the same order and the same expf/sinf/cosf;
 # bfloat16 within one rounding). Attention: |kernel - plain| <= atol + rtol
@@ -417,6 +430,48 @@ def check_scaled(name: str, got, want, tol: float) -> float:
     return diff
 
 
+def scaled_ratio(got: tuple, want: tuple) -> float:
+    """max over the planes of max |got - want| / max |want|, in float32:
+    what `check_scaled` holds to a tolerance, plane by plane."""
+    return max(float((g.float() - w.float()).abs().max()) /
+               float(w.float().abs().max()) for g, w in zip(got, want))
+
+
+def wrong_fft_reading(re, im, want: tuple, *, inverse: bool = False) -> \
+        float:
+    """What the FFT check reads from a transform whose first stage's
+    twiddles are conjugated: `fft_stages` on a `twiddle_table` so modified,
+    rounded to the input's dtype, against ``want`` (the plain output);
+    returns max over the planes of max |diff| / max |want|."""
+    import torch
+
+    from repro_torch.core.fft import fft_stages
+    from repro_torch.kernels.fft.kernel import twiddle_table
+
+    n = re.shape[-1]
+    wr, wi = (torch.as_tensor(a, device=re.device)
+              for a in twiddle_table(n, inverse))
+    wi[0] = -wi[0]
+    rr, ri = fft_stages(re.float(), im.float(), table=(wr, wi))
+    if inverse:
+        rr, ri = rr / n, ri / n
+    return scaled_ratio((rr.to(re.dtype), ri.to(re.dtype)), want)
+
+
+def check_wrong_fft(name: str, re, im, want: tuple, inverse: bool) -> float:
+    """Raise unless `FFT_TOL` flags `wrong_fft_reading` for this case;
+    returns the reading."""
+    from repro_torch.kernels.fft.kernel import FFT_TOL
+
+    tol = FFT_TOL[str(re.dtype).replace("torch.", "")]
+    reading = wrong_fft_reading(re, im, want, inverse=inverse)
+    if not reading > tol:
+        raise AssertionError(f"{name}: a conjugated first stage reads "
+                             f"{reading:.3e} <= tol {tol}: the check would "
+                             f"not see it")
+    return reading
+
+
 def counted(fn):
     """Run ``fn()`` with every launch count set to 0 just before; return
     (its result, the counts just after)."""
@@ -503,7 +558,7 @@ def asr_kernels_vs_plain(asr_graph, asr_ops, dev) -> dict:
     import torch
 
     from repro_torch.core.fir import lowpass_taps
-    from repro_torch.kernels.fft.kernel import fft_cuda, fft_plain
+    from repro_torch.kernels.fft.kernel import FFT_TOL, fft_cuda, fft_plain
     from repro_torch.kernels.fir.kernel import fir_cuda, fir_plain
     from repro_torch.kernels.pipeline.graph import (
         graph_frames_call, graph_frames_plain, graph_ring_call,
@@ -559,19 +614,27 @@ def asr_kernels_vs_plain(asr_graph, asr_ops, dev) -> dict:
             n_fir += 1
     err["fft[rows]"] = 0.0
     n_fft = 0
-    for n in (8, 256, 2048):
+    ratio = {"float32": 0.0, "bfloat16": 0.0}
+    wrong = {"float32": math.inf, "bfloat16": math.inf}
+    for n, rows in FFT_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            re = torch.randn(64, n, generator=g, device=dev).to(dtype)
-            im = torch.randn(64, n, generator=g, device=dev).to(dtype)
+            re = torch.randn(rows, n, generator=g, device=dev).to(dtype)
+            im = torch.randn(rows, n, generator=g, device=dev).to(dtype)
             name = str(dtype).replace("torch.", "")
             for inverse in (False, True):
-                gr, gi = fft_cuda(re, im, inverse=inverse)
-                pr, pi = fft_plain(re, im, inverse=inverse)
-                for a, b in ((gr, pr), (gi, pi)):
+                got = fft_cuda(re, im, inverse=inverse)
+                want = fft_plain(re, im, inverse=inverse)
+                for a, b in zip(got, want):
                     err["fft[rows]"] = max(err["fft[rows]"], check_scaled(
                         f"fft {name} N={n} inverse={inverse}", a, b,
                         FFT_TOL[name]))
+                ratio[name] = max(ratio[name], scaled_ratio(got, want))
+                if n > 2:      # N = 2 has no twiddle but 1 to conjugate
+                    wrong[name] = min(wrong[name], check_wrong_fft(
+                        f"fft {name} N={n} inverse={inverse}", re, im,
+                        want, inverse))
                 n_fft += 1
+    err["fft ratio"], err["fft wrong reading"] = ratio, wrong
     print(f"ASR graph vs plain on the card: {len(selections)} output "
           f"selections x (frames, stream, ring) at window {W} hop {H}, "
           f"{n_cmp} frames: filtered bitwise, logmel max |diff| "
@@ -582,8 +645,13 @@ def asr_kernels_vs_plain(asr_graph, asr_ops, dev) -> dict:
     print(f"FIR vs plain: {n_fir} cases (float32/bfloat16 x 2, 11 taps, "
           f"rows of 5000 over 2048-sample tiles), max |diff| "
           f"{err['fir[rows]']:.3e} (tol {FIR_TOL}); FFT vs plain: {n_fft} "
-          f"cases (N 8/256/2048 x float32/bfloat16 x forward/inverse), max "
-          f"|diff| {err['fft[rows]']:.3e} (tol {FFT_TOL}, x max|plain|)")
+          f"cases (N {'/'.join(str(n) for n, _ in FFT_CASES)} x float32/"
+          f"bfloat16 x forward/inverse), max |diff| {err['fft[rows]']:.3e};"
+          f" max |diff| / max |plain| " + ", ".join(
+              f"{k} {v:.3e}" for k, v in ratio.items())
+          + f" (tol {FFT_TOL}); a conjugated first stage reads at least "
+          + ", ".join(f"{k} {v:.3e}" for k, v in wrong.items())
+          + " (flagged in every case from N 4)")
     return err
 
 
@@ -1104,7 +1172,7 @@ def main(argv=None) -> int:
 
     from repro_torch.core.biosignal import make_app, synthetic_respiration
     from repro_torch.kernels import _cuda
-    from repro_torch.kernels.fft.kernel import fft_cuda, fft_plain
+    from repro_torch.kernels.fft.kernel import FFT_TOL, fft_cuda, fft_plain
     from repro_torch.kernels.fir.kernel import fir_cuda, fir_plain
     # the standalone kernels declare themselves to _cuda when imported
     from repro_torch.kernels.flash_attention import kernel as _flash  # noqa
@@ -1385,12 +1453,44 @@ def main(argv=None) -> int:
         {k: bst[k] for k in ("filtered", "features", "margin")},
         {k: bplain[k] for k in ("filtered", "features", "margin")})
     agree = float((bst["class"] == bplain["class"]).float().mean())
+    margin_min = float(bplain["margin"].abs().min())
     print(f"pipeline_staged over the day ({n} x {WINDOW}, 11 taps): 1 FIR "
           f"+ 1 FFT launch, max |diff| {max_err['pipeline_staged']:.3e} "
-          f"against BiosignalApp, class agreement {agree:.6f}")
+          f"against BiosignalApp, class agreement {agree:.6f}, smallest "
+          f"|margin| {margin_min:.3e}")
     if agree != 1.0:
-        raise AssertionError(f"pipeline_staged class agreement {agree}")
+        flips = (bst["class"] != bplain["class"]).nonzero().flatten()
+        raise AssertionError(
+            f"pipeline_staged class agreement {agree}: windows "
+            f"{flips[:5].tolist()} flip at margins "
+            f"{bplain['margin'][flips[:5]].tolist()}")
     del bst, bplain, day_frames
+
+    # the FFT at the shape asr_staged gives it, the hour's (359,997 x 256)
+    # packed halves, in float32 and bfloat16: held to the plain version,
+    # and what a conjugated first stage would read there (before any
+    # timing, so that a run that cannot see a wrong kernel times nothing)
+    zr = torch.randn(na, W // 2, device=dev)
+    zi = torch.randn(na, W // 2, device=dev)
+    fft_path = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        xr, xi = zr.to(dtype), zi.to(dtype)
+        got = fft_cuda(xr, xi)
+        want = fft_plain(xr, xi)
+        err = max(check_scaled(f"fft {name} at the path's shape", a, b,
+                               FFT_TOL[name]) for a, b in zip(got, want))
+        fft_path[name] = {
+            "max_abs_err": err, "ratio": scaled_ratio(got, want),
+            "wrong_reading": check_wrong_fft(
+                f"fft {name} at the path's shape", xr, xi, want, False)}
+        del got, want, xr, xi
+    max_err["fft path"] = fft_path
+    print(f"FFT at the path's shape ({na} x {W // 2}) vs plain: " + "; ".join(
+        f"{k} max |diff| {v['max_abs_err']:.3e}, max |diff| / max |plain| "
+        f"{v['ratio']:.3e}, a conjugated first stage reads "
+        f"{v['wrong_reading']:.3e}" for k, v in fft_path.items())
+        + f" (tol {FFT_TOL}, flagged in both)")
 
     # ---- phase S: the standalone shuffle, RoPE and attention entries
     std_cases, std_launches = standalone_path(audio, dev, card)
@@ -1545,18 +1645,11 @@ def main(argv=None) -> int:
     lib = F.conv1d(padded, wconv).squeeze(1)
     lib_err = float((lib - got).abs().max())
     del got, lib
-    zr = torch.randn(na, W // 2, device=dev)
-    zi = torch.randn(na, W // 2, device=dev)
-    gr, gi = fft_cuda(zr, zi)
-    pr, pi = fft_plain(zr, zi)
-    fft_err = max(check_scaled("fft at the path's shape", gr, pr,
-                               FFT_TOL["float32"]),
-                  check_scaled("fft at the path's shape", gi, pi,
-                               FFT_TOL["float32"]))
     zc = torch.complex(zr, zi)
+    gr, gi = fft_cuda(zr, zi)
     lib_fft_err = float(max((torch.fft.fft(zc).real - gr).abs().max(),
                             (torch.fft.fft(zc).imag - gi).abs().max()))
-    del gr, gi, pr, pi
+    del gr, gi
     rows = [
         ("fir", FIR_SOURCE, FIR_REPLACES, "rows",
          lambda: fir_cuda(hour_frames, taps2),
@@ -1566,7 +1659,7 @@ def main(argv=None) -> int:
         ("fft", FFT_SOURCE, FFT_REPLACES, "rows",
          lambda: fft_cuda(zr, zi), lambda: fft_plain(zr, zi),
          lambda: torch.fft.fft(zc), fft_work(na, W // 2, 4),
-         max(max_err["fft[rows]"], fft_err)),
+         max(max_err["fft[rows]"], fft_path["float32"]["max_abs_err"])),
     ]
     for name, src, rep, entry, kfn, pfn, lfn, work, err in rows:
         ms = event_ms(kfn, 20)
@@ -1581,6 +1674,19 @@ def main(argv=None) -> int:
         print(f"time {name}: {na} rows at the asr_staged shape, kernel "
               f"{ms:.4f} ms, plain {pms:.3f} ms, library {lms:.4f} ms, "
               f"bound {bms:.5f} ms ({by}) [{card}]")
+    # the FFT in bfloat16 at the same shape: half the bytes, no library
+    # call (torch.fft.fft takes no bfloat16); no JSON entry
+    zr16, zi16 = zr.bfloat16(), zi.bfloat16()
+    ms = event_ms(lambda: fft_cuda(zr16, zi16), 20)
+    pms = event_ms(lambda: fft_plain(zr16, zi16), 3)
+    bms, by = bound_ms(*fft_work(na, W // 2, 2))
+    wide["fft bfloat16 asr_staged shape"] = {
+        "rows": na, "ms": ms, "plain_ms": pms, "bound_ms": bms,
+        "bound_by": by}
+    print(f"time fft bfloat16: {na} rows at the asr_staged shape, kernel "
+          f"{ms:.4f} ms, plain {pms:.3f} ms, bound {bms:.5f} ms ({by}) "
+          f"[{card}]")
+    del zr16, zi16
     print(f"library agreement: conv1d (cudnn, TF32 off) vs the FIR kernel "
           f"max |diff| {lib_err:.3e}; torch.fft.fft vs the FFT kernel max "
           f"|diff| {lib_fft_err:.3e}")

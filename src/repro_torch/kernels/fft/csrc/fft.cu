@@ -1,136 +1,388 @@
-// Batched complex radix-2 FFT of (R, N) float32 or bfloat16 re/im planes
-// as one CUDA kernel for Hopper (sm_90a), bound to PyTorch through a plain C
-// interface (kernels/fft/kernel.py). Self-sorting Stockham stages from the
-// packed (log2 N, N/2) twiddle table, computed in float32; the inverse
-// transform takes the inverse table and divides by N at the end.
+// Batched complex FFT of (R, N) float32 or bfloat16 re/im planes, N a power
+// of two from 2 to 8192, as one CUDA kernel for Hopper (sm_90a), bound to
+// PyTorch through a plain C interface (kernels/fft/kernel.py). Computed in
+// float32, returned in the input's type, in natural order.
 //
 // Replaces fft_pallas of src/repro/kernels/fft/kernel.py:74 (body
 // fft_kernel :45, pallas_call :86), which stages a block of rows in VMEM
-// and runs all log2 N stages on it in one residency.
+// and runs all log2 N radix-2 stages on it in one residency.
 //
 // What bounds it on this card. Each point is read and written once (16
-// bytes in float32) for ~5 log2 N float operations: ~2.5 operations per
-// byte at N = 256, far under the fp32 ridge (67 TFLOP/s over 3.35 TB/s), so
-// it is byte-bound. The stages depend on each other, one barrier apart.
+// bytes a point in float32, 8 in bfloat16) for ~5 log2 N float operations:
+// under 3 operations a byte at N = 256, far below the fp32 ridge (67 TFLOP/s
+// over 3.35 TB/s), so the kernel is byte-bound and has to keep HBM busy:
+// wide loads, enough of them in flight, and little else between them.
 //
-// What the design does about it. A block of 256 threads takes max(1, 2048
-// / N) rows (or the caller's block_rows) into shared memory in one
-// coalesced read, runs every stage there between two ping-pong planes, with
-// ~1024 butterflies per barrier whatever N, and writes each point once:
-// one pass over device memory, as the TPU kernel's one VMEM residency.
-// Butterflies use round-to-nearest intrinsics in the plain PyTorch
-// version's order, so a float32 result matches it bitwise. Four float32
-// planes of N per row bound N at 8192 (128 KB with the opt-in above 48 KB).
+// What the design does about it.
+// - Radix-16 Stockham passes in registers. A row of N > 16 points is owned
+//   by N/16 threads, each holding 16 complex points; N <= 16 gives a row to
+//   one thread. N = 16^q * 2^r runs q radix-16 passes and, for r > 0, one
+//   radix-2^r pass (each thread then runs 16 / 2^r small DFTs), so 256 takes
+//   two passes, 4096 three, 8192 four. Each pass reads a thread's points i,
+//   i + T, ..., i + 15 T of the row (T threads a row), multiplies them by
+//   the pass's twiddles, runs the DFT in registers (radix-16 as 4 x 4
+//   radix-4 butterflies with constant twiddles, no multiply by 1 or -i)
+//   and writes them back in self-sorting Stockham order, so the output
+//   comes out in natural order.
+// - Between passes the points cross threads once through shared memory,
+//   padded by one word every 2^pad_shift words so that no access pattern of
+//   N = 256 (and none but the 2-way pass writes of N >= 512) conflicts on
+//   a bank. A row never leaves its threads: rows of up to 32 threads (N
+//   <= 512) sync with __syncwarp over the row's lanes; wider rows take
+//   one __syncthreads per exchange, not one per radix-2 stage.
+// - Global memory is read and written once, in 16-byte vectors (8 or 4
+//   bytes where the row is shorter), streamed past L1 (ld/st .cs): each
+//   thread puts its row's vectors into shared memory, the first pass reads
+//   them from there, and the last pass's output leaves the same way.
+// - Templated on log2 N: every index is a shift or a mask, no division.
+//   One instantiation per N from 2 to 8192 and per input type (26).
+// - Twiddles come from a host-side table (float64 cos/sin cast to float32,
+//   kernel.py:stockham_table) read through the read-only cache: pass p's
+//   block holds w^(j k) = exp(-2 pi i j k / (Ns R)) at j * Ns + k, Ns the
+//   product of the earlier radices. The inverse transform swaps re and im
+//   on the way in and out (ifft(x) = swap(fft(swap(x))) / N) and scales by
+//   1/N, exact for a power of two. FMAs contract freely: the kernel agrees
+//   with the plain radix-2 chain to float32 rounding, not bitwise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <utility>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 512;
+constexpr int kMaxLog = 13;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// ---- the plan of one N = 2^lg, shared by the kernel and the host
+__host__ __device__ constexpr int points_per_thread(int lg) {
+  return lg < 4 ? (1 << lg) : 16;
 }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
+__host__ __device__ constexpr int log_threads_per_row(int lg) {
+  return lg < 4 ? 0 : lg - 4;
 }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16_rn(v);
+__host__ __device__ constexpr int n_passes(int lg) {
+  return lg <= 4 ? 1 : (lg + 3) / 4;
+}
+// log2 of pass p's radix: 4 but for one shorter last pass
+__host__ __device__ constexpr int log_radix(int lg, int p) {
+  return lg <= 4 ? lg : (p < lg / 4 ? 4 : lg % 4);
+}
+// log2 of Ns, the product of the radices before pass p
+__host__ __device__ constexpr int log_span(int lg, int p) {
+  return lg <= 4 ? 0 : 4 * p;
+}
+// complex twiddle entries before pass p's block (pass 0 needs none)
+__host__ __device__ constexpr int twiddle_offset(int lg, int p) {
+  int off = 0;
+  for (int q = 1; q < p; ++q) off += 1 << (log_span(lg, q) + log_radix(lg, q));
+  return off;
+}
+// shared layout: element p of a row at p + (p >> pad_shift), rows
+// row_stride words apart (found by enumerating every access pattern's
+// banks per N; N = 256 is conflict-free throughout)
+__host__ __device__ constexpr int pad_shift(int lg) {
+  return lg <= 3 || lg == 6 ? 3 : (lg <= 8 ? 4 : 5);
+}
+__host__ __device__ constexpr int row_stride(int lg) {
+  return (1 << lg) + ((1 << lg) >> pad_shift(lg)) +
+         (lg <= 2 ? 1 : (lg == 6 ? 4 : 0));
+}
+__host__ __device__ constexpr size_t smem_bytes(int lg, int rows) {
+  return sizeof(float) * 2 * size_t(row_stride(lg)) * rows;
 }
 
-__host__ __device__ inline size_t smem_bytes(int n, int rows_per_block) {
-  return sizeof(float) * 4 * size_t(n) * rows_per_block;
+// ---- compile-time loops: f(std::integral_constant<int, i>) for i < N
+template <class F, int... Is>
+__device__ __forceinline__ void static_for(F&& f,
+                                           std::integer_sequence<int, Is...>) {
+  (f(std::integral_constant<int, Is>{}), ...);
+}
+template <int N, class F>
+__device__ __forceinline__ void static_for(F&& f) {
+  static_for(f, std::make_integer_sequence<int, N>{});
+}
+#define CV(x) decltype(x)::value
+
+// ---- complex arithmetic in registers
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
+  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// cos and -sin of 2 pi e / 16, e < 16
+__host__ __device__ constexpr float cos16(int e) {
+  const float q[5] = {1.0f, 0.92387953251128674f, 0.70710678118654752f,
+                      0.38268343236508977f, 0.0f};
+  return e <= 4 ? q[e] : e <= 8 ? -q[8 - e] : e <= 12 ? -q[e - 8] : q[16 - e];
+}
+__host__ __device__ constexpr float neg_sin16(int e) {
+  return -cos16((e + 12) & 15);   // -sin(a) = -cos(a - pi/2)
+}
+
+// v * exp(-2 pi i E / M), M dividing 16; multiples of a quarter turn are
+// swaps and sign flips
+template <int M, int E>
+__device__ __forceinline__ float2 rot(float2 v) {
+  constexpr int e = (E % M) * (16 / M);
+  if constexpr (e == 0) {
+    return v;
+  } else if constexpr (e == 4) {
+    return make_float2(v.y, -v.x);
+  } else if constexpr (e == 8) {
+    return make_float2(-v.x, -v.y);
+  } else if constexpr (e == 12) {
+    return make_float2(-v.y, v.x);
+  } else {
+    constexpr float c = cos16(e), ns = neg_sin16(e);
+    return cmul(v, make_float2(c, ns));
+  }
+}
+
+// In-place DFT of R = 1, 2, 4, 8 or 16 points, natural order in and out.
+// R = A B: A-point DFTs over x[B n1 + n2], twiddles w_R^(n2 k1), B-point
+// DFTs, out at k1 + A k2 (A = 4, or 2 for R = 8).
+template <int R>
+__device__ __forceinline__ void dft(float2 (&x)[R]) {
+  if constexpr (R == 2) {
+    const float2 a = x[0];
+    x[0] = cadd(a, x[1]);
+    x[1] = csub(a, x[1]);
+  } else if constexpr (R == 4) {
+    const float2 t0 = cadd(x[0], x[2]), t1 = csub(x[0], x[2]);
+    const float2 t2 = cadd(x[1], x[3]), t3 = rot<4, 1>(csub(x[1], x[3]));
+    x[0] = cadd(t0, t2);
+    x[2] = csub(t0, t2);
+    x[1] = cadd(t1, t3);
+    x[3] = csub(t1, t3);
+  } else if constexpr (R >= 8) {
+    constexpr int A = R == 8 ? 2 : 4, B = R / A;
+    float2 y[R];  // y[k1 B + n2]
+    static_for<B>([&](auto n2) {
+      float2 t[A];
+      static_for<A>([&](auto n1) { t[CV(n1)] = x[B * CV(n1) + CV(n2)]; });
+      dft<A>(t);
+      static_for<A>([&](auto k1) {
+        y[CV(k1) * B + CV(n2)] = rot<R, CV(k1) * CV(n2)>(t[CV(k1)]);
+      });
+    });
+    static_for<A>([&](auto k1) {
+      float2 t[B];
+      static_for<B>([&](auto n2) { t[CV(n2)] = y[CV(k1) * B + CV(n2)]; });
+      dft<B>(t);
+      static_for<B>([&](auto k2) { x[CV(k1) + A * CV(k2)] = t[CV(k2)]; });
+    });
+  }
+}
+
+// ---- global vectors: VE elements of T in one load or store
+template <int BYTES> struct VecOf;
+template <> struct VecOf<16> { using type = uint4; };
+template <> struct VecOf<8> { using type = uint2; };
+template <> struct VecOf<4> { using type = unsigned int; };
+
+template <typename T, int VE>
+__device__ __forceinline__ void load_vec(const T* p, float (&v)[VE]) {
+  using V = typename VecOf<VE * sizeof(T)>::type;
+  const V raw = __ldcs(reinterpret_cast<const V*>(p));
+  uint32_t w[sizeof(V) / 4];
+  memcpy(w, &raw, sizeof(V));
+  if constexpr (sizeof(T) == 4) {
+    static_for<VE>([&](auto c) { v[CV(c)] = __uint_as_float(w[CV(c)]); });
+  } else {
+    static_for<VE / 2>([&](auto c) {
+      v[2 * CV(c)] = __uint_as_float(w[CV(c)] << 16);
+      v[2 * CV(c) + 1] = __uint_as_float(w[CV(c)] & 0xffff0000u);
+    });
+  }
+}
+
+template <typename T, int VE>
+__device__ __forceinline__ void store_vec(T* p, const float (&v)[VE]) {
+  using V = typename VecOf<VE * sizeof(T)>::type;
+  uint32_t w[sizeof(V) / 4];
+  if constexpr (sizeof(T) == 4) {
+    static_for<VE>([&](auto c) { w[CV(c)] = __float_as_uint(v[CV(c)]); });
+  } else {
+    static_for<VE / 2>([&](auto c) {
+      const __nv_bfloat162 h =
+          __floats2bfloat162_rn(v[2 * CV(c)], v[2 * CV(c) + 1]);
+      memcpy(&w[CV(c)], &h, 4);
+    });
+  }
+  V raw;
+  memcpy(&raw, w, sizeof(V));
+  __stcs(reinterpret_cast<V*>(p), raw);
+}
+
+// One block: `rows` rows of N = 2^LG points, T = N / E threads each (row r
+// on threads [r T, (r + 1) T)). Shared memory: the rows' re planes, then
+// their im planes, row_stride(LG) words a row.
+template <int LG, typename T>
+__global__ void __launch_bounds__(kMaxThreads)
 fft_kernel(const T* __restrict__ re, const T* __restrict__ im,
-           const float* __restrict__ tw_re, const float* __restrict__ tw_im,
-           T* __restrict__ out_re, T* __restrict__ out_im, int R, int N,
-           int rows_per_block, int inverse) {
-  extern __shared__ __align__(16) float s[];
-  const int tid = threadIdx.x;
-  const int rpb = rows_per_block;
-  const long long r0 = (long long)blockIdx.x * rpb;
-  const int nr = (int)min((long long)rpb, (long long)R - r0);
-  const long long base = r0 * N;
-  float* cr = s;
-  float* ci = s + rpb * N;
-  float* xr = s + 2 * rpb * N;
-  float* xi = s + 3 * rpb * N;
-  for (int i = tid; i < nr * N; i += kThreads) {
-    cr[i] = to_f(re[base + i]);
-    ci[i] = to_f(im[base + i]);
-  }
-  __syncthreads();
-  const int h = N / 2;
-  int stage = 0;
-  for (int n = N, g = 1; n > 1; n >>= 1, g <<= 1, ++stage) {
-    const int half = n >> 1;
-    const float* wr = tw_re + (long long)stage * h;
-    const float* wi = tw_im + (long long)stage * h;
-    for (int b = tid; b < nr * h; b += kThreads) {
-      const int row = b / h, bf = b - row * h;
-      const int q = bf / half, j = bf - q * half;
-      const float* ar_ = cr + row * N;
-      const float* ai_ = ci + row * N;
-      const float ar = ar_[q * n + j], ai = ai_[q * n + j];
-      const float br = ar_[q * n + j + half], bi = ai_[q * n + j + half];
-      const float dr = __fsub_rn(ar, br), di = __fsub_rn(ai, bi);
-      const float w_r = wr[j], w_i = wi[j];
-      xr[row * N + q * half + j] = __fadd_rn(ar, br);
-      xi[row * N + q * half + j] = __fadd_rn(ai, bi);
-      xr[row * N + (g + q) * half + j] =
-          __fsub_rn(__fmul_rn(dr, w_r), __fmul_rn(di, w_i));
-      xi[row * N + (g + q) * half + j] =
-          __fadd_rn(__fmul_rn(dr, w_i), __fmul_rn(di, w_r));
+           const float2* __restrict__ tw, T* __restrict__ out_re,
+           T* __restrict__ out_im, long long R, int rows, float scale) {
+  constexpr int N = 1 << LG;
+  constexpr int E = points_per_thread(LG);
+  constexpr int LT = log_threads_per_row(LG);
+  constexpr int TPR = 1 << LT;
+  constexpr int S = row_stride(LG);
+  constexpr int SH = pad_shift(LG);
+  constexpr int VE = N < int(16 / sizeof(T)) ? N : int(16 / sizeof(T));
+  constexpr int NV = E / VE;  // vectors a thread moves per plane
+  extern __shared__ __align__(16) float smem[];
+
+  const int t = threadIdx.x;
+  const int lrow = t >> LT;
+  const int i = t & (TPR - 1);
+  const long long row = (long long)blockIdx.x * rows + lrow;
+  const bool live = row < R;
+  float* sr = smem + lrow * S;
+  float* si = smem + (rows + lrow) * S;
+  auto pad = [](int p) { return p + (p >> SH); };
+  auto sync = [&]() {
+    if constexpr (TPR > 32) {
+      __syncthreads();
+    } else {
+      constexpr unsigned kRow = TPR == 32 ? 0xffffffffu : (1u << TPR) - 1;
+      __syncwarp(kRow << ((t & 31) & ~(TPR - 1)));
     }
-    __syncthreads();
-    float* t0 = cr; cr = xr; xr = t0;
-    float* t1 = ci; ci = xi; xi = t1;
+  };
+
+  // in: each thread moves vectors i, i + T, ... of its row to shared
+  if (live) {
+    const long long base = row * N;
+    static_for<NV>([&](auto j) {
+      const int g = i + TPR * CV(j);
+      float vr[VE], vi[VE];
+      load_vec<T, VE>(re + base + VE * g, vr);
+      load_vec<T, VE>(im + base + VE * g, vi);
+      static_for<VE>([&](auto c) {
+        const int q = pad(VE * g + CV(c));
+        sr[q] = vr[CV(c)];
+        si[q] = vi[CV(c)];
+      });
+    });
   }
-  const float fn = (float)N;
-  for (int i = tid; i < nr * N; i += kThreads) {
-    float a = cr[i], b = ci[i];
-    if (inverse) {
-      a = __fdiv_rn(a, fn);
-      b = __fdiv_rn(b, fn);
-    }
-    out_re[base + i] = from_f<T>(a);
-    out_im[base + i] = from_f<T>(b);
+  sync();
+
+  // the passes: read points i + T m, twiddle, DFT, write Stockham order
+  float2 x[E];
+  static_for<n_passes(LG)>([&](auto p) {
+    constexpr int LR = log_radix(LG, CV(p));
+    constexpr int RAD = 1 << LR;
+    constexpr int NS = 1 << log_span(LG, CV(p));
+    constexpr int OFF = twiddle_offset(LG, CV(p));
+    static_for<E>([&](auto m) {
+      const int q = pad(i + TPR * CV(m));
+      x[CV(m)] = make_float2(sr[q], si[q]);
+    });
+    sync();
+    static_for<E / RAD>([&](auto u) {
+      const int b = i + TPR * CV(u);      // this DFT's index in the pass
+      const int k = b & (NS - 1);
+      float2 y[RAD];
+      static_for<RAD>([&](auto j) { y[CV(j)] = x[CV(u) + CV(j) * (E / RAD)]; });
+      if constexpr (NS > 1) {
+        static_for<RAD - 1>([&](auto j1) {
+          constexpr int j = CV(j1) + 1;
+          y[j] = cmul(y[j], __ldg(tw + OFF + j * NS + k));
+        });
+      }
+      dft<RAD>(y);
+      const int first = ((b - k) << LR) + k;
+      static_for<RAD>([&](auto r) {
+        const int q = pad(first + CV(r) * NS);
+        sr[q] = y[CV(r)].x;
+        si[q] = y[CV(r)].y;
+      });
+    });
+    sync();
+  });
+
+  // out: the same vectors back to global memory, scaled
+  if (live) {
+    const long long base = row * N;
+    static_for<NV>([&](auto j) {
+      const int g = i + TPR * CV(j);
+      float vr[VE], vi[VE];
+      static_for<VE>([&](auto c) {
+        const int q = pad(VE * g + CV(c));
+        vr[CV(c)] = sr[q] * scale;
+        vi[CV(c)] = si[q] * scale;
+      });
+      store_vec<T, VE>(out_re + base + VE * g, vr);
+      store_vec<T, VE>(out_im + base + VE * g, vi);
+    });
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* re, const void* im, const float* tw_re,
-                   const float* tw_im, void* out_re, void* out_im, int R,
-                   int N, int rpb, int inverse, cudaStream_t stream) {
-  const size_t smem = smem_bytes(N, rpb);
+template <int LG, typename T>
+cudaError_t launch_n(const void* re, const void* im, const float2* tw,
+                     void* out_re, void* out_im, long long R, int rows,
+                     float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes(LG, rows);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fft_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fft_kernel<LG, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((R + rpb - 1) / rpb);
-  fft_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(re), static_cast<const T*>(im), tw_re, tw_im,
-      static_cast<T*>(out_re), static_cast<T*>(out_im), R, N, rpb, inverse);
+  const long long blocks = (R + rows - 1) / rows;
+  const int threads = rows << log_threads_per_row(LG);
+  fft_kernel<LG, T><<<static_cast<unsigned>(blocks), threads, smem,
+                      stream>>>(
+      static_cast<const T*>(re), static_cast<const T*>(im), tw,
+      static_cast<T*>(out_re), static_cast<T*>(out_im), R, rows, scale);
   return cudaGetLastError();
+}
+
+template <typename T, int LG = 1>
+cudaError_t dispatch(int lg, const void* re, const void* im,
+                     const float2* tw, void* out_re, void* out_im,
+                     long long R, int rows, float scale,
+                     cudaStream_t stream) {
+  if constexpr (LG > kMaxLog) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (lg == LG)
+      return launch_n<LG, T>(re, im, tw, out_re, out_im, R, rows, scale,
+                             stream);
+    return dispatch<T, LG + 1>(lg, re, im, tw, out_re, out_im, R, rows,
+                               scale, stream);
+  }
+}
+
+int log2_of(int n) {
+  int lg = 0;
+  while ((1 << lg) < n) ++lg;
+  return lg;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes one block needs for rows_per_block rows of N points.
+// Shared-memory bytes of one block of rows_per_block rows of N points.
 size_t fft_smem_bytes(int n, int rows_per_block) {
-  return smem_bytes(n, rows_per_block);
+  return smem_bytes(log2_of(n), rows_per_block);
+}
+
+// Threads of one row of N points (the block has rows x this many).
+int fft_threads_per_row(int n) { return 1 << log_threads_per_row(log2_of(n)); }
+
+// Complex entries of the twiddle table for N points (kernel.py builds it).
+int fft_table_size(int n) {
+  const int lg = log2_of(n);
+  return twiddle_offset(lg, n_passes(lg));
 }
 
 const char* fft_error_string(int code) {
@@ -138,22 +390,35 @@ const char* fft_error_string(int code) {
 }
 
 // (out_re, out_im) = FFT(re + i im) over the rows of (R, N) row-major planes
-// of `dtype` (0: float32, 1: bfloat16) with the (log2 N, N/2) twiddle table
-// (tw_re, tw_im); `inverse` != 0 divides by N at the end. Runs on `stream`,
-// on the calling thread's current device; returns cudaGetLastError() after
-// the launch (0 on success). Allocates nothing and does not synchronise.
-int fft_launch(const void* re, const void* im, const float* tw_re,
-               const float* tw_im, void* out_re, void* out_im, int R, int N,
+// of `dtype` (0: float32, 1: bfloat16), each base aligned to min(16, N x
+// element size) bytes, with the twiddle table `tw` of kernel.py's
+// stockham_table(N) (fft_table_size(N) float2); `inverse` != 0 gives the
+// inverse transform divided by N. Runs on `stream`, on the calling thread's
+// current device; returns cudaGetLastError() after the launch (0 on
+// success). Allocates nothing and does not synchronise.
+int fft_launch(const void* re, const void* im, const float* tw,
+               void* out_re, void* out_im, long long R, int N,
                int rows_per_block, int inverse, int dtype, void* stream) {
-  if (R < 1 || N < 2 || (N & (N - 1)) != 0 || rows_per_block < 1 ||
+  const int lg = log2_of(N);
+  if (R < 1 || N < 2 || N > (1 << kMaxLog) || (N & (N - 1)) != 0 ||
+      rows_per_block < 1 ||
+      (rows_per_block << log_threads_per_row(lg)) > kMaxThreads ||
       (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float2* w = reinterpret_cast<const float2*>(tw);
+  // the inverse is the forward transform with re and im swapped on the way
+  // in and out: ifft(x) = swap(fft(swap(x))) / N
+  const void* a = inverse ? im : re;
+  const void* b = inverse ? re : im;
+  void* oa = inverse ? out_im : out_re;
+  void* ob = inverse ? out_re : out_im;
+  const float scale = inverse ? 1.0f / static_cast<float>(N) : 1.0f;
   const cudaError_t err =
-      dtype == 0 ? launch<float>(re, im, tw_re, tw_im, out_re, out_im, R, N,
-                                 rows_per_block, inverse, st)
-                 : launch<__nv_bfloat16>(re, im, tw_re, tw_im, out_re, out_im,
-                                         R, N, rows_per_block, inverse, st);
+      dtype == 0
+          ? dispatch<float>(lg, a, b, w, oa, ob, R, rows_per_block, scale, st)
+          : dispatch<__nv_bfloat16>(lg, a, b, w, oa, ob, R, rows_per_block,
+                                    scale, st);
   return static_cast<int>(err);
 }
 

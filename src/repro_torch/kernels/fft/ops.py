@@ -22,8 +22,9 @@ def fft(re: torch.Tensor, im: torch.Tensor | None = None, *,
         autotune: bool = False) -> tuple:
     """Batched complex FFT over the rows of (R, N) float32 or bfloat16
     planes, N a power of two; computed in float32, returned in the input's
-    dtype. ``inverse=True`` divides by N. ``block_rows`` is the rows each
-    CUDA block takes (default ~2048 points' worth)."""
+    dtype. ``inverse=True`` divides by N. ``block_rows`` is the rows one
+    CUDA block takes (default 128 threads' worth; a block has block_rows x
+    max(1, N/16) threads, at most 512); the CPU path ignores it."""
     not_in_slice(autotune)
     if im is None:
         im = torch.zeros_like(re)

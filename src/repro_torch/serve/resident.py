@@ -40,7 +40,7 @@ from repro_torch.kernels.pipeline.graph import (default_app,
                                                 stream_frame_count)
 from repro_torch.serve.stream import (StreamConfig, StreamTelemetry,
                                       _check_stream_config, _no_fault_hooks,
-                                      stream_outputs)
+                                      stream_outputs, stream_signal)
 
 DEFAULT_RING_DEPTH = 4
 
@@ -171,9 +171,7 @@ class ResidentStream:
         """All framed outputs for `signal`, bit-identical to the
         host-driven `BiosignalStream.process` on the same device."""
         cfg = self.cfg
-        sig = torch.as_tensor(signal).to(self.device)
-        if sig.ndim != 1:
-            raise ValueError(f"signal must be 1-D, got {tuple(sig.shape)}")
+        sig = stream_signal(signal, self.device)
         n = stream_frame_count(sig.shape[0], cfg.window, cfg.hop)
         if n == 0:
             # same degenerate contract as the host path: no frames, no

@@ -84,6 +84,18 @@ def frame_signal(signal, window: int, hop: int) -> torch.Tensor:
     return sig.unfold(0, window, hop).contiguous()
 
 
+def stream_signal(signal, device) -> torch.Tensor:
+    """``signal`` as a 1-D tensor on ``device``, the stream entries' input.
+    float64 becomes float32, as the reference's ``jnp.asarray`` makes it
+    with x64 off; any other dtype is kept."""
+    sig = torch.as_tensor(signal)
+    if sig.dtype == torch.float64:
+        sig = sig.float()
+    if sig.ndim != 1:
+        raise ValueError(f"signal must be 1-D, got {tuple(sig.shape)}")
+    return sig.to(device)
+
+
 def _check_stream_config(cfg: StreamConfig, fft_size: int) -> None:
     not_in_slice(cfg.autotune, cfg.n_columns, cfg.column_weights)
     if cfg.window < fft_size:
@@ -316,17 +328,11 @@ class BiosignalStream:
                                  block_rows=self.cfg.block_rows,
                                  outputs=self.cfg.outputs)
 
-    def _signal(self, signal) -> torch.Tensor:
-        sig = torch.as_tensor(signal).to(self.device)
-        if sig.ndim != 1:
-            raise ValueError(f"signal must be 1-D, got {tuple(sig.shape)}")
-        return sig
-
     def _batches(self, signal) -> Iterator[tuple]:
         """(in-flight output dict, n valid frames, retire event) per
         window batch."""
         cfg = self.cfg
-        sig = self._signal(signal)
+        sig = stream_signal(signal, self.device)
         n = frame_count(sig.shape[0], cfg.window, cfg.hop)
         bw = self.dispatch_windows
         if cfg.framing == "host":
@@ -379,9 +385,10 @@ class BiosignalStream:
     def process(self, signal) -> dict:
         """All framed outputs concatenated, equal to running the graph on
         `frame_signal(signal, window, hop)` at once."""
-        chunks = list(self.stream(signal))
+        sig = stream_signal(signal, self.device)
+        chunks = list(self.stream(sig))
         if not chunks:
-            return self._empty(torch.as_tensor(signal).dtype)
+            return self._empty(sig.dtype)
         return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
 
     def process_resident(self, signal, rcfg=None) -> dict:

@@ -20,6 +20,14 @@ Tolerances, and why:
 * the staged baselines: the tolerances of `tests/test_torch_pipeline.py`.
 Within the port, `fft_plain` equals `core.fft.fft` bitwise: the table and
 the per-stage twiddles are the same float32 values.
+
+The last section checks the host side of the FFT kernel, which itself
+runs only on a card (`tests/test_torch_kernel.py`): its twiddle table
+against float64 cos/sin cast to float32, and its decomposition, walked
+through in numpy with the kernel's radix passes, thread-to-point map and
+table, against `fft_plain` within `FFT_TOL`, so that a layout fault shows
+without a card. `FFT_TOL` must also flag a transform with one stage's
+twiddles conjugated, in both dtypes.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -36,8 +44,13 @@ from repro.kernels.fir.kernel import fir_pallas
 from repro.kernels.pipeline.ref import pipeline_staged as j_pipeline_staged
 from repro.kernels.pipeline.ref import staged_stage_fns as j_stage_fns
 from repro_torch.core.biosignal import app_from_numpy
+from repro_torch.core.fft import fft_stages
 from repro_torch.kernels.fft import ops as fft_ops
-from repro_torch.kernels.fft.kernel import fft_plain, twiddle_table
+from repro_torch.kernels.fft.kernel import (FFT_TOL, MAX_N, MAX_THREADS,
+                                            default_block_rows, fft_cuda,
+                                            fft_plain, stockham_plan,
+                                            stockham_table, threads_per_row,
+                                            twiddle_table)
 from repro_torch.kernels.fft.ref import fft_ref, rfft_ref
 from repro_torch.kernels.fir import ops as fir_ops
 from repro_torch.kernels.fir.kernel import fir_plain
@@ -238,3 +251,167 @@ def test_staged_stage_fns_match_reference(bio):
                          "class": tc},
                         {"filtered": jfilt, "features": jfe, "margin": jm,
                          "class": jc})
+
+
+# ------------------------------------------ the FFT kernel's host side
+
+SIZES = [2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192]
+
+
+def _plan(n: int) -> list:
+    """(radix, span) per pass: radix 16 while it fits, then the rest."""
+    passes, span, left = [], 1, n
+    while left > 1:
+        radix = min(16, left)
+        passes.append((radix, span))
+        span, left = span * radix, left // radix
+    return passes
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_plan_and_threads(n):
+    assert list(stockham_plan(n)) == _plan(n)
+    assert threads_per_row(n) * min(n, 16) == n
+    assert default_block_rows(n) * threads_per_row(n) <= MAX_THREADS
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_stockham_table_is_float64_cos_sin_cast_once(n):
+    table = stockham_table(n)
+    want = []
+    for radix, span in _plan(n):
+        if span == 1:
+            continue
+        for j in range(radix):
+            for k in range(span):
+                a = -2.0 * np.pi * j * k / (span * radix)
+                want.append((np.cos(a), np.sin(a)))
+    want = np.asarray(want, np.float64).reshape(-1, 2).astype(np.float32)
+    assert table.dtype == np.float32 and table.shape == want.shape
+    np.testing.assert_array_equal(table, want)
+
+
+def walk_through(re: np.ndarray, im: np.ndarray, inverse: bool) -> tuple:
+    """The kernel's arithmetic in numpy: T = N / E threads a row, thread i
+    holding points i + T m (m < E = min(N, 16)); each pass's DFT number b
+    = i + T u twiddles its point j by table[offset + j * Ns + k], k = b mod
+    Ns, and writes output r to (b - k) R + k + r Ns. The inverse swaps re
+    and im on the way in and out and scales by 1/N."""
+    if inverse:
+        re, im = im, re
+    rows, n = re.shape
+    x = (re + 1j * im).astype(np.complex64)
+    E = min(n, 16)
+    T = n // E
+    table = stockham_table(n)
+    w = (table[:, 0] + 1j * table[:, 1]).astype(np.complex64)
+    i = np.arange(T)
+    offset = 0
+    for radix, span in stockham_plan(n):
+        held = x[:, i[:, None] + T * np.arange(E)[None, :]]   # (rows, T, E)
+        out = np.zeros_like(x)
+        written = np.zeros(n, int)
+        for u in range(E // radix):
+            b = i + T * u
+            k = b & (span - 1)
+            y = held[:, :, u + np.arange(radix) * (E // radix)]
+            if span > 1:
+                y = y * w[offset + np.arange(radix)[None, :] * span +
+                          k[:, None]]
+            y = np.fft.fft(y, axis=-1).astype(np.complex64)
+            dest = ((b - k) * radix + k)[:, None] + \
+                np.arange(radix)[None, :] * span
+            out[:, dest] = y
+            np.add.at(written, dest.ravel(), 1)
+        assert (written == 1).all(), "a pass must write every point once"
+        x = out
+        if span > 1:
+            offset += radix * span
+    assert offset == len(table)
+    if inverse:
+        x = x * np.float32(1.0 / n)
+        return x.imag.astype(np.float32), x.real.astype(np.float32)
+    return x.real.astype(np.float32), x.imag.astype(np.float32)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [2, 16, 256, 4096, 8192])
+def test_walk_through_gives_the_fft(n, inverse):
+    rng = np.random.default_rng(n + inverse)
+    re = rng.normal(size=(3, n)).astype(np.float32)
+    im = rng.normal(size=(3, n)).astype(np.float32)
+    got = walk_through(re, im, inverse)
+    want = fft_plain(torch.as_tensor(re), torch.as_tensor(im),
+                     inverse=inverse)
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert np.abs(g - w.numpy()).max() <= FFT_TOL["float32"] * scale
+    ref = (np.fft.ifft if inverse else np.fft.fft)(re + 1j * im, axis=-1)
+    np.testing.assert_allclose(got[0] + 1j * got[1], ref,
+                               atol=FFT_TOL["float32"] * scale)
+
+
+def register_dft(x: np.ndarray) -> np.ndarray:
+    """`dft<R>` of the source over the last axis: R <= 4 directly; else R =
+    A B (A = 4, or 2 for R = 8), A-point DFTs over x[B n1 + n2], twiddles
+    w_R^(n2 k1), B-point DFTs, output k1 + A k2."""
+    R = x.shape[-1]
+    if R <= 4:
+        return np.fft.fft(x, axis=-1)
+    A = 2 if R == 8 else 4
+    B = R // A
+    y = register_dft(x.reshape(*x.shape[:-1], A, B).swapaxes(-1, -2))
+    y = y * np.exp(-2j * np.pi * np.outer(np.arange(B), np.arange(A)) / R)
+    z = register_dft(y.swapaxes(-1, -2))           # (..., k1, k2)
+    return z.swapaxes(-1, -2).reshape(*x.shape)    # index k1 + A k2
+
+
+@pytest.mark.parametrize("radix", [2, 4, 8, 16])
+def test_register_dft_decomposition(radix):
+    x = np.random.default_rng(radix).normal(size=(5, radix, 2)) @ [1, 1j]
+    np.testing.assert_allclose(register_dft(x), np.fft.fft(x, axis=-1),
+                               atol=1e-12)
+
+
+def conjugated_stage(re: torch.Tensor, im: torch.Tensor, *, stage: int = 0,
+                     inverse: bool = False) -> tuple:
+    """The plain chain with stage ``stage``'s twiddles conjugated, rounded
+    to the input's dtype as the kernel's output is."""
+    n = re.shape[-1]
+    wr, wi = (torch.as_tensor(a) for a in twiddle_table(n, inverse))
+    wi = wi.clone()
+    wi[stage] = -wi[stage]
+    rr, ri = fft_stages(re.float(), im.float(), table=(wr, wi))
+    if inverse:
+        rr, ri = rr / n, ri / n
+    return rr.to(re.dtype), ri.to(re.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,inverse", [(8, False), (256, False),
+                                       (256, True), (2048, True)])
+def test_fft_tol_flags_a_conjugated_stage(dtype, n, inverse):
+    rng = np.random.default_rng(n)
+    td = getattr(torch, dtype)
+    re = torch.as_tensor(rng.normal(size=(16, n)).astype(np.float32)).to(td)
+    im = torch.as_tensor(rng.normal(size=(16, n)).astype(np.float32)).to(td)
+    want = fft_plain(re, im, inverse=inverse)
+    wrong = conjugated_stage(re, im, inverse=inverse)
+    scale = max(float(w.float().abs().max()) for w in want)
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(wrong, want))
+    assert diff > FFT_TOL[dtype] * scale
+
+
+def test_fft_tol_values():
+    """1e-4 in float32; one bfloat16 step (2^-7) fits under 1e-2."""
+    assert FFT_TOL == {"float32": 1e-4, "bfloat16": 1e-2}
+    assert 2.0 ** -7 < FFT_TOL["bfloat16"]
+
+
+def test_fft_cuda_refuses_a_cpu_tensor():
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fft_cuda(torch.zeros(2, 16), torch.zeros(2, 16))
+    with pytest.raises(ValueError, match="power of 2"):
+        fft_cuda(torch.zeros(2, 12), torch.zeros(2, 12))
+    assert MAX_N == 8192

@@ -122,6 +122,37 @@ def test_process_output_selection_and_zero_frames(apps):
             assert e_got[k].numpy().dtype == w.dtype
 
 
+@pytest.mark.parametrize("runtime", ["host", "resident"])
+def test_float64_signal_runs_as_float32(apps, runtime):
+    """A float64 numpy signal is cast to float32 at the entry, as the
+    reference's ``jnp.asarray`` casts it: float32 outputs equal to the
+    float32 call bitwise, the reference within tolerance, and float32 for
+    a zero-frame call too."""
+    japp, app = apps
+    sig = _signal(9, seed=21).astype(np.float64)
+    kw = dict(window=WINDOW, hop=HOP, batch_windows=BW)
+    want = jstream.BiosignalStream(japp, jstream.StreamConfig(**kw)) \
+        .process(sig)
+
+    def run(x):
+        if runtime == "host":
+            return BiosignalStream(app, StreamConfig(**kw)).process(x)
+        return ResidentStream(app, StreamConfig(**kw)).process(x)
+
+    got = run(sig)
+    assert got["filtered"].dtype == got["features"].dtype == torch.float32
+    assert_identical(got, run(sig.astype(np.float32)))
+    assert_matches_reference(got, want)
+    empty = run(sig[: WINDOW - 1])
+    e_want = jstream.BiosignalStream(japp, jstream.StreamConfig(**kw)) \
+        .process(sig[: WINDOW - 1])
+    assert sorted(empty) == sorted(e_want)
+    for k, w in e_want.items():
+        assert empty[k].shape == w.shape
+        assert empty[k].numpy().dtype == w.dtype, k
+    assert empty["filtered"].dtype == torch.float32
+
+
 def test_stream_equals_one_framed_call_bitwise(apps):
     _, app = apps
     sig = torch.as_tensor(_signal(13, seed=6))
