@@ -10,9 +10,11 @@ h // (H / KV)), a causal mask aligned top-left (query i sees key j <= i,
 both counted from 0, also when Sq != Skv) and an optional sliding window
 (i - j < window); they compute in float32 and return q's dtype. The
 kernel reads q, k and v in that layout through their strides (the head
-dimension must be contiguous, else it is copied) and takes dh <= 256:
-bfloat16 runs on the tensor cores (wgmma), float32 on the CUDA cores.
-`FLASH_TOL` is what the kernel is held to against the plain version.
+dimension must be contiguous, else it is copied) and takes dh <= 256,
+on the tensor cores (wgmma) in both dtypes: bfloat16 products directly,
+float32 as 3xTF32 (each operand split into two TF32 halves, three TF32
+products a float32 one). `FLASH_TOL` is what the kernel is held to
+against the plain version.
 """
 from __future__ import annotations
 
@@ -32,13 +34,24 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DH = 256            # the widest head either kernel keeps in shared memory
 # What the kernel is held to against `flash_attention_plain`, per dtype:
 # |kernel - plain| <= atol + rtol |plain| per element, (atol, rtol). Both
-# sum in float32 in another order: float32 outputs read at most ~1.5e-6
-# at |out| up to ~4, so 3e-5 + 3e-5 |plain|, the JAX package's float32
-# tolerance. bfloat16 outputs are those float32 values rounded once each,
-# so they differ by at most one bfloat16 step, <= 2^-7 |plain|, plus the
-# float32 difference, which 1e-4 covers 60 times over. That leaves no room
-# for a second rounding inside: p must reach the P V product with more
-# than bfloat16's 8 bits, which is why the kernel splits it into hi + lo.
+# sum in float32 in another order. The float32 kernel's products are
+# 3xTF32 (a_hi b_hi + a_hi b_lo + a_lo b_hi, dropping a_lo b_lo at ~2^-22
+# of a b), and a wgmma step rounds its sum toward zero, so the kernel keeps
+# its accumulator chains short (S's hi product apart from its lo products,
+# P V in a fresh accumulator a tile). Measured on an H100 against float64
+# (tools/flash_variants.py --accuracy): float32 outputs read at most ~2e-6
+# from the plain version at scores up to ~+-5, also at 32,768 keys a row;
+# where scores reach +-30, exp amplifies either version's rounding of a
+# score, and they read 1.0e-5 apart, the kernel 5.5e-6 and the plain
+# version 8.2e-6 from float64. So 3e-5 + 3e-5 |plain|, the JAX package's
+# float32 tolerance, holds with 4x to spare; one TF32 product per matrix
+# product would read ~1e-3, which it flags (`chip_smoke.py` measures both
+# on every run). bfloat16 outputs are those float32 values rounded once
+# each, so they differ by at most one bfloat16 step, <= 2^-7 |plain|, plus
+# the float32 difference, which 1e-4 covers 50 times over. That leaves no
+# room for a second rounding inside: p must reach the P V product with
+# more than bfloat16's 8 bits, which is why the kernel splits it into hi +
+# lo.
 FLASH_TOL = {"float32": (3e-5, 3e-5), "bfloat16": (1e-4, 2.0 ** -7)}
 
 _p, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -96,8 +109,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Skv, KV = k.shape[1], k.shape[2]
     if dh > MAX_DH:
         raise ValueError(f"dh={dh} > {MAX_DH}: the kernel keeps q, k and v "
-                         f"tiles of dh padded to a multiple of 64 in shared "
-                         f"memory")
+                         f"tiles of the whole head in shared memory")
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device)
     if B == 0 or Sq == 0:

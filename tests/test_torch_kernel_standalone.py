@@ -15,20 +15,27 @@ The `cuda`-marked tests skip without a card. Tolerances on the card:
   rounding (2^-7 x max |plain|) in bfloat16;
 * flash attention: |diff| <= 3e-5 + 3e-5 |plain| in float32, as
   `tests/test_flash_attention.py` holds the TPU kernel to the same oracle
-  (sums run in another order), and 1e-4 + 2^-7 |plain| in bfloat16: both
-  round the float32 result once, so they differ by at most one bfloat16
-  step (<= 2^-7 |plain|) plus the float32 difference; `chip_smoke.py`
-  holds the full-size runs to the same limits.
+  (sums run in another order, products as 3xTF32), and 1e-4 + 2^-7
+  |plain| in bfloat16: both round the float32 result once, so they differ
+  by at most one bfloat16 step (<= 2^-7 |plain|) plus the float32
+  difference; `chip_smoke.py` holds the full-size runs to the same
+  limits.
 
 The CPU tests at the end check what the entries refuse before anything is
-built, and why the bfloat16 kernel splits P into two bfloat16 halves."""
+built, why the bfloat16 kernel splits P into two bfloat16 halves, why the
+float32 kernel runs three TF32 products in place of each float32 one, and
+walk the float32 kernel's shared-memory layouts and fragments through in
+numpy."""
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import _cuda
+from repro_torch.kernels.flash_attention import kernel as flash_kernel_module
 from repro_torch.kernels.flash_attention.kernel import (
     FLASH_TOL, flash_attention_cuda, flash_attention_plain)
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -162,28 +169,36 @@ def _flash_close(got: torch.Tensor, want: torch.Tensor) -> None:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,causal,window", [
-    ((2, 128, 128, 4, 2, 64), True, None),     # GQA group 2
-    ((1, 200, 200, 4, 1, 120), True, None),    # MQA, S % 64 != 0, dh 120
-    ((2, 256, 256, 4, 2, 32), True, 96),       # sliding window
-    ((1, 150, 150, 2, 2, 24), True, 32),       # window inside one tile
-    ((1, 96, 160, 4, 2, 64), False, None),     # Sq < Skv, no mask
-    ((1, 160, 96, 4, 4, 128), False, None),    # Sq > Skv, no mask
-    ((1, 100, 100, 2, 1, 256), False, 40),     # window without causal
-    ((1, 130, 130, 4, 2, 20), True, None),     # dh 20: 40-byte rows
-    ((1, 1, 777, 4, 2, 64), False, None),      # one partial query tile
-    ((1, 64, 4096, 4, 2, 64), True, 64),       # nearly every tile off-band
-    ((8, 65, 65, 32, 8, 64), True, None),      # many heads, short S
-    ((1, 150, 150, 4, 2, 200), True, None),    # dh 200: N % 16 != 0
-    ((1, 90, 90, 2, 1, 18), True, None),       # dh 18: 4-byte copies
-    ((1, 90, 90, 2, 1, 25), False, 30),        # dh 25: 2-byte copies
+@pytest.mark.parametrize("shape,causal,window,amp", [
+    ((2, 128, 128, 4, 2, 64), True, None, 1.0),     # GQA group 2
+    ((1, 200, 200, 4, 1, 120), True, None, 1.0),    # MQA, S % 64 != 0, dh 120
+    ((2, 256, 256, 4, 2, 32), True, 96, 1.0),       # sliding window
+    ((1, 150, 150, 2, 2, 24), True, 32, 1.0),       # window inside one tile
+    ((1, 96, 160, 4, 2, 64), False, None, 1.0),     # Sq < Skv, no mask
+    ((1, 160, 96, 4, 4, 128), False, None, 1.0),    # Sq > Skv, no mask
+    ((1, 100, 100, 2, 1, 256), False, 40, 1.0),     # window without causal
+    ((1, 130, 130, 4, 2, 20), True, None, 1.0),     # dh 20: 40-byte rows
+    ((1, 1, 777, 4, 2, 64), False, None, 1.0),      # one partial query tile
+    ((1, 64, 4096, 4, 2, 64), True, 64, 1.0),       # most tiles off-band
+    ((8, 65, 65, 32, 8, 64), True, None, 1.0),      # many heads, short S
+    ((1, 150, 150, 4, 2, 200), True, None, 1.0),    # dh 200: N % 16 != 0
+    ((1, 90, 90, 2, 1, 18), True, None, 1.0),       # dh 18: 4-byte copies
+    ((1, 90, 90, 2, 1, 25), False, 30, 1.0),        # dh 25: 2-byte copies
+    ((1, 140, 140, 2, 1, 144), True, None, 1.0),    # dh 144
+    ((1, 70, 90, 2, 2, 184), False, None, 1.0),     # dh 184, Sq < Skv
+    ((2, 192, 192, 4, 2, 64), True, None, 8 ** 0.5),  # scores to ~+-30
+    ((1, 128, 32768, 4, 2, 64), False, None, 1.0),  # 32768 keys a row
 ])
 def test_flash_kernel_matches_plain_on_card(card, shape, causal, window,
-                                            dtype):
+                                            amp, dtype):
+    """q and k drawn with standard deviation ``amp``: scores of about
+    +-4, or +-30 where amp is sqrt(8), where exp amplifies an error in a
+    score the most."""
     B, Sq, Skv, H, KV, dh = shape
     g = torch.Generator(device=card).manual_seed(Sq + dh)
-    q = torch.randn(B, Sq, H, dh, generator=g, device=card).to(dtype)
-    k = torch.randn(B, Skv, KV, dh, generator=g, device=card).to(dtype)
+    q = (amp * torch.randn(B, Sq, H, dh, generator=g, device=card)).to(dtype)
+    k = (amp * torch.randn(B, Skv, KV, dh, generator=g, device=card)) \
+        .to(dtype)
     v = torch.randn(B, Skv, KV, dh, generator=g, device=card).to(dtype)
     _cuda.reset_launches()
     got = flash_attention_cuda(q, k, v, causal=causal, window=window)
@@ -313,3 +328,196 @@ def test_flash_bfloat16_needs_p_split_into_hi_and_lo():
     split = (out(hi, lo) - want).abs() > atol + rtol * want.abs()
     assert once.float().mean() > 0.005, once.float().mean()
     assert not split.any(), int(split.sum())
+
+
+# ------------------------------------- the float32 kernel's 3xTF32 design
+
+_FLASH_CU = (Path(flash_kernel_module.__file__).resolve().parent / "csrc" /
+             "flash_attention.cu")
+
+
+def _f32_const(name: str) -> int:
+    """A tile constant of the float32 kernel (namespace f32), read from
+    the source."""
+    src = _FLASH_CU.read_text()
+    body = src[src.index("namespace f32 {"):]
+    return int(re.search(rf"constexpr int {name} = (\d+);", body).group(1))
+
+
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: to
+    nearest on the int32 view, ties away from zero, the low 13 bits 0."""
+    bits = np.asarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)) \
+        .view(np.float32)
+
+
+def test_flash_float32_needs_three_tf32_products():
+    """Why the float32 kernel runs 3xTF32: float32 q, k and v at (1,
+    1024, 4, 64), causal. One TF32 product per matrix product (q, k, p and
+    v each rounded once) breaks `FLASH_TOL` at a clear share of outputs;
+    a = a_hi + a_lo for every operand, with a_hi b_hi + a_hi b_lo + a_lo
+    b_hi summed in float32, holds it at every output."""
+    B, S, H, dh = 1, 1024, 4, 64
+    rng = np.random.default_rng(17)
+    q, k, v = (rng.standard_normal((B, S, H, dh), dtype=np.float32)
+               for _ in range(3))
+    want = flash_attention_plain(*(torch.from_numpy(x) for x in (q, k, v)),
+                                 causal=True)
+    qs = q * np.float32(1.0 / math.sqrt(dh))      # q carries the scale
+
+    def halves(x):
+        hi = _tf32(x)
+        return torch.from_numpy(hi), torch.from_numpy(_tf32(x - hi))
+
+    (qh, ql), (kh, kl), (vh, vl) = halves(qs), halves(k), halves(v)
+    mask = torch.ones(S, S, dtype=torch.bool).tril()
+
+    def out(s_terms, pv_terms):
+        s = sum(torch.einsum("bqhd,bshd->bhqs", a, b) for a, b in s_terms)
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        l = p.sum(-1, keepdim=True)
+        ph, pl = halves(p.numpy())
+        terms = pv_terms(ph, pl)
+        o = sum(torch.einsum("bhqs,bshd->bhqd", a, b) for a, b in terms)
+        return (o / l).transpose(1, 2)
+
+    atol, rtol = FLASH_TOL["float32"]
+    once = out([(qh, kh)], lambda ph, pl: [(ph, vh)])
+    split = out([(qh, kh), (qh, kl), (ql, kh)],
+                lambda ph, pl: [(ph, vh), (ph, vl), (pl, vh)])
+    bad_once = (once - want).abs() > atol + rtol * want.abs()
+    bad_split = (split - want).abs() > atol + rtol * want.abs()
+    assert bad_once.float().mean() > 0.05, bad_once.float().mean()
+    assert not bad_split.any(), int(bad_split.sum())
+
+
+def _sw128(addr):
+    """Byte address in the 128-byte swizzle, as TMA writes a box and a
+    wgmma descriptor reads it: bits 4-6 XOR bits 7-9."""
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+def _land(tile: np.ndarray) -> np.ndarray:
+    """A (rows, dhp) tile as it lands in shared memory (TMA boxes of 32
+    floats x rows, 128-byte swizzled), as an array of 4-byte words."""
+    R, dhp = tile.shape
+    r, d = np.meshgrid(np.arange(R), np.arange(dhp), indexing="ij")
+    addr = _sw128((d // 32) * (R * 128) + r * 128 + (d % 32) * 4)
+    assert len(np.unique(addr)) == addr.size
+    mem = np.zeros(R * dhp)
+    mem[addr // 4] = tile[r, d]
+    return mem
+
+
+def _desc_words(start: int, rows: int) -> np.ndarray:
+    """Word indices of the (rows, 8) K-major operand a wgmma k8 step reads
+    through a 128-byte-swizzled descriptor at byte ``start`` (8-row groups
+    1024 bytes apart)."""
+    r, k = np.meshgrid(np.arange(rows), np.arange(8), indexing="ij")
+    return _sw128(start + (r // 8) * 1024 + (r % 8) * 128 + 4 * k) // 4
+
+
+@pytest.mark.parametrize("dhp,BK", [(32, 64), (64, 64), (64, 32),
+                                    (96, 32), (128, 32), (256, 32)])
+def test_flash_float32_layouts_walk_through(dhp, BK):
+    """The float32 kernel's shared-memory layouts and fragments walked
+    through in numpy with its thread map: the cp.async copies land where
+    TMA's boxes do; S = Q K^T through the k-step descriptors; `transpose_v`
+    writes V^T split and key-permuted, every 16-byte access of an 8-thread
+    phase on 8 distinct bank groups; and P taken from the S accumulator
+    as the TF32 A fragment (column t <-> key 2t, t + 4 <-> key 2t + 1)
+    times V^T through the descriptors gives P V, in three products. At
+    both key tiles the kernel takes (`Shape::BK`: 64 keys at dh <= 64,
+    32 above)."""
+    BQ = _f32_const("kBQ")
+    rng = np.random.default_rng(dhp)
+    qt, kt, vt = (rng.standard_normal((R, dhp)).astype(np.float32)
+                  for R in (BQ, BK, BK))
+
+    # cp.async (load_rows): chunk c of row r, VB bytes a copy
+    for R in (BQ, BK):
+        ref = _land(np.arange(R * dhp, dtype=np.float64).reshape(R, dhp))
+        for vb in (16, 8, 4):
+            per, ncb = 16 // vb, dhp // 32
+            mem = np.full(R * dhp, -1.0)
+            for i in range(R * ncb * 8 * per):
+                r, c = i // (ncb * 8 * per), i % (ncb * 8 * per) // per
+                pc = i % per
+                col = c * 4 + pc * (vb // 4)
+                dst = ((c >> 3) * (R * 128) + r * 128 +
+                       (((c & 7) ^ (r & 7)) << 4) + pc * vb)
+                for x in range(vb // 4):
+                    mem[dst // 4 + x] = r * dhp + col + x
+            np.testing.assert_array_equal(mem, ref)
+
+    # S = Q K^T over dhp / 8 k-steps of 8
+    qmem, kmem = _land(qt), _land(kt)
+    s = np.zeros((BQ, BK))
+    for kk in range(dhp // 8):
+        qo = (kk >> 2) * (BQ * 128) + (kk & 3) * 32
+        ko = (kk >> 2) * (BK * 128) + (kk & 3) * 32
+        s += qmem[_desc_words(qo, BQ)] @ kmem[_desc_words(ko, BK)].T
+    np.testing.assert_allclose(s, qt.astype(np.float64) @ kt.T, rtol=1e-12,
+                               atol=1e-12)
+
+    # transpose_v: V as landed -> V^T_hi, V^T_lo, one unit a thread
+    vmem = _land(vt)
+    vh, vl = np.full(BK * dhp, np.nan), np.full(BK * dhp, np.nan)
+    NH = BK // 32
+    units = (BK // 4) * (dhp // 4)
+    reads, writes = {}, {}
+    for u in range(units):
+        e, nl, p = u & 1, (u >> 1) & 3, u >> 3
+        n, cb = nl + 4 * ((p >> 3) % NH), (p >> 3) // NH
+        cc = ((((nl >> 1) ^ (p >> 1)) & 1) << 2) | \
+            ((((nl & 1) ^ (p >> 2)) & 1) << 1) | (p & 1)
+        x = []
+        for i in range(4):
+            r = 8 * n + e + 2 * i
+            a = cb * (BK * 128) + r * 128 + ((cc ^ (r & 7)) << 4)
+            reads.setdefault((u // 8, i), []).append(a)
+            x.append(vmem[a // 4:a // 4 + 4].astype(np.float32))
+        sc = 2 * n + e
+        for dd in range(4):
+            d = 32 * cb + 4 * cc + dd
+            off = (sc >> 3) * (dhp * 128) + d * 128 + \
+                (((sc & 7) ^ (d & 7)) << 4)
+            writes.setdefault((u // 8, dd), []).append(off)
+            col = np.array([xi[dd] for xi in x], dtype=np.float32)
+            hi = _tf32(col)
+            assert np.isnan(vh[off // 4:off // 4 + 4]).all()
+            vh[off // 4:off // 4 + 4] = hi
+            vl[off // 4:off // 4 + 4] = _tf32(col - hi)
+    assert not np.isnan(vh).any()
+    for acc in (reads, writes):
+        for addrs in acc.values():
+            assert len({(a // 16) % 8 for a in addrs}) == len(addrs) == 8
+
+    # P V^T: P from the S accumulator layout (thread (w, lane) holds
+    # s[4 n + e] at row 16 w + g + 8 (e / 2), key 8 n + 2 t + e % 2) as
+    # A = (p0, p2, p1, p3) per 8-key group, the TF32 A fragment (g, t),
+    # (g + 8, t), (g, t + 4), (g + 8, t + 4)
+    P = rng.random((BQ, BK)).astype(np.float32)
+    ph, pl = _tf32(P), _tf32(P - _tf32(P))
+    o = np.zeros((BQ, dhp))
+    for kk in range(BK // 8):
+        vo = (kk >> 2) * (dhp * 128) + (kk & 3) * 32
+        Bh, Bl = vh[_desc_words(vo, dhp)], vl[_desc_words(vo, dhp)]
+        for src, Bm in ((ph, Bh), (ph, Bl), (pl, Bh)):
+            A = np.zeros((BQ, 8))
+            for w in range(BQ // 16):
+                for lane in range(32):
+                    g, t = lane // 4, lane % 4
+                    r = 16 * w + g
+                    # s[4 kk + e] of this thread, e = 0..3
+                    se = [src[r + 8 * (e >> 1), 8 * kk + 2 * t + (e & 1)]
+                          for e in range(4)]
+                    A[r, t], A[r + 8, t] = se[0], se[2]
+                    A[r, t + 4], A[r + 8, t + 4] = se[1], se[3]
+            o += A @ Bm.T
+    want = P.astype(np.float64) @ vt.astype(np.float64)
+    np.testing.assert_allclose(o, want, rtol=0, atol=1e-5)
+    err_hi_only = np.abs(ph.astype(np.float64) @ _tf32(vt) - want).max()
+    assert np.abs(o - want).max() < err_hi_only / 100
