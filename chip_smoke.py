@@ -18,7 +18,10 @@ Phases, each printing one line (or a few):
    framed and ring slot r must agree bitwise;
 A1. the three kernels of the ASR slice against their plain versions: the
    ASR graph at every entry and output selection (window 512, hop 160;
-   stream == framed == ring slot bitwise), the FIR in float32 and
+   stream == framed == ring slot bitwise) and what the check would read
+   from the plain stage bodies with the FFT's second pass conjugated or
+   each mel span one bin short (`wrong_asr_readings`; the run fails
+   unless `ASR_LOGMEL_TOL` flags both), the FIR in float32 and
    bfloat16 at 2 and 11 taps on rows longer than one tile, the FFT at N
    2 to 8192 (`FFT_CASES`), forward and inverse, float32 and bfloat16,
    each also measured as a transform with its first stage's twiddles
@@ -135,9 +138,11 @@ FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:102"
 TOL = {"filtered": (1e-6, 1e-6), "features": (1e-5, 1e-5),
        "margin": (1e-4, 1e-5)}
 # ASR graph: filtered exact (the same FIR in the same order); logmel within
-# 1e-5 of the largest |plain| of the compared rows (the mel sums run in
-# another order than the plain version's).
-ASR_LOGMEL_TOL = 1e-5
+# `ASR_LOGMEL_TOL` of kernels/pipeline/asr.py (which says why) times the
+# largest |plain| of the compared rows, at least 1. The plain stage bodies
+# with the FFT's second pass conjugated, or with each mel span one bin
+# short, must read above it: `wrong_asr_readings` measures both on every
+# run and the run fails unless the tolerance flags them.
 # standalone kernels: max |kernel - plain| <= tol * max |plain|; the FFT's
 # tolerance is `FFT_TOL` of kernels/fft/kernel.py, which says why. A
 # transform with its first stage's twiddles conjugated must read above it:
@@ -408,6 +413,8 @@ def check_asr(name: str, got: dict, want: dict) -> float:
     """Raise unless the ASR outputs ``got`` match ``want``: filtered
     bitwise, logmel within `ASR_LOGMEL_TOL` of the largest |want|;
     returns the largest logmel difference."""
+    from repro_torch.kernels.pipeline.asr import ASR_LOGMEL_TOL
+
     if sorted(got) != sorted(want):
         raise AssertionError(f"{name}: keys {sorted(got)} != {sorted(want)}")
     worst = 0.0
@@ -485,6 +492,35 @@ def check_wrong_fft(name: str, re, im, want: tuple, inverse: bool) -> float:
                              f"{reading:.3e} <= tol {tol}: the check would "
                              f"not see it")
     return reading
+
+
+def wrong_asr_readings(sig, asr_graph, asr_ops, want) -> dict:
+    """What the ASR check reads, max |diff| / max(1, max |want|) against
+    ``want`` (the plain logmel of ``sig``), from the plain stage bodies
+    given wrong tables: ``second_pass_conjugated``, the radix-2 chain's
+    stages 4 to 7 (those the kernel's second radix-16 pass computes at fft
+    512) with conjugated twiddles; ``mel_span_short``, every mel column's
+    last nonzero weight dropped."""
+    from repro_torch.kernels.pipeline.asr import span_table
+    from repro_torch.kernels.pipeline.graph import graph_stream_plain
+
+    taps, hann, wr, wi, u, mel_w = asr_ops
+    wi2 = wi.clone()
+    wi2[4:8] = -wi2[4:8]
+    first, offset, _ = span_table(mel_w.cpu().numpy())
+    short = mel_w.clone()
+    for j, (k0, n) in enumerate(zip(first, offset[1:] - offset[:-1])):
+        if n:
+            short[k0 + n - 1, j] = 0.0
+    scale = max(1.0, float(want.abs().max()))
+    readings = {}
+    for name, ops in (
+            ("second_pass_conjugated", (taps, hann, wr, wi2, u, mel_w)),
+            ("mel_span_short", (taps, hann, wr, wi, u, short))):
+        got = graph_stream_plain(sig, ops, graph=asr_graph, window=ASR_WINDOW,
+                                 hop=ASR_HOP, outputs=("logmel",))["logmel"]
+        readings[name] = float((got - want).abs().max()) / scale
+    return readings
 
 
 def counted(fn):
@@ -575,6 +611,7 @@ def asr_kernels_vs_plain(asr_graph, asr_ops, dev) -> dict:
     from repro_torch.core.fir import lowpass_taps
     from repro_torch.kernels.fft.kernel import FFT_TOL, fft_cuda, fft_plain
     from repro_torch.kernels.fir.kernel import fir_cuda, fir_plain
+    from repro_torch.kernels.pipeline.asr import ASR_LOGMEL_TOL
     from repro_torch.kernels.pipeline.graph import (
         graph_frames_call, graph_frames_plain, graph_ring_call,
         graph_ring_plain, graph_stream_call, graph_stream_plain,
@@ -650,13 +687,24 @@ def asr_kernels_vs_plain(asr_graph, asr_ops, dev) -> dict:
                         want, inverse))
                 n_fft += 1
     err["fft ratio"], err["fft wrong reading"] = ratio, wrong
+    plain = graph_stream_plain(sig, asr_ops, graph=asr_graph, window=W,
+                               hop=H, outputs=("logmel",))["logmel"]
+    asr_wrong = wrong_asr_readings(sig, asr_graph, asr_ops, plain)
+    for name, reading in asr_wrong.items():
+        if not reading > ASR_LOGMEL_TOL:
+            raise AssertionError(f"asr {name} reads {reading:.3e} <= tol "
+                                 f"{ASR_LOGMEL_TOL}: the check would not "
+                                 f"see it")
+    err["asr wrong readings"] = asr_wrong
     print(f"ASR graph vs plain on the card: {len(selections)} output "
           f"selections x (frames, stream, ring) at window {W} hop {H}, "
           f"{n_cmp} frames: filtered bitwise, logmel max |diff| "
           + ", ".join(f"{e} {err[f'asr_graph[{e}]']:.3e}"
                       for e in ("frames", "stream", "ring"))
-          + f" (tol {ASR_LOGMEL_TOL} x max|logmel|); stream == framed == "
-          f"ring slot bitwise")
+          + f" (tol {ASR_LOGMEL_TOL} x max(1, max|logmel|)); stream == "
+          f"framed == ring slot bitwise; the plain stage bodies would read "
+          + ", ".join(f"{k} {v:.3e}" for k, v in asr_wrong.items())
+          + " (both flagged)")
     print(f"FIR vs plain: {n_fir} cases (float32/bfloat16 x 2, 11 taps, "
           f"rows of 5000 over 2048-sample tiles), max |diff| "
           f"{err['fir[rows]']:.3e} (tol {FIR_TOL}); FFT vs plain: {n_fft} "

@@ -13,9 +13,11 @@ the same graph machinery (`graph.py`), run by the same three entries:
       -> logmel (log1p(power @ mel_w), a slaney-style mel filterbank)
 
 The stage bodies are the plain PyTorch version (the CPU path, and what
-the kernel is held to on the card). On a CUDA tensor the graph entries
-launch one hand-written kernel for the whole chain,
-`csrc/asr_graph.cu` (bound in `cuda.py`).
+the kernel is held to on the card within `ASR_LOGMEL_TOL`). On a CUDA
+tensor the graph entries launch one hand-written kernel for the whole
+chain, `csrc/asr_graph.cu` (bound in `cuda.py`), which reads the mel
+filterbank as `mel_spans`: each column's run of bins from its first
+nonzero weight to its last.
 
 `asr_reference` is the independent numpy oracle (frame-local FIR,
 ``np.fft.rfft`` with float64 twiddles, the mel product, log1p);
@@ -26,7 +28,9 @@ product and log1p in plain PyTorch.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
+import weakref
 
 import numpy as np
 import torch
@@ -35,6 +39,7 @@ from torch import nn
 from repro_torch.core.fft import rfft_packed
 from repro_torch.core.fir import fir_direct
 from repro_torch.device import resolve_device
+from repro_torch.kernels.fft.kernel import device_stockham_table
 from repro_torch.kernels.pipeline import cuda
 from repro_torch.kernels.pipeline.graph import (OutputSpec, build_graph,
                                                 register_graph_factory,
@@ -43,10 +48,21 @@ from repro_torch.kernels.pipeline.kernel import _fft_tables, _packed_rfft
 from repro_torch.kernels.pipeline.stages import register_stage
 
 __all__ = ["AsrFrontendApp", "make_asr_frontend", "mel_filterbank",
-           "hann_window", "asr_graph", "asr_reference",
-           "asr_reference_frames", "host_frames", "asr_staged"]
+           "hann_window", "MelSpans", "span_table", "mel_spans",
+           "asr_graph", "asr_reference", "asr_reference_frames",
+           "host_frames", "asr_staged", "ASR_LOGMEL_TOL"]
 
-ASR_BLOCK_FRAMES = 8    # frames per CUDA block by default: one kernel tile
+ASR_BLOCK_FRAMES = 8    # frames per CUDA block by default
+# What the kernel's logmel is held to against the plain version's: max
+# |kernel - plain| <= tol x max(1, max |plain|) over the compared rows. The
+# two compute in float32 in another order (radix-16 passes with FMA against
+# the radix-2 chain, the mel sums over each column's span against a
+# row-wise reduction over every bin): 4.8e-7 at most over an hour of
+# speech-band audio, whose logmel reaches ~2 (an H100). The plain stage
+# bodies with the FFT's second pass conjugated, or every mel span one bin
+# short, read 0.2-1 of max |logmel| (chip_smoke.py measures both on every
+# run and fails unless this tolerance flags them).
+ASR_LOGMEL_TOL = 1e-5
 
 
 # ---------------------------------------------------------------------------
@@ -95,6 +111,68 @@ def mel_filterbank(fft_size: int = 512, n_mels: int = 64,
         fb[i] = np.maximum(0.0, np.minimum(up, down))
         fb[i] *= 2.0 / (hi - lo)                      # slaney area norm
     return fb.T.astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class MelSpans:
+    """The mel filterbank as the kernel reads it: column j's weights from
+    its first nonzero bin ``first[j]`` to its last, at ``weights[offset[j]:
+    offset[j + 1]]`` (interior zeros kept; an all-zero column is empty).
+    ``power @ mel_w`` column j is then ``sum(power[first[j] + s] *
+    weights[offset[j] + s])``: the same sum without its zero terms."""
+    first: torch.Tensor     # (n_mels,) int32
+    offset: torch.Tensor    # (n_mels + 1,) int32
+    weights: torch.Tensor   # (offset[-1],) float32
+
+    def __post_init__(self):
+        n = self.first.shape[0]
+        for name, t, dt, shape in (
+                ("first", self.first, torch.int32, (n,)),
+                ("offset", self.offset, torch.int32, (n + 1,)),
+                ("weights", self.weights, torch.float32,
+                 (self.weights.shape[0],))):
+            if t.dtype != dt or tuple(t.shape) != shape or \
+                    not t.is_contiguous() or t.device != self.first.device:
+                raise ValueError(f"MelSpans.{name}: need a contiguous {dt} "
+                                 f"{shape} tensor on {self.first.device}, "
+                                 f"got {t.dtype} {tuple(t.shape)} on "
+                                 f"{t.device}")
+
+
+def span_table(mel_w) -> tuple:
+    """(first, offset, weights) numpy arrays of `MelSpans` for a (bins,
+    n_mels) filterbank."""
+    w = np.asarray(mel_w, np.float32)
+    first, offset, packed = [], [0], []
+    for col in w.T:
+        nz = np.flatnonzero(col)
+        lo, hi = (int(nz[0]), int(nz[-1]) + 1) if nz.size else (0, 0)
+        first.append(lo)
+        packed.append(col[lo:hi])
+        offset.append(offset[-1] + hi - lo)
+    return (np.asarray(first, np.int32), np.asarray(offset, np.int32),
+            np.concatenate(packed).astype(np.float32))
+
+
+# id(mel_w) -> (weak reference to mel_w, its _version, spans); an entry
+# leaves when its tensor is freed, before the id can be reused
+_SPANS: dict = {}
+
+
+def mel_spans(mel_w: torch.Tensor) -> MelSpans:
+    """`span_table` of ``mel_w`` on its device, built once per tensor and
+    version: later calls add no copy and no sync (a dispatch pays a dict
+    lookup), and an in-place edit of ``mel_w`` (which bumps its
+    ``_version``) rebuilds it."""
+    key = id(mel_w)
+    hit = _SPANS.get(key)
+    if hit is not None and hit[0]() is mel_w and hit[1] == mel_w._version:
+        return hit[2]
+    spans = MelSpans(*(torch.as_tensor(a, device=mel_w.device)
+                       for a in span_table(mel_w.detach().cpu().numpy())))
+    ref = weakref.ref(mel_w, lambda _, key=key: _SPANS.pop(key, None))
+    _SPANS[key] = (ref, mel_w._version, spans)
+    return spans
 
 
 # ---------------------------------------------------------------------------
@@ -217,13 +295,21 @@ def _asr_factory(app: AsrFrontendApp):
 def _asr_kernel(x, operands, *, graph, entry, window, n_frames,
                 frame_stride, n_slots, slot_stride, outputs, block_frames,
                 out, retired, valid_rows):
-    """The graph's CUDA launcher (`graph.py:_launch` calls it)."""
-    taps, hann, wr, wi, u, mel_w = operands
+    """The graph's CUDA launcher (`graph.py:_launch` calls it): the
+    kernel takes the FFT's radix-16 twiddle table (`kernels/fft`'s
+    `stockham_table`) in place of the radix-2 one and the mel filterbank
+    as its cached `mel_spans`."""
+    taps, hann, _, _, u, mel_w = operands
+    fft_size = graph.fft_size
+    if mel_w.ndim != 2 or mel_w.shape[0] != fft_size // 2 + 1:
+        raise ValueError(f"mel_w: need ({fft_size // 2 + 1}, n_mels) for "
+                         f"fft_size {fft_size}, got {tuple(mel_w.shape)}")
     cuda.launch_asr_graph(
         x, entry=entry, window=window, n_frames=n_frames,
         frame_stride=frame_stride, n_slots=n_slots, slot_stride=slot_stride,
-        taps=taps, hann=hann, twiddle_re=wr, twiddle_im=wi, untangle=u,
-        mel_w=mel_w, fft_size=graph.fft_size,
+        taps=taps, hann=hann,
+        twiddles=device_stockham_table(fft_size // 2, x.device),
+        untangle=u, spans=mel_spans(mel_w), fft_size=fft_size,
         block_frames=block_frames or ASR_BLOCK_FRAMES, out=out,
         retired=retired, valid_rows=valid_rows)
 

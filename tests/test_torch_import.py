@@ -137,8 +137,8 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_building():
         cuda.launch_asr_graph(
             torch.zeros(4096), entry="ring", window=512, n_frames=5,
             frame_stride=160, n_slots=1, slot_stride=0, taps=None,
-            hann=None, twiddle_re=None, twiddle_im=None, untangle=None,
-            mel_w=None, fft_size=512, block_frames=8, out={})
+            hann=None, twiddles=None, untangle=None, spans=None,
+            fft_size=512, block_frames=8, out={})
     with pytest.raises(ValueError, match="CUDA tensor"):
         fir_cuda(torch.zeros(2, 64), [1.0, -0.97])
     with pytest.raises(ValueError, match="CUDA tensor"):

@@ -13,8 +13,9 @@ The `cuda`-marked tests skip without a card. Tolerances on the card:
   FMA on both sides); band powers rtol/atol 1e-5 and margin rtol 1e-5
   atol 1e-4 (the delineation mean, the segment mean and the band sums
   reduce in another order);
-* ASR: filtered exact (the same FIR); logmel within 1e-5 of its largest
-  magnitude (the mel sums run in another order than the plain version's);
+* ASR: filtered exact (the same FIR); logmel within `ASR_LOGMEL_TOL` of
+  max(1, its largest magnitude) (the FFT passes and the mel sums run in
+  another order than the plain version's);
 * FIR: within 1e-5 in float32 and 2e-2 in bfloat16 (the kernel repeats
   the plain version's operations in its order, so they usually agree to
   the last bit);
@@ -22,7 +23,9 @@ The `cuda`-marked tests skip without a card. Tolerances on the card:
   1e-2 in bfloat16): radix-16 passes with FMA against the plain radix-2
   chain agree to float32 rounding, not bitwise."""
 import re
+from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -30,13 +33,17 @@ from repro_torch.core.biosignal import make_app, synthetic_respiration
 from repro_torch.core.fir import lowpass_taps
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.fft.kernel import (FFT_TOL, fft_cuda, fft_plain,
-                                            stockham_table, threads_per_row)
+                                            stockham_plan, stockham_table,
+                                            threads_per_row)
 from repro_torch.kernels.fir.kernel import fir_cuda, fir_plain
 from repro_torch.kernels.flash_attention import kernel as _flash  # noqa
 from repro_torch.kernels.pipeline import cuda
 from repro_torch.kernels.rope import kernel as _rope  # noqa: F401
 from repro_torch.kernels.shuffle import kernel as _shuffle  # noqa: F401
-from repro_torch.kernels.pipeline.asr import make_asr_frontend
+from repro_torch.kernels.pipeline.asr import (ASR_LOGMEL_TOL, MelSpans,
+                                              make_asr_frontend,
+                                              mel_filterbank, mel_spans,
+                                              span_table)
 from repro_torch.kernels.pipeline.graph import (
     get_graph_factory, graph_frames_call, graph_frames_plain,
     graph_ring_call, graph_ring_plain, graph_stream_call,
@@ -55,6 +62,11 @@ def test_binding_matches_the_source():
         # the note each source opens with
         assert re.search(r"Replaces\b[\s\S]{0,120}src/repro/kernels/", text)
         assert "What bounds it on this card" in text, kernel
+        # each C function takes as many parameters as its ctypes binding
+        for sym, (argtypes, _) in spec.signatures.items():
+            params = re.search(rf"\b{sym}\(([^)]*)\)\s*\{{", text).group(1)
+            assert len([a for a in params.split(",") if a.strip()]) == \
+                len(argtypes), (kernel, sym)
     for kernel, bits in cuda.OUT_BITS.items():
         text = _cuda.KERNELS[kernel].source.read_text()
         for name, bit in bits.items():
@@ -203,7 +215,7 @@ def _close_asr(got: dict, want: dict):
             assert torch.equal(g, w), k
         else:
             scale = max(1.0, float(w.abs().max()))
-            assert float((g - w).abs().max()) / scale < 1e-5, k
+            assert float((g - w).abs().max()) / scale < ASR_LOGMEL_TOL, k
 
 
 @pytest.mark.cuda
@@ -256,6 +268,298 @@ def test_asr_kernel_counts_the_frames_it_retires(card, block_frames,
                     retired=counts[1], **kw)
     want = depth * bw if valid_frames is None else valid_frames
     assert counts.tolist() == [5, 5 + want]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fft_size,n_mels", [(256, 64), (1024, 64),
+                                             (2048, 64), (512, 40),
+                                             (512, 128)])
+def test_asr_kernel_takes_other_sizes_on_card(card, fft_size, n_mels):
+    """fft sizes whose last pass is radix 8, 2 and 4 (frames of 8, 32 and
+    64 threads), and narrower and wider filterbanks."""
+    app = make_asr_frontend(device=card, fft_size=fft_size, n_mels=n_mels)
+    graph, operands = get_graph_factory("asr")(app)
+    window, hop = max(512, fft_size), 160
+    sig = _audio(21 * hop + window + 5, seed=fft_size + n_mels, device=card)
+    for outputs in (("filtered", "logmel"), ("logmel",)):
+        kw = dict(graph=graph, outputs=outputs)
+        stream = graph_stream_call(sig, operands, window=window, hop=hop,
+                                   **kw)
+        _close_asr(stream, graph_stream_plain(sig, operands, window=window,
+                                              hop=hop, **kw))
+        framed = graph_frames_call(frame_signal(sig, window, hop), operands,
+                                   block_rows=3, **kw)
+        for k in stream:
+            assert torch.equal(stream[k], framed[k]), k
+
+
+@pytest.mark.cuda
+def test_asr_kernel_result_does_not_depend_on_block_frames(card):
+    app = make_asr_frontend(device=card)
+    graph, operands = get_graph_factory("asr")(app)
+    sig = _audio(40 * 160 + 512, seed=7, device=card)
+    kw = dict(graph=graph, window=512, hop=160, outputs=("filtered",
+                                                         "logmel"))
+    runs = [graph_stream_call(sig, operands, block_frames=b, **kw)
+            for b in (1, 2, 3, 8, 13)]
+    _close_asr(runs[0], graph_stream_plain(sig, operands, **kw))
+    for other in runs[1:]:
+        for k in runs[0]:
+            assert torch.equal(other[k], runs[0][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hop", [160, 161])
+def test_asr_kernel_reads_unaligned_frames_on_card(card, hop):
+    """Frames off a 16-byte boundary (hop 161; a ring of odd slot stride
+    on a base one sample in) take the scalar loads and agree bitwise with
+    the aligned path."""
+    app = make_asr_frontend(device=card)
+    graph, operands = get_graph_factory("asr")(app)
+    bw, depth = 5, 3
+    span = ring_chunk_samples(512, hop, bw)
+    buf = _audio(depth * (span + 1) + 3, seed=hop, device=card)
+    ring = buf[1:].as_strided((depth, span), (span + 1, 1))
+    kw = dict(graph=graph, window=512, hop=hop, outputs=("filtered",
+                                                         "logmel"))
+    ringed = graph_ring_call(ring, operands, **kw)
+    _close_asr(ringed, graph_ring_plain(ring, operands, **kw))
+    for r in range(depth):
+        one = graph_stream_call(ring[r].clone(), operands, **kw)
+        for k in one:
+            assert torch.equal(ringed[k][r], one[k]), k
+
+
+# ------------------------------------- the ASR kernel's map, on the CPU
+
+_ASR_CU = Path(cuda.__file__).resolve().parent / "csrc" / "asr_graph.cu"
+
+
+def _asr_cu_table(name: str) -> list:
+    """A ``constexpr int name[kMaxLog + 1] = {...};`` table of the source."""
+    body = re.search(rf"constexpr int {name}\[kMaxLog \+ 1\] = "
+                     rf"\{{([\d,\s]+)\}};", _ASR_CU.read_text()).group(1)
+    return [int(v) for v in body.split(",")]
+
+
+def _asr_cu_const(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);",
+                         _ASR_CU.read_text()).group(1))
+
+
+def asr_walk_through(app, frames: np.ndarray) -> dict:
+    """The ASR kernel's per-frame map in numpy, thread by thread, on (R,
+    S) float32 frames (one frame slot of the exchange buffer each): the
+    FIR and Hann of thread i's vectors v = i + T j into the packed halves;
+    each pass's reads of points i + T mm and Stockham writes; the untangle
+    of bins k and m - k by one thread, the powers then written unpadded;
+    the mel product of columns i + T q over their spans. Checks on the way
+    that every write lands once inside the frame's planes and every bin is
+    untangled once."""
+    R, S = frames.shape
+    N = app.fft_size
+    m = N // 2
+    lg = m.bit_length() - 1
+    E = min(m, 16)
+    T = m // E
+    SH = _asr_cu_table("kPadShift")[lg]
+    P = m + (m >> SH)
+    FS = 2 * P + _asr_cu_table("kFrameGap")[lg]
+
+    def pad(q):
+        return q + (q >> SH)
+
+    taps = app.fir_taps.numpy()
+    hann = app.hann.numpy()
+    u = np.stack([np.cos(-2 * np.pi * np.arange(m) / N),
+                  np.sin(-2 * np.pi * np.arange(m) / N)]).astype(np.float32)
+    buf = np.full((R, FS), np.nan, np.float32)
+    filt = np.zeros((R, S), np.float32)
+    for t in range(S):              # the FIR, in the plain version's order
+        for i, tap in enumerate(taps):
+            xv = frames[:, t - i] if t >= i else np.float32(0)
+            filt[:, t] = filt[:, t] + np.float32(tap) * xv
+
+    # in-stage: thread i, vectors v = i + T j of the FFT segment
+    writes = np.zeros(FS, int)
+    for i in range(T):
+        for v in range(i, N // 4, T):
+            w = filt[:, 4 * v:4 * v + 4] * hann[4 * v:4 * v + 4]
+            for word, c in ((pad(2 * v), 0), (P + pad(2 * v), 1),
+                            (pad(2 * v + 1), 2), (P + pad(2 * v + 1), 3)):
+                buf[:, word] = w[:, c]
+                writes[word] += 1
+    planes = np.concatenate([pad(np.arange(m)), P + pad(np.arange(m))])
+    assert (writes[planes] == 1).all() and writes.sum() == 2 * m
+
+    # the passes
+    tw = stockham_table(m)
+    tw = (tw[:, 0] + 1j * tw[:, 1]).astype(np.complex64)
+    offset = 0
+    for radix, span in stockham_plan(m):
+        lr = radix.bit_length() - 1
+        held = {i: [buf[:, pad(i + T * mm)] + 1j * buf[:, P + pad(i + T * mm)]
+                    for mm in range(E)] for i in range(T)}
+        written = np.zeros(m, int)
+        for i in range(T):
+            for u_ in range(E // radix):
+                b = i + T * u_
+                k = b & (span - 1)
+                y = np.stack([held[i][u_ + j * (E // radix)]
+                              for j in range(radix)], -1).astype(np.complex64)
+                if span > 1:
+                    y = y * tw[offset + np.arange(radix) * span + k]
+                y = np.fft.fft(y, axis=-1).astype(np.complex64)
+                first = ((b - k) << lr) + k
+                for r in range(radix):
+                    q = first + r * span
+                    buf[:, pad(q)], buf[:, P + pad(q)] = y[:, r].real, \
+                        y[:, r].imag
+                    written[q] += 1
+        assert (written == 1).all(), "a pass writes every point once"
+        if span > 1:
+            offset += radix * span
+    assert offset == len(tw)
+
+    # untangle: one thread takes bins k and m - k; every Z read, then the
+    # powers written unpadded to words 0 .. m of the re plane
+    power = {}
+    for i in range(T):
+        for k in [i + T * q for q in range(E // 2)] + ([m // 2] if i == 0
+                                                      else []):
+            kc = (m - k) & (m - 1)
+            a = buf[:, pad(k)] + 1j * buf[:, P + pad(k)]
+            b = buf[:, pad(kc)] + 1j * buf[:, P + pad(kc)]
+            bins = [k] + ([m - k] if k != m // 2 else [])
+            for q, (zk, zc) in zip(bins, ((a, b), (b, a))):
+                if q == m:
+                    pw = (a.real - a.imag) ** 2
+                else:
+                    e = (zk + np.conj(zc)) / 2
+                    o = (zk - np.conj(zc)) / 2
+                    x = e - 1j * (u[0, q] + 1j * u[1, q]) * o
+                    pw = x.real ** 2 + x.imag ** 2
+                assert q not in power, "a bin is taken once"
+                power[q] = pw.astype(np.float32)
+    assert sorted(power) == list(range(m + 1))
+    assert m + 1 <= P                 # the powers stay in the re plane
+    for q, pw in power.items():
+        buf[:, q] = pw
+
+    # mel product: thread i takes columns i + T q, each over its span
+    first, offs, weights = span_table(app.mel_weights.numpy())
+    taken = []
+    logmel = np.zeros((R, app.n_mels), np.float32)
+    for i in range(T):
+        for j in range(i, app.n_mels, T):
+            taken.append(j)
+            acc = np.zeros(R, np.float32)
+            for o in range(offs[j], offs[j + 1]):
+                acc = acc + buf[:, first[j] + o - offs[j]] * weights[o]
+            logmel[:, j] = np.log1p(acc)
+    assert sorted(taken) == list(range(app.n_mels))
+    return {"filtered": filt, "logmel": logmel}
+
+
+@pytest.mark.parametrize("fft_size", [256, 512, 1024, 2048])
+def test_asr_walk_through_gives_the_plain_logmel(fft_size):
+    """fft 256, 512, 1024 and 2048: last passes of radix 8, 16, 2 and 4,
+    frames of 8 to 64 threads."""
+    app = make_asr_frontend(device="cpu", fft_size=fft_size)
+    graph, operands = get_graph_factory("asr")(app)
+    window = max(512, fft_size)
+    sig = _audio(5 * 160 + window, seed=fft_size, device="cpu")
+    frames = frame_signal(sig, window, 160)
+    got = asr_walk_through(app, frames.numpy())
+    want = graph_frames_plain(frames, operands, graph=graph)
+    np.testing.assert_array_equal(got["filtered"], want["filtered"].numpy())
+    scale = max(1.0, float(want["logmel"].abs().max()))
+    assert np.abs(got["logmel"] - want["logmel"].numpy()).max() <= \
+        ASR_LOGMEL_TOL * scale
+
+
+def _with_interior_zero() -> np.ndarray:
+    w = mel_filterbank(512, 64)
+    for j in (10, 30):
+        nz = np.flatnonzero(w[:, j])
+        assert len(nz) >= 3
+        w[nz[len(nz) // 2], j] = 0.0           # inside column j's span
+    return w
+
+
+def _with_zero_column() -> np.ndarray:
+    w = mel_filterbank(512, 64)
+    w[:, 0] = 0.0
+    w[:, 63] = 0.0
+    return w
+
+
+@pytest.mark.parametrize("mel_w", [
+    mel_filterbank(512, 64), mel_filterbank(512, 40),
+    mel_filterbank(512, 128), mel_filterbank(512, 64, 16000.0, 300.0),
+    mel_filterbank(512, 64, 16000.0, 0.0, 4000.0),
+    mel_filterbank(1024, 80, 16000.0, 20.0, 7600.0), _with_interior_zero(),
+    _with_zero_column()], ids=["default", "n_mels40", "n_mels128", "fmin300",
+                               "fmax4000", "fft1024_80", "interior_zero",
+                               "zero_column"])
+def test_asr_span_table_is_exact(mel_w):
+    """The band sums over the spans equal the dense product in float64;
+    every weight outside the spans is zero and each span starts and ends
+    on a nonzero weight."""
+    first, offset, weights = span_table(mel_w)
+    bins, n_mels = mel_w.shape
+    power = np.random.default_rng(bins + n_mels).random((6, bins))
+    bands = np.zeros((6, n_mels))
+    covered = np.zeros_like(mel_w, bool)
+    for j in range(n_mels):
+        n = offset[j + 1] - offset[j]
+        rows = slice(first[j], first[j] + n)
+        np.testing.assert_array_equal(weights[offset[j]:offset[j + 1]],
+                                      mel_w[rows, j])
+        covered[rows, j] = True
+        bands[:, j] = power[:, rows] @ weights[offset[j]:offset[j + 1]]
+        if n:
+            assert mel_w[first[j], j] and mel_w[first[j] + n - 1, j]
+        else:
+            assert not mel_w[:, j].any()
+    assert not mel_w[~covered].any()
+    np.testing.assert_allclose(bands, power @ mel_w.astype(np.float64),
+                               rtol=1e-12, atol=0)
+
+
+def test_mel_spans_rebuilds_after_an_in_place_edit():
+    app = make_asr_frontend(device="cpu")
+    spans = mel_spans(app.mel_weights)
+    assert isinstance(spans, MelSpans) and spans.first.dtype == torch.int32
+    assert mel_spans(app.mel_weights) is spans        # cached
+    app.mel_weights.mul_(2.0)
+    doubled = mel_spans(app.mel_weights)
+    assert doubled is not spans
+    torch.testing.assert_close(doubled.weights, 2 * spans.weights)
+    app.mel_weights[:, 5] = 0.0
+    emptied = mel_spans(app.mel_weights)
+    assert int(emptied.offset[6] - emptied.offset[5]) == 0
+    assert mel_spans(app.mel_weights) is emptied
+    assert mel_spans(app.mel_weights.clone()) is not emptied
+
+
+def test_asr_kernel_takes_fft_sizes_up_to_its_cap():
+    """The kernel takes every power-of-two fft_size from 4 to 2 << kMaxLog
+    (frames of up to 512 threads); the launcher refuses larger ones with
+    a ValueError before it builds anything."""
+    assert cuda.ASR_MAX_FFT_SIZE == 2 << _asr_cu_const("kMaxLog")
+    assert (cuda.ASR_MAX_FFT_SIZE // 32) <= _asr_cu_const("kMaxThreads")
+    for n in (4, 512, cuda.ASR_MAX_FFT_SIZE):
+        cuda.check_asr_fft_size(n)
+    for n in (2, 384, 2 * cuda.ASR_MAX_FFT_SIZE):
+        with pytest.raises(ValueError, match="fft_size"):
+            cuda.check_asr_fft_size(n)
+    with pytest.raises(ValueError, match="fft_size"):
+        cuda.launch_asr_graph(
+            torch.zeros(70000), entry="stream", window=65536, n_frames=1,
+            frame_stride=160, n_slots=1, slot_stride=0, taps=None,
+            hann=None, twiddles=None, untangle=None, spans=None,
+            fft_size=65536, block_frames=1, out={})
 
 
 # --------------------------------------------------- standalone FIR / FFT
