@@ -15,7 +15,10 @@ Phases, each printing one line (or a few):
 2. the fused biosignal graph kernel held against its plain PyTorch
    version on the card, for the framed, stream and ring entries, at the
    full width (window 2048, hop 512) and every output selection; stream,
-   framed and ring slot r must agree bitwise;
+   framed and ring slot r must agree bitwise; and what the check would
+   read from the plain stage bodies with the FFT's second pass conjugated
+   or each median taken one rank high (`wrong_biosignal_readings`; the
+   run fails unless `TOL` flags both);
 A1. the three kernels of the ASR slice against their plain versions: the
    ASR graph at every entry and output selection (window 512, hop 160;
    stream == framed == ring slot bitwise) and what the check would read
@@ -494,6 +497,54 @@ def check_wrong_fft(name: str, re, im, want: tuple, inverse: bool) -> float:
     return reading
 
 
+def wrong_biosignal_readings(sig, graph, operands, want) -> dict:
+    """What phase 2's check reads against ``want`` (the plain outputs of
+    ``sig`` at window 2048, hop 512, `filtered` among them), from the plain
+    stage bodies given a wrong step: ``second_pass_conjugated``, the
+    radix-2 chain's stages 4 to 7 (those the kernel's second pass of four
+    computes at fft 512) with conjugated twiddles; ``median_rank_high``,
+    each mask's median taken one rank high (the (k + 1)-th smallest gap, k
+    = (n - 1) // 2, where n > 1), the margin and class recomputed. Each
+    reading is (the largest |diff| / (ATOL + RTOL |want|) of `TOL` over
+    features and margin, above 1 where the check flags it; the share of
+    rows whose class differs)."""
+    import torch
+
+    from repro_torch.core.biosignal import (_interval_gaps, delineate,
+                                            svm_predict)
+    from repro_torch.kernels.pipeline.graph import graph_stream_plain
+
+    taps, wr, wi, u, w, b = operands
+    wi2 = wi.clone()
+    wi2[4:8] = -wi2[4:8]
+    conj = graph_stream_plain(sig, (taps, wr, wi2, u, w, b), graph=graph,
+                              window=WINDOW, hop=HOP,
+                              outputs=("features", "margin", "class"))
+    feats = want["features"].clone()
+    for col, mask in zip((1, 4), delineate(want["filtered"])):
+        gaps, valid = _interval_gaps(mask)
+        nv = valid.sum(dim=-1)
+        ordered = torch.where(valid, gaps, WINDOW + 1).sort(dim=-1).values
+        k = torch.minimum((nv.clamp(min=1) - 1) // 2 + 1,
+                          (nv - 1).clamp(min=0))
+        med = ordered.gather(-1, k[:, None])[:, 0]
+        feats[:, col] = torch.where(nv > 0, med, 0).to(torch.float32)
+    margin, cls = svm_predict(feats, w, b)
+    readings = {}
+    for name, got in (("second_pass_conjugated", conj),
+                      ("median_rank_high", {"features": feats,
+                                            "margin": margin,
+                                            "class": cls})):
+        r = 0.0
+        for k in ("features", "margin"):
+            atol, rtol = TOL[k]
+            r = max(r, float(((got[k] - want[k]).abs()
+                              / (atol + rtol * want[k].abs())).max()))
+        readings[name] = (r, float((got["class"] != want["class"]).float()
+                                   .mean()))
+    return readings
+
+
 def wrong_asr_readings(sig, asr_graph, asr_ops, want) -> dict:
     """What the ASR check reads, max |diff| / max(1, max |want|) against
     ``want`` (the plain logmel of ``sig``), from the plain stage bodies
@@ -571,6 +622,7 @@ def biosignal_kernels_vs_plain(app, graph, operands, dev) -> dict:
     selections = [OUTPUTS, ("features", "margin", "class"), ("filtered",),
                   ("features",), ("margin",), ("class",)]
     max_err = {"frames": 0.0, "stream": 0.0, "ring": 0.0}
+    plain_all = None
     for sel in selections:
         kw = dict(graph=graph, outputs=sel)
         ks = graph_stream_call(cmp_sig, operands, window=WINDOW, hop=HOP,
@@ -582,6 +634,8 @@ def biosignal_kernels_vs_plain(app, graph, operands, dev) -> dict:
                                 **kw)
         pf = graph_frames_plain(frames, operands, **kw)
         pr = graph_ring_plain(ring, operands, window=WINDOW, hop=HOP, **kw)
+        if sel == OUTPUTS:
+            plain_all = ps
         max_err["stream"] = max(max_err["stream"],
                                 check_close(f"stream{sel}", ks, ps))
         max_err["frames"] = max(max_err["frames"],
@@ -594,12 +648,21 @@ def biosignal_kernels_vs_plain(app, graph, operands, dev) -> dict:
                                     hop=HOP, **kw)
             check_equal(f"ring[{r}]==stream{sel}",
                         {k: v[r] for k, v in kr.items()}, one)
+    wrong = wrong_biosignal_readings(cmp_sig, graph, operands, plain_all)
+    for name, (reading, _) in wrong.items():
+        if not reading > 1.0:
+            raise AssertionError(f"biosignal {name} reads {reading:.3e} x "
+                                 f"TOL: the check would not see it")
+    max_err["biosignal wrong readings"] = wrong
     print(f"biosignal kernel vs plain on the card: {len(selections)} output "
           f"selections x (frames, stream, ring) at window {WINDOW} hop "
           f"{HOP}, {n_cmp} frames: class exact, max |diff| "
           f"frames {max_err['frames']:.3e} stream {max_err['stream']:.3e} "
           f"ring {max_err['ring']:.3e}; stream == framed == ring slot "
-          f"bitwise")
+          f"bitwise; the plain stage bodies would read "
+          + ", ".join(f"{k} {r:.3e} x TOL (class differs in {c:.3f} of "
+                      f"rows)" for k, (r, c) in wrong.items())
+          + " (both flagged)")
     return max_err
 
 

@@ -52,6 +52,9 @@ _cuda.declare("asr_graph", CSRC / "asr_graph.cu", ENTRIES, {
         _p, _i, _i, _p], _i),                      # retire, flags, stream
     "asr_graph_smem_bytes": ([_i, _i, _i, _i], ctypes.c_size_t),
 })
+# the longest window the biosignal kernel takes (kMaxWindow in the source:
+# sample positions and gaps are 15-bit there)
+BIOSIGNAL_MAX_WINDOW = 32767
 # the largest fft_size the ASR kernel takes (2 << kMaxLog in the source): a
 # frame of m = fft_size / 2 points on m / 16 threads, at most 512
 ASR_MAX_FFT_SIZE = 16384
@@ -97,6 +100,9 @@ def launch_biosignal_graph(x: torch.Tensor, *, entry: str, window: int,
     one-element int32 tensor on the card, receives from the kernel the
     number of frames it wrote among the first ``valid_rows`` (default:
     all)."""
+    if window > BIOSIGNAL_MAX_WINDOW:
+        raise ValueError(f"biosignal_graph: window {window} is longer than "
+                         f"{BIOSIGNAL_MAX_WINDOW}")
     framing = dict(window=window, n_frames=n_frames,
                    frame_stride=frame_stride, n_slots=n_slots,
                    slot_stride=slot_stride, block_frames=block_frames)

@@ -41,6 +41,7 @@ from repro_torch.kernels.pipeline.stages import register_stage
 
 OUTPUTS = ("filtered", "features", "margin", "class")
 N_FEATURES = 12
+BIOSIGNAL_BLOCK_FRAMES = 1    # frames per CUDA block by default
 
 
 def untangle_table(fft_size: int) -> np.ndarray:
@@ -182,8 +183,8 @@ def _biosignal_kernel(x, operands, *, graph, entry, window, n_frames,
         svm_b=b, fft_size=graph.fft_size,
         bands=tuple(int(e) for e in band_edges(graph.fft_size)),
         prominence=MIN_PROMINENCE, min_distance=MIN_DISTANCE,
-        block_frames=block_frames or 1, out=out, retired=retired,
-        valid_rows=valid_rows)
+        block_frames=block_frames or BIOSIGNAL_BLOCK_FRAMES, out=out,
+        retired=retired, valid_rows=valid_rows)
 
 
 register_graph_factory("biosignal", _biosignal_factory,

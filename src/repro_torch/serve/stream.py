@@ -55,7 +55,9 @@ class StreamConfig:
     hop: int = 512              # frame stride; < window => overlapping frames
     batch_windows: int = 8      # frames per fused-kernel dispatch PER COLUMN
     autotune: bool = False      # measure the kernel row-block (later slice)
-    block_rows: int | None = None   # frames per CUDA block (default 1)
+    block_rows: int | None = None   # frames per CUDA block (default: the
+    #                             graph's, BIOSIGNAL_BLOCK_FRAMES or
+    #                             ASR_BLOCK_FRAMES)
     outputs: tuple = OUTPUTS    # which app outputs to compute/write
     framing: str = "kernel"     # "kernel": raw chunks, frames cut in-kernel
     #                             "host": gather-framed reference

@@ -193,6 +193,118 @@ def test_kernel_refuses_what_it_does_not_take(card):
         graph_stream_call(sig, cpu_ops, graph=graph, window=2048, hop=512)
 
 
+@pytest.mark.cuda
+def test_kernel_result_does_not_depend_on_block_frames(card):
+    """Frames are computed by their own threads: any number of frames a
+    block, up to more than a block holds at once, gives the same bits."""
+    app = make_app(device=card)
+    graph, operands = get_graph_factory("biosignal")(app)
+    sig = synthetic_respiration(1, 40 * 512 + 2048, seed=7, device=card)[0][0]
+    kw = dict(graph=graph, window=2048, hop=512, outputs=OUTPUTS)
+    runs = [graph_stream_call(sig, operands, block_frames=b, **kw)
+            for b in (1, 2, 3, 8, 13)]
+    _close(runs[0], graph_stream_plain(sig, operands, **kw))
+    for other in runs[1:]:
+        for k in runs[0]:
+            assert torch.equal(other[k], runs[0][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hop", [512, 509])
+def test_kernel_reads_unaligned_frames_on_card(card, hop):
+    """Frames off a 16-byte boundary (hop 509; a ring of odd slot stride on
+    a base one sample in) take the scalar loads and agree bitwise with the
+    aligned path of the same frames."""
+    app = make_app(device=card)
+    graph, operands = get_graph_factory("biosignal")(app)
+    bw, depth = 5, 3
+    span = ring_chunk_samples(2048, hop, bw)
+    buf = synthetic_respiration(1, depth * (span + 1) + 3, seed=hop,
+                                device=card)[0][0]
+    ring = buf[1:].as_strided((depth, span), (span + 1, 1))
+    kw = dict(graph=graph, window=2048, hop=hop, outputs=OUTPUTS)
+    ringed = graph_ring_call(ring, operands, **kw)
+    _close(ringed, graph_ring_plain(ring, operands, **kw))
+    for r in range(depth):
+        one = graph_stream_call(ring[r].clone(), operands, **kw)
+        framed = graph_frames_call(frame_signal(ring[r].clone(), 2048, hop),
+                                   operands, graph=graph, outputs=OUTPUTS)
+        for k in one:
+            assert torch.equal(ringed[k][r], one[k]), k
+            assert torch.equal(framed[k], one[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_taps", [1, 2, 64])
+def test_kernel_takes_any_tap_count_on_card(card, n_taps):
+    """One tap, two and the most the kernel takes (the wide-history
+    instantiation): `filtered` stays bitwise."""
+    from repro_torch.core.biosignal import app_from_numpy
+
+    base = make_app(device="cpu")
+    taps = [1.0] if n_taps == 1 else lowpass_taps(n_taps)
+    app = app_from_numpy(taps, base.svm_w.numpy(), base.svm_b.numpy(),
+                         device=card)
+    graph, operands = get_graph_factory("biosignal")(app)
+    sig = synthetic_respiration(1, 9 * 512 + 2048, seed=n_taps,
+                                device=card)[0][0]
+    kw = dict(graph=graph, window=2048, hop=512, outputs=OUTPUTS)
+    _close(graph_stream_call(sig, operands, **kw),
+           graph_stream_plain(sig, operands, **kw))
+
+
+@pytest.mark.cuda
+def test_kernel_median_worst_case_on_card(card):
+    """An alternating 0/1 signal through a one-tap identity FIR: ~1,024
+    extrema a mask, so the median is taken past the rank-counting cap."""
+    from repro_torch.core.biosignal import app_from_numpy
+
+    base = make_app(device="cpu")
+    app = app_from_numpy([1.0], base.svm_w.numpy(), base.svm_b.numpy(),
+                         device=card)
+    graph, operands = get_graph_factory("biosignal")(app)
+    sig = torch.tensor([0.0, 1.0] * (2048 + 3 * 256), device=card)
+    kw = dict(graph=graph, window=2048, hop=512, outputs=OUTPUTS)
+    got = graph_stream_call(sig, operands, **kw)
+    _close(got, graph_stream_plain(sig, operands, **kw))
+    assert torch.equal(got["features"][:, :6],
+                       torch.full_like(got["features"][:, :6], 2.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dips", [(700,), (300, 1400)])
+def test_kernel_median_mixed_lists_on_card(card, dips):
+    """A 1.0/0.9 alternation with one or two deep dips, through a one-tap
+    identity FIR: ~1,000 maxima (bisection) beside 0 or 2 minimum gaps,
+    so the two medians take different paths in one frame."""
+    from repro_torch.core.biosignal import app_from_numpy
+
+    base = make_app(device="cpu")
+    app = app_from_numpy([1.0], base.svm_w.numpy(), base.svm_b.numpy(),
+                         device=card)
+    graph, operands = get_graph_factory("biosignal")(app)
+    sig = torch.tensor([1.0, 0.9] * (1024 + 256), device=card)
+    for d in dips:
+        sig[d] = -10.0
+    kw = dict(graph=graph, window=2048, hop=512, outputs=OUTPUTS)
+    _close(graph_stream_call(sig, operands, **kw),
+           graph_stream_plain(sig, operands, **kw))
+
+
+def test_kernel_refuses_windows_past_its_cap():
+    """Positions and gaps are 15-bit in the kernel: the launcher refuses
+    longer windows with a ValueError before it builds anything."""
+    assert cuda.BIOSIGNAL_MAX_WINDOW == _bio_cu_const("kMaxWindow")
+    with pytest.raises(ValueError, match="window"):
+        cuda.launch_biosignal_graph(
+            torch.zeros(40000), entry="stream",
+            window=cuda.BIOSIGNAL_MAX_WINDOW + 1, n_frames=1,
+            frame_stride=512, n_slots=1, slot_stride=0, taps=None,
+            twiddle_re=None, twiddle_im=None, untangle=None, svm_w=None,
+            svm_b=None, fft_size=512, bands=(), prominence=0.3,
+            min_distance=15, block_frames=1, out={})
+
+
 # ------------------------------------------------------------- ASR graph
 
 def _audio(n: int, seed: int, device) -> torch.Tensor:
@@ -560,6 +672,388 @@ def test_asr_kernel_takes_fft_sizes_up_to_its_cap():
             frame_stride=160, n_slots=1, slot_stride=0, taps=None,
             hann=None, twiddles=None, untangle=None, spans=None,
             fft_size=65536, block_frames=1, out={})
+
+
+# ------------------------------- the biosignal kernel's map, on the CPU
+
+_BIO_CU = Path(cuda.__file__).resolve().parent / "csrc" / "biosignal_graph.cu"
+
+
+def _bio_cu_const(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);",
+                         _BIO_CU.read_text()).group(1))
+
+
+def _bio_pad_shift() -> int:
+    """The shift of the exchange planes' padding, pad(q) = q + (q >> k)."""
+    return int(re.search(r"int pad\(int q\) \{ return q \+ \(q >> (\d+)\); \}",
+                         _BIO_CU.read_text()).group(1))
+
+
+def _bio_delineation_threads() -> int:
+    """The threads of a frame that delineate: all but the warp that takes
+    the FFT."""
+    return _bio_cu_const("kFrameThreads") - _bio_cu_const("kFftThreads")
+
+
+def test_bio_frame_groups_fit_the_named_barriers():
+    """A block's groups each take a named barrier for the frame and one for
+    its delineation threads: ids 1 + g and 1 + kMaxBlockThreads / T + g
+    stay below the card's 16."""
+    T = _bio_cu_const("kFrameThreads")
+    groups = _bio_cu_const("kMaxBlockThreads") // T
+    assert T == 128 and _bio_cu_const("kFftThreads") == 32
+    assert _bio_delineation_threads() % 32 == 0
+    assert 1 + groups + (groups - 1) < 16
+
+
+def bio_fir_walk_through(frame: np.ndarray, taps: np.ndarray) -> np.ndarray:
+    """The biosignal kernel's FIR in numpy on one (S,) frame: the history
+    vectors NH of the instantiation the launch picks for len(taps) (kAppTaps
+    exactly, else the generic one); the frame
+    staged in 16-byte vectors (the tail past S not a number); thread i
+    filtering vectors v = i + T j from its 4 samples and the NH vectors
+    before (zero before the frame), rounds from the last to the first, two
+    a step, every read of a step before its writes, in place; acc = 0, then
+    the taps in ascending order, each product and sum rounded in float32.
+    Checks that every output sample is written once."""
+    src = _BIO_CU.read_text()
+    T = _bio_cu_const("kFrameThreads")
+    app, long_ = _bio_cu_const("kAppTaps"), _bio_cu_const("kLongHistory")
+    assert "n_taps == kAppTaps ? launch_kernel<kAppTaps>" in src
+    assert "kt == 0 ? kLongHistory : (kt + 2) / 4" in src
+    assert 4 * long_ + 1 >= _bio_cu_const("kMaxTaps")
+    k = len(taps)
+    NH = (k + 2) // 4 if k == app else long_
+    assert k <= 4 * NH + 1
+    S = frame.shape[0]
+    nv = (S + 3) // 4
+    rounds = (nv + T - 1) // T
+    buf = np.full(4 * nv, np.nan, np.float32)
+    buf[:S] = frame
+    written = np.zeros(S, int)
+    taps = taps.astype(np.float32)
+    for j1 in range(rounds - 1, -1, -2):
+        writes = []
+        for r in range(2):
+            if j1 - r < 0:
+                continue
+            v = np.arange(T) + T * (j1 - r)
+            x = np.zeros((T, 4 * NH + 4), np.float32)
+            for h in range(NH + 1):
+                u = v - NH + h
+                ok = (u >= 0) & (u < nv)
+                x[ok, 4 * h: 4 * h + 4] = buf.reshape(nv, 4)[u[ok]]
+            y = np.zeros((T, 4), np.float32)
+            for i in range(k):
+                for c in range(4):
+                    y[:, c] = y[:, c] + taps[i] * x[:, 4 * NH + c - i]
+            writes.append((v, y))
+        for v, y in writes:
+            for c in range(4):
+                t = 4 * v + c
+                ok = (v < nv) & (t < S)
+                buf[t[ok]] = y[ok, c]
+                written[t[ok]] += 1
+    assert (written == 1).all(), "every output sample is written once"
+    return buf[:S]
+
+
+@pytest.mark.parametrize("window", [2048, 1001])
+@pytest.mark.parametrize("n_taps", [1, 2, 10, 11, 12, 64])
+def test_bio_fir_walk_through_is_bitwise_fir_direct(n_taps, window):
+    """Both instantiations (11 taps exactly, the other counts on the generic
+    one), a window of whole vectors and one with a ragged tail."""
+    from repro_torch.core.fir import fir_direct
+
+    rng = np.random.default_rng(n_taps * window)
+    frame = rng.standard_normal(window).astype(np.float32)
+    taps = rng.standard_normal(n_taps).astype(np.float32)
+    got = bio_fir_walk_through(frame, taps)
+    want = fir_direct(torch.as_tensor(frame), torch.as_tensor(taps)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def _bitrev(v: int, bits: int) -> int:
+    return int(format(v, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def bio_fft_walk_through(zr: np.ndarray, zi: np.ndarray, wr: np.ndarray,
+                         wi: np.ndarray, window: int) -> tuple:
+    """The biosignal kernel's packed FFT in numpy, thread by thread, on (R,
+    m) float32 points: the compacted twiddle rows it copies to shared
+    memory; passes of L = 4 radix-2 stages (fewer in the last), group (q,
+    r) reading in_pos(v) = q << (M - s0) | v << rb | r, the stages in
+    constant geometry (stage i pairs slots j and j + 2^(L-1), twiddle at
+    (j >> i) << rb | r, outputs to slots 2j and 2j + 1) in float32 with
+    each product and sum rounded, point v written to
+    out_pos(v) = bitrev(v) << (M - L) | q << rb | r of the other exchange
+    buffer (words 0 and 2P of the FFT warp's buffers, planes padded), on
+    the kFftThreads threads of that warp. Checks that each pass writes
+    every point once."""
+    R, m = zr.shape
+    M = m.bit_length() - 1
+    T = _bio_cu_const("kFftThreads")
+    sh = _bio_pad_shift()
+    P = m + (m >> sh)
+
+    def pad(q):
+        return q + (q >> sh)
+
+    assert 2 * m <= window                       # pass 0 reads [0, 2m)
+    # the compacted table: row s's m >> (s + 1) entries from m - (m >> s)
+    tw = np.zeros(m - 1, np.complex64)
+    for s in range(M):
+        half = m >> (s + 1)
+        tw[m - (m >> s): m - (m >> s) + half] = wr[s, :half] + 1j * wi[s, :half]
+    assert np.count_nonzero(tw == 0) == 0
+    region = np.full((R, 4 * P), np.nan, np.float32)
+    src = None                                   # pass 0 reads zr, zi
+    threads = min(T, max(1, m >> 4))
+    s0, n_pass = 0, 0
+    while s0 < M:
+        L = min(4, M - s0)
+        rb = M - s0 - L
+        out = ((n_pass + 1) & 1) * 2 * P
+        written = np.zeros(m, int)
+        for i in range(threads):
+            for grp in range(i, 1 << (M - L), threads):
+                r, q = grp & ((1 << rb) - 1), grp >> rb
+                pos = [(q << (M - s0)) | (v << rb) | r for v in range(1 << L)]
+                if src is None:
+                    xr = [zr[:, p_] for p_ in pos]
+                    xi = [zi[:, p_] for p_ in pos]
+                else:
+                    xr = [region[:, src + pad(p_)] for p_ in pos]
+                    xi = [region[:, src + P + pad(p_)] for p_ in pos]
+                H = 1 << (L - 1)
+                for st in range(L):           # constant geometry
+                    row = m - (m >> (s0 + st))
+                    yr, yi = [None] * (2 * H), [None] * (2 * H)
+                    for j in range(H):
+                        w = tw[row + (((j >> st) << rb) | r)]
+                        ar, ai, br, bi = xr[j], xi[j], xr[j + H], xi[j + H]
+                        dr, di = ar - br, ai - bi
+                        yr[2 * j], yi[2 * j] = ar + br, ai + bi
+                        yr[2 * j + 1] = dr * w.real - di * w.imag
+                        yi[2 * j + 1] = dr * w.imag + di * w.real
+                    xr, xi = yr, yi
+                for v in range(1 << L):
+                    o = (_bitrev(v, L) << (M - L)) | (q << rb) | r
+                    region[:, out + pad(o)] = xr[v]
+                    region[:, out + P + pad(o)] = xi[v]
+                    written[o] += 1
+        assert (written == 1).all(), "a pass writes every point once"
+        src = out
+        s0 += L
+        n_pass += 1
+    q = pad(np.arange(m))
+    return region[:, src + q], region[:, src + P + q]
+
+
+@pytest.mark.parametrize("fft_size", [256, 512, 1024, 2048])
+def test_bio_fft_walk_through_is_bitwise_fft_stages(fft_size):
+    """fft 256, 512, 1024 and 2048: last passes of 3, 4, 1 and 2 stages
+    (m = 128 to 1024 points), 8 to 32 threads."""
+    from repro_torch.core.fft import fft_stages
+    from repro_torch.kernels.fft.kernel import twiddle_table
+
+    m = fft_size // 2
+    rng = np.random.default_rng(fft_size)
+    zr = rng.standard_normal((3, m)).astype(np.float32)
+    zi = rng.standard_normal((3, m)).astype(np.float32)
+    wr, wi = twiddle_table(m)
+    got = bio_fft_walk_through(zr, zi, wr, wi, window=fft_size)
+    want = fft_stages(torch.as_tensor(zr), torch.as_tensor(zi),
+                      table=(torch.as_tensor(wr), torch.as_tensor(wi)))
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+
+
+def bio_gap_lists(is_max: np.ndarray, is_min: np.ndarray) -> list:
+    """The kernel's gap compaction on one frame's (S,) masks: 32-bit mask
+    words, delineation thread i taking the contiguous words [i cw, (i + 1)
+    cw); the exclusive scan of (last set bit, popcount) over the threads;
+    the gap of extremum number b written to list[b - 1]. Returns the two
+    lists."""
+    T = _bio_delineation_threads()
+    S = is_max.shape[0]
+    W = (S + 31) // 32
+    cw = (W + T - 1) // T
+    lists = []
+    for mask in (is_max, is_min):
+        bits = np.zeros(W * 32, bool)
+        bits[:S] = mask
+        words = bits.reshape(W, 32)
+        last = [-1] * T
+        count = [0] * T
+        for i in range(T):
+            for w in range(min(W, i * cw), min(W, min(W, i * cw) + cw)):
+                set_ = np.flatnonzero(words[w])
+                if len(set_):
+                    last[i] = 32 * w + int(set_[-1])
+                count[i] += len(set_)
+        n = max(sum(count) - 1, 0)
+        out = np.full(max(S // 2, 1), -1)
+        for i in range(T):
+            prev = max([-1] + last[:i])
+            rank = sum(count[:i])
+            for w in range(min(W, i * cw), min(W, min(W, i * cw) + cw)):
+                for t in 32 * w + np.flatnonzero(words[w]):
+                    if prev >= 0:
+                        assert out[rank - 1] == -1
+                        out[rank - 1] = t - prev
+                    prev, rank = t, rank + 1
+        assert (out[:n] > 0).all() and (out[n:] == -1).all()
+        lists.append(out[:n])
+    return lists
+
+
+def bio_list_medians(lists: list, S: int) -> list:
+    """The kernel's lower medians of a frame's two gap lists: where both
+    hold at most kRankMax gaps, rank counting, half of the T delineation
+    threads a list (thread i of a half taking gaps i, i + T/2, ...; the
+    first gap of the k-th value writes); else, a list after the other,
+    bisection on the value with a count over all T threads a step."""
+    T, cap = _bio_delineation_threads(), _bio_cu_const("kRankMax")
+    ranked = all(len(g) <= cap for g in lists)
+    out = []
+    for gaps in lists:
+        n = len(gaps)
+        k = (max(n, 1) - 1) // 2
+        if n == 0:
+            out.append(0)
+        elif ranked:
+            writes = []
+            for i in range(T // 2):
+                for e in range(i, n, T // 2):
+                    less = int((gaps < gaps[e]).sum())
+                    equal = int((gaps == gaps[e]).sum())
+                    before = int((gaps[:e] == gaps[e]).sum())
+                    if before == 0 and less <= k < less + equal:
+                        writes.append(int(gaps[e]))
+            assert len(writes) == 1, "one thread writes the median"
+            out.append(writes[0])
+        else:
+            lo, hi = 0, S
+            while hi - lo > 1:
+                mid = (lo + hi) // 2
+                if int((gaps <= mid).sum()) > k:
+                    hi = mid
+                else:
+                    lo = mid
+            out.append(hi)
+    return out
+
+
+def _hist_median(gaps: np.ndarray, S: int) -> int:
+    """The parent kernel's median: the smallest gap whose running count over
+    an (S + 1)-bin histogram passes k."""
+    if len(gaps) == 0:
+        return 0
+    k = (len(gaps) - 1) // 2
+    run = np.cumsum(np.bincount(gaps, minlength=S + 1))
+    return int(np.flatnonzero(run > k)[0])
+
+
+@pytest.mark.parametrize("case", ["n0", "n1", "n2", "n15", "n16", "ties",
+                                  "ties_long", "n65", "n200"])
+def test_bio_list_median_equals_the_histogram_median(case):
+    """Each list beside a short one (both ranked where it is short) and
+    beside a long one (both by bisection)."""
+    S = 2048
+    rng = np.random.default_rng(len(case))
+    n = {"n0": 0, "n1": 1, "n2": 2, "n15": 15, "n16": 16, "ties": 16,
+         "ties_long": 300, "n65": 65, "n200": 200}[case]
+    gaps = rng.integers(1, 200, n)
+    if case.startswith("ties"):
+        gaps = rng.choice([3, 7, 7, 7, 9], n)
+    for other in (rng.integers(1, 200, 5), rng.integers(1, 200, 500)):
+        for pair in ([gaps, other], [other, gaps]):
+            got = bio_list_medians(pair, S)
+            assert got == [_hist_median(g, S) for g in pair]
+            if n:
+                mine = got[0] if pair[0] is gaps else got[1]
+                assert mine == int(np.sort(gaps)[(n - 1) // 2])
+
+
+def _bio_frames(kind: str) -> torch.Tensor:
+    """(R, 2048) filtered frames: the app's FIR over synthetic respiration,
+    an alternating 0/1 signal (~1,024 extrema per mask) or white noise."""
+    from repro_torch.core.fir import fir_direct
+
+    if kind == "alternating":
+        return torch.tensor([[0.0, 1.0] * 1024, [1.0, 0.0] * 1024])
+    if kind == "noise":
+        rng = np.random.default_rng(3)
+        return torch.as_tensor(rng.standard_normal((2, 2048)).astype(
+            np.float32))
+    app = make_app(device="cpu")
+    sig = synthetic_respiration(1, 5 * 512 + 2048, seed=4, device="cpu")[0][0]
+    return fir_direct(frame_signal(sig, 2048, 512), app.fir_taps)
+
+
+@pytest.mark.parametrize("kind", ["respiration", "alternating", "noise"])
+def test_bio_masks_and_gap_lists_walk_through(kind):
+    """The kernel's candidate compaction (4 consecutive samples a thread,
+    each delineation warp's candidates in its own segment of the list,
+    round by round) and the +-d windows shared out over those threads (a
+    minimum's samples negated, one max over 16 clamped reads at a time
+    into 4 accumulators) give
+    `delineate`'s masks (`_dilate`); its gap compaction gives the plain
+    version's gaps in order, and the list median its median."""
+    from repro_torch.core.biosignal import (MIN_DISTANCE, MIN_PROMINENCE,
+                                            _interval_gaps, delineate)
+
+    T = _bio_delineation_threads()
+    x = _bio_frames(kind)
+    want_max, want_min = delineate(x)
+    for f in range(x.shape[0]):
+        v = x[f].numpy()
+        S = v.shape[0]
+        mu, hi, lo = x[f].mean(), x[f].max(), x[f].min()
+        thr_hi = float(mu + MIN_PROMINENCE * (hi - mu))
+        thr_lo = float(mu - MIN_PROMINENCE * (mu - lo))
+        # warp w's segment: round j's vectors 32 w .. 32 w + 31 (past T j),
+        # 4 samples each; the segments one after the other
+        nv = (S + 3) // 4
+        order = [4 * vec + c for w in range(T // 32)
+                 for j in range(0, nv, T)
+                 for vec in range(j + 32 * w, min(nv, j + 32 * w + 32))
+                 for c in range(4)]
+        assert sorted(order) == list(range(4 * nv))
+        cands = []
+        for t in order:
+            if 0 < t < S - 1:
+                if v[t] > v[t - 1] and v[t] >= v[t + 1] and v[t] > thr_hi:
+                    cands.append((t, 0))
+                elif v[t] < v[t - 1] and v[t] <= v[t + 1] and v[t] < thr_lo:
+                    cands.append((t, 1))
+        masks = np.zeros((2, S), bool)
+        taken = []
+        for i in range(T):
+            for c in range(i, len(cands), T):
+                t, is_min = cands[c]
+                sgn = np.float32(-1.0 if is_min else 1.0)
+                a, b = max(0, t - MIN_DISTANCE), min(S - 1, t + MIN_DISTANCE)
+                acc = [sgn * v[t]] * 4
+                for j0 in range(a, b + 1, 16):
+                    for u in range(16):
+                        acc[u & 3] = max(acc[u & 3], sgn * v[min(j0 + u, b)])
+                masks[is_min, t] |= bool(sgn * v[t] >= max(acc))
+                taken.append(c)
+        assert sorted(taken) == list(range(len(cands)))
+        np.testing.assert_array_equal(masks[0], want_max[f].numpy())
+        np.testing.assert_array_equal(masks[1], want_min[f].numpy())
+        lists = bio_gap_lists(masks[0], masks[1])
+        for lst, mask in zip(lists, (want_max[f], want_min[f])):
+            gaps, valid = _interval_gaps(mask)
+            plain = gaps[valid].numpy()
+            np.testing.assert_array_equal(lst, plain)
+        assert bio_list_medians(lists, S) == [_hist_median(lst, S)
+                                              for lst in lists]
+        if kind == "alternating":
+            assert min(len(lst) for lst in lists) >= 1000
 
 
 # --------------------------------------------------- standalone FIR / FFT
