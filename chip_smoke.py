@@ -9,7 +9,9 @@ Phases, each printing one line (or a few):
 
 1. the card's name and power limit (nvidia-smi), then the build of the
    seven kernels (biosignal graph, ASR graph, FIR, FFT, shuffle, RoPE,
-   flash attention), one nvcc each, all started together, and the TF32
+   flash attention) and of `rope.cu` with one slot's table applied to
+   the slot before it (`ROPE_WRONG_SLOT`), one nvcc each, all started
+   together, and the TF32
    HGMMA instructions of each float32 flash-attention instantiation
    (cuobjdump -sass; the run fails where one has none);
 2. the fused biosignal graph kernel held against its plain PyTorch
@@ -32,8 +34,10 @@ A1. the three kernels of the ASR slice against their plain versions: the
    `FFT_TOL` flags it);
 A3. the shuffle, RoPE and flash-attention kernels against their plain
    versions at edge shapes: every shuffle op and half at N 2/64/128/256
-   and shifts 0/32/-5/2N+3 (bitwise); both RoPE layouts at dh 32/120/128
-   and positions up to 8192; attention with GQA, windows, Sq != Skv
+   and shifts 0/32/-5/2N+3 (bitwise); both RoPE layouts at dh
+   18/32/120/128, 1 to 16 heads a slot, aligned and offset bases (the
+   kernel's 16-byte, 8-byte and scalar paths) and positions up to 8192;
+   attention with GQA, windows, Sq != Skv
    without causal, S not a multiple of the kernel's tile, dh 20 (rows of
    40 bytes) to 256, one query over 777 keys, a 64-key window over 4,096
    keys, 32 heads at S 65, dh 144, 184 and 200, dh 18 and 25 (4- and
@@ -63,7 +67,9 @@ S. the standalone entries at their users' full widths, each run with the
    each half; S2: every op on a million VWRs of 128 int32 words, bitwise),
    `rope` (R1: a qwen1.5-0.5b prefill's q, (4, 2048, 16, 64), theta 1e6,
    both layouts in float32 and bfloat16; R2: an h2o-danube3-4b q, (1,
-   8192, 32, 120), theta 1e4, bfloat16; one int32 position per slot) and
+   8192, 32, 120), theta 1e4, bfloat16; one int32 position per slot; at
+   R1 also what the check would read from `rope_wrong_slot`, and the run
+   fails unless `ROPE_TOL` flags it) and
    `flash_attention` (F1: qwen1.5-0.5b prefill, B 4, S 2048, 16 heads, dh
    64, causal; F2: h2o-danube3-4b, S 8192, 32 heads over 8 kv heads, dh
    120, causal, window 4096; F3: whisper-medium's encoder, B 8, S 1500, 16
@@ -79,8 +85,10 @@ S. the standalone entries at their users' full widths, each run with the
    bfloat16 tensor-core peak for bfloat16; for float32 the least of the
    67 TFLOP/s CUDA cores and three TF32 products at 495 TFLOP/s, both
    printed),
-   the plain version's time and, for the FIR, the FFT and attention, one
-   PyTorch call computing the same function (timed here only); the FFT
+   the plain version's time and, for the FIR, the FFT, attention and
+   every shuffle op but bit_reverse, one PyTorch call computing the same
+   function (timed here only; the shuffle's held bitwise to the kernel's
+   output); the FFT
    also in bfloat16 at the same shape; for
    attention also the rate over the 4 dh operations per live pair, the
    share of the bound and the ratio to that call;
@@ -101,6 +109,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import itertools
 import json
 import math
 import subprocess
@@ -164,6 +173,12 @@ FFT_CASES = [(2, 301), (4, 61), (8, 61), (32, 61), (256, 61), (512, 61),
 # sizes: `dropped_tile_reading` measures that on every run and the run
 # fails unless this tolerance flags it.
 ROPE_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# RoPE's shared tables invite one fault above all: a slot's heads rotated
+# by another slot's table. `rope.cu` patched to build slot s's table from
+# slot s + 1's position is built beside the kernels; phase S runs it at R1
+# and the run fails unless `ROPE_TOL` flags what it gives.
+ROPE_WRONG_SLOT = ("position(pos, pos_dtype, slot0 + sl)",
+                   "position(pos, pos_dtype, min(slot0 + sl + 1, slots - 1))")
 FLASH_DROP_TILE = 64
 SHUFFLE_HALVES = ("both", "lower", "upper")
 # phase A3's attention shapes: (B, Sq, Skv, H, KV, dh), causal, window,
@@ -805,6 +820,74 @@ def rope_work(rows: int, n_pos: int, dh: int, elem: int,
             2 * half + n_pos * half + 6 * rows * half)
 
 
+def declare_rope_wrong_slot() -> None:
+    """Declare ``rope_wrong_slot``, `rope.cu` with `ROPE_WRONG_SLOT`
+    applied and the error-string symbol `_cuda` looks for under that name
+    added (written under build/chip_smoke/), to `_cuda`, so that
+    `build_all` builds it beside the kernels; its one entry is not a path's
+    and phase S launches it only to measure what the check reads."""
+    from repro_torch.kernels import _cuda
+
+    text = (ROOT / ROPE_SOURCE).read_text()
+    old, new = ROPE_WRONG_SLOT
+    if text.count(old) != 1:
+        raise AssertionError(f"{ROPE_SOURCE}: {old!r} is not in it once")
+    path = ROOT / "build" / "chip_smoke" / "rope_wrong_slot.cu"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(text.replace(old, new) + (
+        '\nextern "C" const char* rope_wrong_slot_error_string(int code) {\n'
+        '  return rope_error_string(code);\n}\n'))
+    _cuda.declare("rope_wrong_slot", path, ("wrong_slot",),
+                  _cuda.KERNELS["rope"].signatures)
+
+
+def wrong_slot_reading(x, pos, want, *, theta: float, layout: str,
+                       heads: int) -> float:
+    """What the RoPE check reads from ``rope_wrong_slot`` on these inputs:
+    max |diff| / max |want| against ``want``, the plain output."""
+    import torch
+
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.rope.kernel import rope_launch_args
+
+    out = torch.empty_like(x)
+    _cuda.launch("rope_wrong_slot", "wrong_slot", x, "rope_launch",
+                 *rope_launch_args(x, pos, out, theta=theta, layout=layout,
+                                   heads=heads))
+    return scaled_ratio((out,), (want,))
+
+
+def shuffle_library(a, b, op: str, half: str, amount: int):
+    """One PyTorch call that computes ``shuffle(a, b, op, half=half,
+    amount=amount)`` on (R, N) blocks of even N, as a function, or None
+    where there is none (`bit_reverse`). The interleave is `torch.stack`
+    of the two blocks (or of their halves) on a new last axis, viewed as
+    (R, out_n); a prune `torch.cat` of the kept words of each; a circular
+    shift by 0 < k <= N `torch.cat` of the three runs of words it moves
+    (other amounts need other slices: phase S shifts by 32 only)."""
+    import torch
+
+    R, n = a.shape
+    k = amount % (2 * n)
+    if op == "interleave":
+        cut = {"both": slice(0, n), "lower": slice(0, n // 2),
+               "upper": slice(n // 2, n)}[half]
+        width = 2 * n if half == "both" else n
+        return lambda: torch.stack((a[:, cut], b[:, cut]), -1).view(R,
+                                                                    width)
+    if op in ("prune_even", "prune_odd"):
+        c = 1 if op == "prune_even" else 0     # prune_even keeps odd words
+        return lambda: torch.cat((a[:, c::2], b[:, c::2]), 1)
+    if op == "circular_shift":
+        if not 0 < k <= n:
+            raise ValueError(f"shuffle_library: shift {k} outside (0, {n}]")
+        runs = {"both": (b[:, n - k:], a, b[:, : n - k]),
+                "lower": (b[:, n - k:], a[:, : n - k]),
+                "upper": (a[:, n - k:], b[:, : n - k])}[half]
+        return lambda: torch.cat(runs, 1)
+    return None
+
+
 def live_pairs(sq: int, skv: int, causal: bool, window) -> int:
     """The (query, key) pairs of one head that the mask keeps."""
     import numpy as np
@@ -1063,26 +1146,27 @@ def standalone_kernels_vs_plain(dev) -> dict:
            for d in ("float32", "bfloat16")}
     err["shuffle"] = 0.0
     n_rope = 0
-    for dtype in (torch.float32, torch.bfloat16):
-        for dh in (32, 120, 128):
-            x = torch.randn(300, dh, generator=g, device=dev).to(dtype)
-            name = str(dtype).replace("torch.", "")
-            # one position a row (int32), then one per 3 rows (int64, the
-            # heads of a slot) and one per 5 rows (float32)
-            for heads, pdt in ((1, torch.int32), (3, torch.int64),
-                               (5, torch.float32)):
-                pos = torch.randint(0, 8192, (300 // heads,), generator=g,
-                                    device=dev).to(pdt)
-                for layout in LAYOUTS:
-                    for theta in (1e4, 1e6):
-                        kw = dict(theta=theta, layout=layout, heads=heads)
-                        err[f"rope {name}"] = max(
-                            err[f"rope {name}"], check_scaled(
-                                f"rope {layout} dh={dh} theta={theta} "
-                                f"heads={heads} {pdt} {name}",
-                                rope_cuda(x, pos, **kw),
-                                rope_plain(x, pos, **kw), ROPE_TOL[name]))
-                        n_rope += 1
+    # one position a row (int32), then one per 3 rows (int64), 5 rows
+    # (float32) and 16 rows (int32), the heads of a slot
+    heads_pos = ((1, torch.int32), (3, torch.int64), (5, torch.float32),
+                 (16, torch.int32))
+    for dtype, dh, offset in itertools.product(
+            (torch.float32, torch.bfloat16), (18, 32, 120, 128), (0, 1)):
+        # offset 1: the base one element into its buffer, where the kernel
+        # takes its scalar path
+        buf = torch.randn(480 * dh + 1, generator=g, device=dev).to(dtype)
+        x = buf[offset: offset + 480 * dh].view(480, dh)
+        name = str(dtype).replace("torch.", "")
+        for (heads, pdt), layout, theta in itertools.product(
+                heads_pos, LAYOUTS, (1e4, 1e6)):
+            pos = torch.randint(0, 8192, (480 // heads,), generator=g,
+                                device=dev).to(pdt)
+            kw = dict(theta=theta, layout=layout, heads=heads)
+            err[f"rope {name}"] = max(err[f"rope {name}"], check_scaled(
+                f"rope {layout} dh={dh} theta={theta} heads={heads} {pdt} "
+                f"{name} offset={offset}", rope_cuda(x, pos, **kw),
+                rope_plain(x, pos, **kw), ROPE_TOL[name]))
+            n_rope += 1
     n_flash, worst = 0, {}
     for dtype in (torch.float32, torch.bfloat16):
         for (B, sq, skv, H, KV, dh), causal, window, amp in FLASH_EDGES:
@@ -1106,9 +1190,10 @@ def standalone_kernels_vs_plain(dev) -> dict:
     print(f"shuffle vs plain on the card: {n_shuffle} cases (5 ops x "
           f"{len(SHUFFLE_HALVES)} halves x amounts 0/32/-5/2N+3 x N "
           f"2/64/128/256 x float32/bfloat16/int32), all bitwise; RoPE vs "
-          f"plain: {n_rope} cases (both layouts x dh 32/120/128 x theta "
-          f"1e4/1e6 x float32/bfloat16 x positions int32 a row, int64 per "
-          f"3 rows, float32 per 5 rows, < 8192), max |diff| "
+          f"plain: {n_rope} cases (both layouts x dh 18/32/120/128 x base "
+          f"offset 0/1 x theta 1e4/1e6 x float32/bfloat16 x positions "
+          f"int32 a row, int64 per 3 rows, float32 per 5 rows, int32 per "
+          f"16 rows, < 8192), max |diff| "
           f"float32 {err['rope float32']:.3e} bfloat16 "
           f"{err['rope bfloat16']:.3e} (tol {ROPE_TOL}, x max|plain|); "
           f"flash vs plain: {n_flash} cases (GQA, MQA, windows, Sq != Skv "
@@ -1201,18 +1286,27 @@ def standalone_path(audio, dev, card: str) -> dict:
         tally(got)
         for (lay, dt), out in zip(runs, outs):
             name = str(dt).replace("torch.", "")
+            x2 = xs[dt].reshape(-1, dh)
+            want = rope_plain(x2, pos.reshape(-1), theta=theta, layout=lay,
+                              heads=H)
             err = check_scaled(f"rope {tag} {lay} {name}",
-                               out.reshape(-1, dh),
-                               rope_plain(xs[dt].reshape(-1, dh),
-                                          pos.reshape(-1), theta=theta,
-                                          layout=lay, heads=H),
-                               ROPE_TOL[name])
+                               out.reshape(-1, dh), want, ROPE_TOL[name])
             cases[f"rope {tag} {lay} {name}"] = {
                 "kernel": "rope", "entry": lay, "label": f"{tag} {name}",
                 "edge": f"rope {name}",
                 "launches": got["rope"][lay],
                 "max_abs_err": err, "theta": theta,
                 "args": (xs[dt], pos)}
+            if tag == "R1":
+                wrong = wrong_slot_reading(x2, pos.reshape(-1), want,
+                                           theta=theta, layout=lay, heads=H)
+                if not wrong > ROPE_TOL[name]:
+                    raise AssertionError(
+                        f"rope {tag} {lay} {name}: slot s + 1's table on "
+                        f"slot s reads {wrong:.3e} <= tol {ROPE_TOL[name]}: "
+                        f"the check would not see it")
+                cases[f"rope {tag} {lay} {name}"]["wrong_slot"] = wrong
+            del want
         del outs
         print(f"rope {tag} (x {shape}, positions arange({S}) per batch row,"
               f" theta {theta:g}): {len(runs)} entry calls, launches "
@@ -1220,7 +1314,13 @@ def standalone_path(audio, dev, card: str) -> dict:
               + ", ".join(f"{c['entry']} "
                           f"{c['max_abs_err']:.3e}" for k, c in cases.items()
                           if k.startswith(f"rope {tag}"))
-              + f" (tol {ROPE_TOL} x max|plain|) [{card}]")
+              + f" (tol {ROPE_TOL} x max|plain|)"
+              + ("; slot s + 1's table on slot s (rope_wrong_slot) would "
+                 "read max |diff| / max |plain| " + ", ".join(
+                     f"{c['entry']} {c['wrong_slot']:.3e}"
+                     for k, c in cases.items()
+                     if k.startswith(f"rope {tag}")) + ", flagged"
+                 if tag == "R1" else "") + f" [{card}]")
     # F1: qwen1.5-0.5b prefill; F2: h2o-danube3-4b at its 4096 window;
     # F3: whisper-medium encoder self-attention over 1,500 frames
     for tag, (B, S, H, KV, dh), causal, window, chunk, dtypes in FLASH_PATH:
@@ -1280,9 +1380,10 @@ def standalone_path(audio, dev, card: str) -> dict:
 
 def standalone_times(cases: dict, edge_err: dict, card: str) -> list:
     """Phase 5 rows 7-9: device time of each phase-S case beside its bound,
-    the plain version's time and, for attention, one PyTorch call
-    (`scaled_dot_product_attention` with ``enable_gqa``; a boolean band
-    mask for a window), timed here only; returns the JSON entries."""
+    the plain version's time and, for attention and the shuffle, one
+    PyTorch call (`scaled_dot_product_attention` with ``enable_gqa``, a
+    boolean band mask for a window; `shuffle_library`, held bitwise to the
+    kernel's output), timed here only; returns the JSON entries."""
     import torch
     import torch.nn.functional as F
 
@@ -1302,6 +1403,14 @@ def standalone_times(cases: dict, edge_err: dict, card: str) -> list:
                 else 2 * a.shape[1]
             ms = event_ms(lambda: shuffle_cuda(a, b, op, half=h), 20)
             pms = event_ms(lambda: shuffle_plain(a, b, op, half=h), 3)
+            lfn = shuffle_library(a, b, op, h, 32)
+            if lfn is not None:
+                # the same function: bitwise the kernel's output
+                check_bitwise(f"library {key}", lfn(),
+                              shuffle_cuda(a, b, op, half=h))
+                lib_ms = event_ms(lfn, 20)
+                lib_name = ("torch.stack" if op == "interleave" else
+                            "torch.cat") + ", bitwise the kernel's output"
             bms, by = bound_ms(*shuffle_work(a.shape[0], out_n,
                                              a.element_size()))
             src, rep = SHUFFLE_SOURCE, SHUFFLE_REPLACES
@@ -1439,6 +1548,7 @@ def main(argv=None) -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(card)
+    declare_rope_wrong_slot()
     t0 = time.perf_counter()
     builds = _cuda.build_all()
     wall = time.perf_counter() - t0

@@ -103,6 +103,29 @@ def test_shuffle_kernel_takes_any_width_its_op_takes(card, op):
             assert torch.equal(_bits(got), _bits(want)), (n, half)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+@pytest.mark.parametrize("n,offset", [(256, 1), (128, 2), (6, 0),
+                                      (7000, 0), (7000, 1)])
+def test_shuffle_kernel_paths_on_card(card, n, offset, dtype):
+    """The kernel's other paths: bases offset by one or two words and rows
+    that 16-byte vectors do not tile (single-word copies, read in place),
+    and rows too wide to stage (read in place)."""
+    g = torch.Generator(device=card).manual_seed(n + offset)
+    R = 37 if n <= 256 else 5
+    a, b = (_draw((R * n + offset,), dtype, g, card)[offset:].view(R, n)
+            for _ in range(2))
+    for op in OPS:
+        if op == "bit_reverse" and n & (n - 1):
+            continue
+        for half in ("both", "upper"):
+            for amount in ((32, -5) if op == "circular_shift" else (32,)):
+                got = shuffle_cuda(a, b, op, half=half, amount=amount)
+                want = shuffle_plain(a, b, op, half=half, amount=amount)
+                assert torch.equal(_bits(got), _bits(want)), (op, half)
+
+
 # ------------------------------------------------------------------- RoPE
 
 def _rope_close(got: torch.Tensor, want: torch.Tensor) -> None:
@@ -156,6 +179,87 @@ def test_rope_entry_broadcasts_positions_on_card(card):
                       pos[..., None].expand(2, 50, 4).reshape(-1),
                       theta=1e6, layout="neox").reshape(x.shape)
     _rope_close(got, want)
+
+
+def _rope_draw(R: int, dh: int, dtype, offset: int, g, device):
+    """(R, dh) of ``dtype`` whose base lies ``offset`` elements into its
+    buffer (0, 1 element, or 8 bytes: the kernel's 16-byte, scalar and
+    8-byte paths)."""
+    buf = torch.randn(R * dh + offset, generator=g, device=device).to(dtype)
+    return buf[offset:].view(R, dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [1, 3, 16, 32])
+@pytest.mark.parametrize("dh", [2, 18, 24, 32, 64, 120, 128, 256])
+def test_rope_kernel_walk_cases_on_card(card, dh, heads):
+    """The shapes of `tests/test_torch_rope_layout.py`'s walk: both
+    layouts and dtypes, bases offset by 0, 1 element and 8 bytes, 9 slots
+    (a partial last block), positions up to 2^20 (sinf's slow range
+    reduction)."""
+    g = torch.Generator(device=card).manual_seed(dh * 64 + heads)
+    _cuda.reset_launches()
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for offset in (0, 1, 8 // (4 if dtype == torch.float32 else 2)):
+            x = _rope_draw(9 * heads, dh, dtype, offset, g, card)
+            pos = torch.randint(0, 1 << 20, (9,), generator=g, device=card,
+                                dtype=torch.int32)
+            for layout in LAYOUTS:
+                got = rope_cuda(x, pos, theta=1e4, layout=layout,
+                                heads=heads)
+                _rope_close(got, rope_plain(x, pos, theta=1e4,
+                                            layout=layout, heads=heads))
+                n += 1
+    assert sum(_cuda.LAUNCHES["rope"].values()) == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rope_kernel_takes_a_row_offset_view_on_card(card, dtype):
+    """``x[1:]`` is contiguous with a storage offset of one row; R2's rows
+    of 120 elements."""
+    g = torch.Generator(device=card).manual_seed(11)
+    x = torch.randn(1 + 16 * 32, 120, generator=g, device=card).to(dtype)
+    pos = torch.randint(0, 8192, (16,), generator=g, device=card)
+    for layout in LAYOUTS:
+        _rope_close(rope_cuda(x[1:], pos, theta=1e4, layout=layout,
+                              heads=32),
+                    rope_plain(x[1:], pos, theta=1e4, layout=layout,
+                               heads=32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [1, 5, 4097])
+def test_rope_kernel_partial_last_block_on_card(card, slots):
+    """Slot counts that no block's slots divide, at R1's row width."""
+    g = torch.Generator(device=card).manual_seed(slots)
+    x = torch.randn(slots * 16, 64, generator=g, device=card)
+    pos = torch.randint(0, 1 << 20, (slots,), generator=g, device=card)
+    for dtype in (torch.float32, torch.bfloat16):
+        for layout in LAYOUTS:
+            xd = x.to(dtype)
+            _rope_close(rope_cuda(xd, pos, theta=1e6, layout=layout,
+                                  heads=16),
+                        rope_plain(xd, pos, theta=1e6, layout=layout,
+                                   heads=16))
+
+
+@pytest.mark.cuda
+def test_rope_entry_broadcasts_batch_positions_on_card(card):
+    """The entry on a (B, S, H, dh) array with (1, S) positions broadcast
+    over the batch: one launch, the heads of a slot sharing a table."""
+    g = torch.Generator(device=card).manual_seed(4)
+    x = torch.randn(3, 40, 32, 120, generator=g, device=card) \
+        .to(torch.bfloat16)
+    pos = torch.randint(0, 1 << 20, (1, 40), generator=g, device=card)
+    _cuda.reset_launches()
+    got = rope(x, pos, theta=1e4, layout="neox")
+    assert _cuda.LAUNCHES["rope"]["neox"] == 1
+    want = rope_plain(x.reshape(-1, 120),
+                      pos.expand(3, 40)[..., None].expand(3, 40, 32)
+                      .reshape(-1), theta=1e4, layout="neox")
+    _rope_close(got, want.reshape(x.shape))
 
 
 # -------------------------------------------------------- flash attention
