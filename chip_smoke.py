@@ -50,6 +50,19 @@ A3. the shuffle, RoPE and flash-attention kernels against their plain
    expected, and every row of every run is held against the plain version;
 4. `ResidentStream.process` on the same signal, bitwise equal to phase 3,
    with drained totals equal to the frame count;
+C. the column paths on the same day, each bitwise equal to phase 3's
+   single-column output and each with its launch count checked:
+   `pipeline_stream_sharded` and `pipeline_sharded` over 4 columns (one
+   launch a column), `BiosignalStream` with ``n_columns=4`` at
+   batch_windows 8 kernel-framed, host-framed and with
+   ``column_weights=(1, 1, 2, 4)`` (one launch per column a dispatch),
+   and `FaultTolerantColumnRunner(n_columns=4)` in batch mode fault-free,
+   with column 1 killed at its 170th dispatch (the run fails unless it
+   requeued) and with two transient faults on column 2, and in resident
+   mode (ring_depth 4) with column 3 killed at drain 1; prints each
+   runner's per-column `column_busy` and the kill run's
+   max(column_busy) over the fault-free run's beside the reference's
+   1.5x bound (host time: printed, not gated);
 A2. the ASR main path over one hour of 16 kHz audio (57,600,000 samples,
    359,997 frames of window 512, hop 160): the host-driven stream at
    batch_windows 32 and 512, the host-framed reference, `ResidentStream`
@@ -109,6 +122,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import itertools
 import json
 import math
@@ -1500,6 +1514,188 @@ def standalone_times(cases: dict, edge_err: dict, card: str) -> list:
     return kernels
 
 
+# phase C: the column paths over the day (4 columns, batch_windows 8)
+COLUMNS, COLUMN_WEIGHTS, KILL_DISPATCH = 4, (1, 1, 2, 4), 169
+TRANSIENTS = {(2, 100), (2, 101)}       # (column, dispatch) pairs
+FAULT_BOUND = 1.5       # the reference's --check-fault bound on the ratio
+
+
+class GcPauses:
+    """Log the interpreter's garbage-collection pauses as (generation, ms)
+    while the ``with`` block runs."""
+
+    def __init__(self):
+        self.log, self._t = [], None
+
+    def _callback(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            self.log.append((info["generation"],
+                             (time.perf_counter() - self._t) * 1e3))
+            self._t = None
+
+    def __enter__(self):
+        gc.callbacks.append(self._callback)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._callback)
+
+
+def logged_dispatches(runner) -> list:
+    """Wrap ``runner._dispatch`` to log (column, start, count, outcome,
+    wall ms) of every dispatch it attempts."""
+    log, inner = [], runner._dispatch
+
+    def dispatch(column, sig, start, count):
+        t = time.perf_counter()
+        try:
+            out = inner(column, sig, start, count)
+        except Exception as e:
+            log.append((column, start, count, type(e).__name__,
+                        (time.perf_counter() - t) * 1e3))
+            raise
+        log.append((column, start, count, "ok",
+                    (time.perf_counter() - t) * 1e3))
+        return out
+
+    runner._dispatch = dispatch
+    return log
+
+
+def column_paths(app, sig, day_ref: dict, n: int, card: str) -> dict:
+    """Phase C: the multi-column deal and the fault-tolerant runner over
+    the day, each run bitwise equal to phase 3's single-column output
+    (``day_ref``, all four outputs) with its launch count checked; returns
+    launches, walls and the runners' per-column busy seconds."""
+    import torch
+
+    from repro_torch.kernels.pipeline.kernel import OUTPUTS
+    from repro_torch.kernels.pipeline.shard import (pipeline_sharded,
+                                                    pipeline_stream_sharded)
+    from repro_torch.serve.fault import FaultInjector, \
+        FaultTolerantColumnRunner
+    from repro_torch.serve.resident import ResidentConfig
+    from repro_torch.serve.stream import (BiosignalStream, StreamConfig,
+                                          frame_signal)
+
+    D, B = COLUMNS, 8
+    dispatches = -(-n // (B * D))
+    res = {"launches": {}, "host_ms": {}, "busy": {}, "dispatches": {},
+           "dispatch_log": {}, "gc_ms": {}}
+
+    def timed(tag, fn, want):
+        t = time.perf_counter()
+        out, got = counted(fn)
+        wall = (time.perf_counter() - t) * 1e3
+        expect_launches(tag, got, want)
+        check_equal(tag, out, {k: day_ref[k] for k in out})
+        if sorted(out) != sorted(OUTPUTS):
+            raise AssertionError(f"{tag}: outputs {sorted(out)}")
+        res["launches"][tag] = sum(v for e in got.values()
+                                   for v in e.values())
+        res["host_ms"][tag] = wall
+        return out
+
+    # the entries: one launch per column over the whole day
+    timed("pipeline_stream_sharded", lambda: pipeline_stream_sharded(
+        sig, app.fir_taps, app.svm_w, app.svm_b, window=WINDOW, hop=HOP,
+        n_columns=D), {("biosignal_graph", "stream"): D})
+    frames = frame_signal(sig, WINDOW, HOP)
+    timed("pipeline_sharded", lambda: pipeline_sharded(
+        frames, app.fir_taps, app.svm_w, app.svm_b, n_columns=D),
+        {("biosignal_graph", "frames"): D})
+    del frames
+    # the stream, dealt: every dispatch's 32 frames (the tail's padded)
+    # give each column a non-zero share, one launch each
+    for tag, kw, entry in (
+            ("stream n_columns=4", {}, "stream"),
+            ("stream n_columns=4 host-framed", {"framing": "host"},
+             "frames"),
+            (f"stream n_columns=4 weights={COLUMN_WEIGHTS}",
+             {"column_weights": COLUMN_WEIGHTS}, "stream")):
+        cfg = StreamConfig(window=WINDOW, hop=HOP, batch_windows=B,
+                           n_columns=D, **kw)
+        stream = BiosignalStream(app, cfg)
+        timed(tag, lambda: stream.process(sig),
+              {("biosignal_graph", entry): dispatches * D})
+        res["dispatches"][tag] = dispatches
+        print(f"column deal {tag}: bitwise equal to the single-column "
+              f"stream, {dispatches} dispatches x {D} launches, "
+              f"{res['host_ms'][tag]:.1f} ms wall, "
+              f"{res['host_ms'][tag] / dispatches:.4f} ms a dispatch "
+              f"[{card}]")
+    # the fault-tolerant runner: fault-free (before and after the others:
+    # host time drifts), a kill, two transients, a resident kill
+    cfg = StreamConfig(window=WINDOW, hop=HOP, batch_windows=B)
+    runs = [("runner batch", "batch", {}, "stream", B),
+            ("runner batch kill", "batch",
+             {"kill": {1: KILL_DISPATCH}}, "stream", B),
+            ("runner batch transients", "batch",
+             {"transient": TRANSIENTS}, "stream", B),
+            ("runner batch again", "batch", {}, "stream", B),
+            ("runner resident kill", "resident",
+             {"kill_drain": {3: 1}}, "ring", 4 * B)]
+    for tag, mode, faults, entry, per_launch in runs:
+        runner = FaultTolerantColumnRunner(
+            app, cfg, n_columns=D, mode=mode,
+            rcfg=ResidentConfig(ring_depth=4, drain_interval=1),
+            injector=FaultInjector(**faults), devices=[sig.device] * D)
+        log = logged_dispatches(runner)
+        t = time.perf_counter()
+        with GcPauses() as gcp:
+            out, got = counted(lambda: runner.process(sig))
+        res["host_ms"][tag] = (time.perf_counter() - t) * 1e3
+        pauses = gcp.log
+        # a dispatch killed at on_dispatch launched nothing; one killed at
+        # a drain ran its whole loop first
+        want = sum(-(-c // per_launch) for _, _, c, how, _ in log
+                   if how == "ok" or mode == "resident")
+        expect_launches(tag, got, {("biosignal_graph", entry): want})
+        check_equal(tag, out, {k: day_ref[k] for k in out})
+        if "kill" in tag and runner.requeues < 1:
+            raise AssertionError(f"{tag}: no requeue after the kill")
+        if "transient" in tag and runner.scheduler.dead:
+            raise AssertionError(f"{tag}: a transient killed "
+                                 f"{runner.scheduler.dead}")
+        res["launches"][tag] = want
+        res["dispatches"][tag] = runner.dispatches
+        res["busy"][tag] = list(runner.column_busy)
+        print(f"{tag}: bitwise equal to the single-column stream, "
+              f"{runner.dispatches} dispatches ({len(log)} attempted), "
+              f"requeues {runner.requeues}, dead "
+              f"{sorted(runner.scheduler.dead)}, {want} {entry} launches; "
+              f"column_busy ms "
+              + ", ".join(f"{b * 1e3:.1f}" for b in runner.column_busy)
+              + f" (max {max(runner.column_busy) * 1e3:.1f}); "
+              f"{res['host_ms'][tag]:.1f} ms wall, "
+              f"{res['host_ms'][tag] / runner.dispatches:.4f} ms a "
+              f"dispatch [{card}]")
+        slow = sorted(log, key=lambda e: -e[4])[:3]
+        big = [e for e in log if e[2] > B and mode == "batch"]
+        print(f"{tag}: slowest dispatches (column, start, count, outcome, "
+              f"ms) {[(c, s0, k, h, round(ms, 3)) for c, s0, k, h, ms in slow]}"
+              + (f"; requeued runs {[(c, k, round(ms, 3)) for c, _, k, _, ms in big]}"
+                 if big else "")
+              + f"; gc pauses {len(pauses)}, "
+              f"{sum(ms for _, ms in pauses):.1f} ms in all, the longest "
+              + (f"{max(pauses, key=lambda e: e[1])[1]:.1f} ms (generation "
+                 f"{max(pauses, key=lambda e: e[1])[0]})" if pauses
+                 else "none"))
+        res["gc_ms"][tag] = list(pauses)
+        res["dispatch_log"][tag] = log
+        del out
+    kill = max(res["busy"]["runner batch kill"])
+    res["kill_ratio"] = [kill / max(res["busy"][tag]) for tag in
+                         ("runner batch", "runner batch again")]
+    print(f"fault recovery: max(column_busy) kill / fault-free = "
+          + " and ".join(f"{r:.3f}" for r in res["kill_ratio"])
+          + f" (fault-free before / after; the reference's bound "
+          f"{FAULT_BOUND}x; host time, printed only) [{card}]")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -1685,6 +1881,9 @@ def main(argv=None) -> int:
               f"{rs.last_drains[-1]} = {n} frames in "
               f"{len(rs.last_drains)} drains, {sweeps} ring launches, "
               f"{rates[tag]:.0f} windows/s [{kind}; {card}]")
+
+    # ---- phase C: the column deal and the fault-tolerant runner
+    columns = column_paths(app, sig, main_out[(8, OUTPUTS)], n, card)
     del main_out
 
     # ---- phase A2: the ASR main path over one hour of 16 kHz audio
@@ -2071,9 +2270,17 @@ def main(argv=None) -> int:
     del std_cases
 
     # ---- phase 6: kernels and the entries that launched them
+    cl = columns["launches"]
     print(f"kernels: {SOURCE} (cuda) launched by frames "
           f"({launches['frames']}), stream ({launches['B=8 no-filtered']}), "
-          f"ring ({launches['ring']}); {ASR_SOURCE} (cuda) by frames "
+          f"ring ({launches['ring']}), pipeline_stream_sharded "
+          f"({cl['pipeline_stream_sharded']}), pipeline_sharded "
+          f"({cl['pipeline_sharded']}), the 4-column stream (stream "
+          f"{cl['stream n_columns=4']}, frames "
+          f"{cl['stream n_columns=4 host-framed']}) and "
+          f"FaultTolerantColumnRunner (batch {cl['runner batch']}, after a "
+          f"kill {cl['runner batch kill']}, resident "
+          f"{cl['runner resident kill']}); {ASR_SOURCE} (cuda) by frames "
           f"({asr_launches['host-framed B=32']}), stream "
           f"({asr_launches['stream B=32']}), ring "
           f"({asr_launches['resident B=32']}); {FIR_SOURCE} and "
@@ -2090,7 +2297,8 @@ def main(argv=None) -> int:
             raise AssertionError(f"{kernel}: an entry launched no kernel on "
                                  f"phase S: {entries}")
     report.update({"card": card, "kind": kind, "rates": rates,
-                   "launches": launches, "asr_launches": asr_launches,
+                   "launches": launches, "columns": columns,
+                   "asr_launches": asr_launches,
                    "standalone_launches": std_launches,
                    "kernels": kernels, "wide": wide, "max_abs_err": max_err,
                    "per_frame": {"candidates": cand_cum[n] / n,

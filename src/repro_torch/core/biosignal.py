@@ -95,13 +95,16 @@ def _masked_intervals(mask: torch.Tensor):
     positions. The gaps are small integers, so the f32 sums are exact in
     any order; the median is the exact k-th smallest gap, k = (n-1)//2,
     the value the reference's sorting networks return on both their
-    branches."""
+    branches. The RMS's square root is taken in float64 and rounded once
+    to float32 — the correctly rounded value the reference and the card's
+    ``sqrtf`` give; PyTorch's float32 ``sqrt`` on the CPU can land one
+    ulp below it."""
     gaps, valid = _interval_gaps(mask)
     nv = valid.sum(dim=-1)
     n = nv.clamp(min=1)
     g = torch.where(valid, gaps, 0).to(torch.float32)
     mean = g.sum(dim=-1) / n
-    rms = torch.sqrt((g * g).sum(dim=-1) / n)
+    rms = torch.sqrt(((g * g).sum(dim=-1) / n).double()).float()
     big = mask.shape[-1] + 1
     ordered = torch.where(valid, gaps, big).sort(dim=-1).values
     med = ordered.gather(-1, ((n - 1) // 2)[..., None])[..., 0]

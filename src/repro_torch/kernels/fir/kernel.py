@@ -3,9 +3,14 @@
 `fir_cuda` launches the hand-written kernel for Hopper on CUDA tensors;
 `fir_plain` is `core.fir.fir_direct` accumulated in float32, the CPU path
 and what the kernel is held to on the card. Both filter each row of an
-(R, S) float32 or bfloat16 array as one causal FIR over the whole row
-(zero history only before sample 0), accumulate in float32 and return
-the input's dtype.
+(R, S) array as one causal FIR over the whole row (zero history only
+before sample 0), accumulate in float32 and return the input's dtype.
+
+The plain version takes any tap count and any real dtype, as the
+reference `fir_pallas` does: float64 and int64 become float32 and int32
+first, as the reference's arrays are with 64-bit types off. The kernel
+takes float32 and bfloat16 rows and at most `MAX_TAPS` taps (`fir.cu`'s
+``kMaxTaps``); `fir_cuda` refuses anything else.
 """
 from __future__ import annotations
 
@@ -32,24 +37,29 @@ _cuda.declare("fir", Path(__file__).resolve().parent / "csrc" / "fir.cu",
 })
 
 
+# 64-bit inputs narrow as the reference's arrays do with 64-bit types off
+_NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
+
+
 def _check(x: torch.Tensor, taps) -> torch.Tensor:
     """The taps as a float32 (k,) tensor on ``x``'s device."""
     if x.ndim != 2:
         raise ValueError(f"x must be (R, S), got {tuple(x.shape)}")
-    if x.dtype not in DTYPES:
-        raise ValueError(f"the FIR takes float32 or bfloat16 input, got "
-                         f"{x.dtype}")
+    if x.is_complex() or x.dtype == torch.bool:
+        raise ValueError(f"the FIR takes a real input, got {x.dtype}")
     taps = torch.as_tensor(taps, dtype=torch.float32, device=x.device)
-    if taps.ndim != 1 or not 1 <= taps.shape[0] <= MAX_TAPS:
-        raise ValueError(f"taps must be (k,) with 1 <= k <= {MAX_TAPS}, got "
+    if taps.ndim != 1 or taps.shape[0] < 1:
+        raise ValueError(f"taps must be (k,) with k >= 1, got "
                          f"{tuple(taps.shape)}")
     return taps.contiguous()
 
 
 def fir_plain(x: torch.Tensor, taps) -> torch.Tensor:
-    """The kernel's function in plain PyTorch, on any device."""
+    """The kernel's function in plain PyTorch, on any device, for any tap
+    count. Returns the input's dtype (float64 and int64 narrowed)."""
     taps = _check(x, taps)
-    return fir_direct(x.float(), taps).to(x.dtype)
+    dtype = _NARROW.get(x.dtype, x.dtype)
+    return fir_direct(x.float(), taps).to(dtype)
 
 
 def fir_cuda(x: torch.Tensor, taps, *, seq_block: int = 2048,
@@ -59,6 +69,9 @@ def fir_cuda(x: torch.Tensor, taps, *, seq_block: int = 2048,
     as many rows as fill `BLOCK_SAMPLES`)."""
     taps = _check(x, taps)
     _cuda.check_cuda_input(x, tuple(DTYPES))
+    if taps.shape[0] > MAX_TAPS:
+        raise ValueError(f"the FIR kernel takes at most {MAX_TAPS} taps, "
+                         f"got {taps.shape[0]}")
     if seq_block < 1 or (block_rows is not None and block_rows < 1):
         raise ValueError(f"seq_block {seq_block} and block_rows "
                          f"{block_rows} must be positive")

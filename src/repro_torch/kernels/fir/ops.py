@@ -18,9 +18,10 @@ __all__ = ["fir"]
 def fir(x: torch.Tensor, taps, *, seq_block: int = 2048,
         block_rows: int | None = None,
         autotune: bool = False) -> torch.Tensor:
-    """Causal FIR along the last axis of (R, S) or (S,) float32 or
-    bfloat16 ``x``: y[t] = sum_i taps[i] * x[t - i] over the whole row,
-    accumulated in float32, returned in ``x``'s dtype."""
+    """Causal FIR along the last axis of a real (R, S) or (S,) ``x``:
+    y[t] = sum_i taps[i] * x[t - i] over the whole row, accumulated in
+    float32, returned in ``x``'s dtype (float64 and int64 narrowed). The
+    kernel takes float32 and bfloat16 with at most 64 taps."""
     not_in_slice(autotune)
     rows = x[None, :] if x.ndim == 1 else x
     y = fir_cuda(rows, taps, seq_block=seq_block, block_rows=block_rows) \

@@ -8,11 +8,13 @@
 The ``app_pipeline*`` trio takes a `core.biosignal.BiosignalApp`; the
 ``graph_pipeline*`` trio takes any registered graph by name. Every entry
 dispatches on the device of its input: CUDA launches the kernel, CPU runs
-the plain PyTorch version.
+the plain PyTorch version. ``n_columns > 1`` deals the biosignal entries'
+frames across column replicas (`shard.py`, the columns one after another
+on the input's device); the other graphs are single-column, as in the
+reference.
 
-Not in this slice: ``n_columns > 1`` (the column deal of
-`repro/kernels/pipeline/shard.py`) and ``autotune=True``
-(`repro/core/autotune.py`) raise `NotImplementedError`.
+Not in this slice: ``autotune=True`` (`repro/core/autotune.py`) raises
+`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ from repro_torch.kernels.pipeline.kernel import (OUTPUTS, canonical_outputs,
                                                  pipeline_frames,
                                                  pipeline_ring,
                                                  pipeline_stream)
+from repro_torch.kernels.pipeline.shard import (pipeline_sharded,
+                                                pipeline_stream_sharded)
 
 __all__ = ["OUTPUTS", "canonical_outputs", "biosignal_pipeline",
            "biosignal_pipeline_stream", "biosignal_pipeline_ring",
@@ -42,8 +46,14 @@ def biosignal_pipeline(signal, taps, w, b, *, fft_size: int = 512,
                        n_columns: int = 1) -> dict:
     """The full MBioTracker pipeline on (R, S) windows in one fused launch
     (CUDA) or the plain version (CPU). Returns the staged app's output
-    dict restricted to ``outputs`` (default: all four keys)."""
-    not_in_slice(autotune, n_columns)
+    dict restricted to ``outputs`` (default: all four keys).
+    ``n_columns > 1`` deals row blocks across column replicas
+    (`shard.pipeline_sharded`), one launch per column."""
+    not_in_slice(autotune)
+    if n_columns > 1:
+        return pipeline_sharded(signal, taps, w, b, n_columns=n_columns,
+                                fft_size=fft_size, block_rows=block_rows,
+                                outputs=canonical_outputs(outputs))
     return pipeline_frames(signal, taps, w, b, fft_size=fft_size,
                            block_rows=block_rows,
                            outputs=canonical_outputs(outputs))
@@ -57,8 +67,18 @@ def biosignal_pipeline_stream(signal, taps, w, b, *, window: int, hop: int,
                               column_weights=None) -> dict:
     """The pipeline over a RAW 1-D signal with (window, hop) framing.
     Equals ``biosignal_pipeline`` on the host-framed windows, to the last
-    bit on one device."""
-    not_in_slice(autotune, n_columns, column_weights)
+    bit on one device. ``n_columns > 1`` deals hop-aligned chunks across
+    column replicas (`shard.pipeline_stream_sharded`); ``column_weights``
+    (one per column) makes that deal non-uniform."""
+    not_in_slice(autotune)
+    if column_weights is not None and len(column_weights) != n_columns:
+        raise ValueError(f"{len(column_weights)} column weights for "
+                         f"{n_columns} columns")
+    if n_columns > 1:
+        return pipeline_stream_sharded(
+            signal, taps, w, b, window=window, hop=hop, n_columns=n_columns,
+            fft_size=fft_size, block_frames=block_frames,
+            outputs=canonical_outputs(outputs), weights=column_weights)
     return pipeline_stream(signal, taps, w, b, window=window, hop=hop,
                            fft_size=fft_size, block_frames=block_frames,
                            outputs=canonical_outputs(outputs))

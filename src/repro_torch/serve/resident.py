@@ -23,6 +23,14 @@ dispatches, waits for the retire and updates telemetry once per
 Outputs are bit-identical to `BiosignalStream.process` on the same
 device, and the drained deltas sum to the host path's per-batch retire
 total. Capturing the loop in a CUDA graph is later work.
+
+Fault hooks, at the reference's points: the whole loop is ONE dispatch,
+so the injector's `on_dispatch` fires once per `process`, before any
+launch (a retried transient has launched nothing), and its `on_drain`
+fires at each drain point before that point's retire is recorded — a
+`ColumnDeadError` there is the "death mid-resident-sweep" of
+`serve/fault.py`: earlier drains already fed the telemetry, the
+outputs are lost with the column.
 """
 from __future__ import annotations
 
@@ -39,8 +47,9 @@ from repro_torch.kernels.pipeline.graph import (default_app,
                                                 ring_chunk_samples,
                                                 stream_frame_count)
 from repro_torch.serve.stream import (StreamConfig, StreamTelemetry,
-                                      _check_stream_config, _no_fault_hooks,
-                                      stream_outputs, stream_signal)
+                                      _check_stream_config, default_retry,
+                                      guarded_dispatch, stream_outputs,
+                                      stream_signal)
 
 DEFAULT_RING_DEPTH = 4
 
@@ -71,8 +80,10 @@ class ResidentStream:
     >>> out = rs.process(signal)       # == BiosignalStream.process(signal)
 
     The loop is a raw-chunk path (``cfg.framing == "kernel"``) on one
-    column. ``last_drains`` keeps the most recent `process` call's
-    cumulative drained counts.
+    column (``cfg.n_columns == 1``; `serve.engine.ColumnScheduler` places
+    streams on columns). ``last_drains`` keeps the most recent `process`
+    call's cumulative drained counts. ``injector`` and ``retry`` are the
+    fault hooks of `serve.stream.BiosignalStream`.
     """
 
     def __init__(self, app=None, cfg: StreamConfig | None = None,
@@ -80,7 +91,6 @@ class ResidentStream:
                  telemetry: StreamTelemetry | None = None,
                  stream_id=None, column: int = 0, injector=None,
                  retry=None):
-        _no_fault_hooks(injector, retry)
         cfg = cfg or StreamConfig()
         self.app = app if app is not None else default_app(
             cfg.graph, device=device if device is not None else "cuda")
@@ -88,6 +98,9 @@ class ResidentStream:
         if cfg.framing != "kernel":
             raise ValueError("the resident loop is a raw-chunk "
                              "(framing='kernel') path")
+        if cfg.n_columns != 1 or cfg.column_weights is not None:
+            raise ValueError("resident streams are column-pinned; place "
+                             "streams on columns with ColumnScheduler")
         self.rcfg = rcfg or ResidentConfig()
         if self.rcfg.autotune:
             raise NotImplementedError(
@@ -106,6 +119,8 @@ class ResidentStream:
         self.stream_id = stream_id if stream_id is not None else id(self)
         self.column = column
         self.last_drains: list[int] = []
+        self.injector = injector
+        self._retry = default_retry(injector, retry)
         if telemetry is not None:
             telemetry.attach(self.stream_id, column)
 
@@ -163,6 +178,9 @@ class ResidentStream:
         self.last_drains = [int(snaps[p]) for p in points]
         prev = 0
         for cum in self.last_drains:
+            # a death here leaves the earlier drains recorded
+            if self.injector is not None:
+                self.injector.on_drain(self.column)
             if self.telemetry is not None:
                 self.telemetry.record_retire(self.stream_id, cum - prev)
             prev = cum
@@ -180,6 +198,8 @@ class ResidentStream:
             return graph_empty_outputs(self._graph, cfg.window, sig.dtype,
                                        cfg.outputs, self.device)
         ring_depth = self.rcfg.ring_depth or DEFAULT_RING_DEPTH
-        outs, retired = self._run(sig, ring_depth)
+        outs, retired = guarded_dispatch(
+            lambda: self._run(sig, ring_depth), injector=self.injector,
+            retry=self._retry, column=self.column)
         self._drain(retired)
         return {k: v[:n] for k, v in outs.items()}

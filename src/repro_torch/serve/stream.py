@@ -11,14 +11,26 @@ to ``depth`` later batches are in flight while batch k is consumed; each
 dispatch records one `torch.cuda.Event`, and `_collect` waits on that
 batch's event — the retire point the telemetry measures.
 
+MULTI-COLUMN: ``n_columns > 1`` deals each dispatch's ``batch_windows *
+n_columns`` frames across column replicas, hop-aligned, the columns one
+after another on the stream's device (`kernels/pipeline/shard.py`);
+``column_weights`` makes the deal non-uniform. Outputs are bit-identical
+to one column. Independent streams can instead be pinned to distinct
+columns — what `serve.engine.ColumnScheduler` hands out.
+
+FAULT HOOKS: an ``injector`` (`serve.fault.FaultInjector`) fires before
+every dispatch and may raise `TransientDispatchError`, retried through
+``retry`` (`runtime.fault.Supervisor.call`, default three retries), or
+`ColumnDeadError`, which propagates to the serving layer
+(`serve/fault.py`).
+
 `StreamTelemetry` keeps per-stream and per-column throughput (an EWMA of
 windows/s per retire). The device-resident sibling is
 `serve/resident.py` (`ResidentStream`, reachable via
 `BiosignalStream.process_resident`), bit-identical to this path.
 
-Not in this slice: ``n_columns > 1``/``column_weights`` (the column deal),
-``autotune=True`` (`core/autotune.py`) and the fault hooks
-(``injector``/``retry``) raise `NotImplementedError`.
+Not in this slice: ``autotune=True`` (`core/autotune.py`) raises
+`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -35,10 +47,11 @@ from repro_torch.kernels.pipeline.graph import (canonical_graph_outputs,
                                                 default_app,
                                                 get_graph_factory,
                                                 graph_empty_outputs,
-                                                graph_frames_call,
-                                                graph_stream_call,
                                                 stream_frame_count)
 from repro_torch.kernels.pipeline.kernel import OUTPUTS
+from repro_torch.kernels.pipeline.shard import (graph_sharded,
+                                                graph_stream_sharded)
+from repro_torch.runtime.fault import Supervisor, TransientDispatchError
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,9 +61,12 @@ class StreamConfig:
     `serve.resident.ResidentStream`).
 
     Invariants the runtimes check: ``window >= app.fft_size``, ``0 < hop
-    <= window`` (frames advance by whole hops; every chunk boundary is
-    HOP-ALIGNED, which is what makes raw-chunk feeds bit-identical to
-    host framing) and ``batch_windows > 0``."""
+    <= window`` (frames advance by whole hops; every chunk and column
+    boundary is HOP-ALIGNED, which is what makes raw-chunk feeds and
+    column deals bit-identical to host framing), ``batch_windows > 0``,
+    and ``column_weights`` — when set — has exactly ``n_columns``
+    entries and needs ``framing="kernel"``. Graphs other than the
+    biosignal one are single-column."""
     window: int = 2048          # samples per frame (the processing window)
     hop: int = 512              # frame stride; < window => overlapping frames
     batch_windows: int = 8      # frames per fused-kernel dispatch PER COLUMN
@@ -61,9 +77,12 @@ class StreamConfig:
     outputs: tuple = OUTPUTS    # which app outputs to compute/write
     framing: str = "kernel"     # "kernel": raw chunks, frames cut in-kernel
     #                             "host": gather-framed reference
-    n_columns: int = 1          # column replicas (later slice)
+    n_columns: int = 1          # column replicas a dispatch is dealt across
     depth: int = 1              # max in-flight batches (1 = double buffer)
-    column_weights: tuple | None = None   # non-uniform deal (later slice)
+    column_weights: tuple | None = None   # non-uniform deal weights (one
+    #                             per column, e.g. measured rates from
+    #                             ColumnScheduler.deal_weights); None =
+    #                             the equal deal
     graph: str = "biosignal"    # which registered stage graph runs
     #                             ("asr": the ASR front-end); the default
     #                             `outputs` then means all of its outputs
@@ -99,7 +118,20 @@ def stream_signal(signal, device) -> torch.Tensor:
 
 
 def _check_stream_config(cfg: StreamConfig, fft_size: int) -> None:
-    not_in_slice(cfg.autotune, cfg.n_columns, cfg.column_weights)
+    not_in_slice(cfg.autotune)
+    if cfg.n_columns < 1:
+        raise ValueError(f"n_columns must be >= 1, got {cfg.n_columns}")
+    if cfg.graph != "biosignal" and (cfg.n_columns != 1 or
+                                     cfg.column_weights is not None):
+        raise ValueError(f"graph {cfg.graph!r} is single-column (no "
+                         f"sharded entry)")
+    if cfg.column_weights is not None:
+        if len(cfg.column_weights) != cfg.n_columns:
+            raise ValueError(f"{len(cfg.column_weights)} column weights for "
+                             f"{cfg.n_columns} columns")
+        if cfg.framing != "kernel":
+            raise ValueError("the weighted deal is a raw-chunk "
+                             "(framing='kernel') path")
     if cfg.window < fft_size:
         raise ValueError(f"window {cfg.window} < fft_size {fft_size}")
     if not 0 < cfg.hop <= cfg.window:
@@ -119,11 +151,27 @@ def stream_outputs(graph, cfg: StreamConfig) -> tuple:
         graph, None if cfg.outputs is OUTPUTS else cfg.outputs)
 
 
-def _no_fault_hooks(injector, retry) -> None:
-    if injector is not None or retry is not None:
-        raise NotImplementedError(
-            "injector/retry come with the port of serve/fault.py and "
-            "runtime/fault.py, a later slice")
+def guarded_dispatch(launch, *, injector, retry, column: int):
+    """Run one dispatch under the fault hooks: the injector fires first
+    (a simulated transient is retried through ``retry``'s capped backoff
+    before anything launched; a column death propagates), then
+    ``launch()``."""
+    def dispatch():
+        if injector is not None:
+            injector.on_dispatch(column)
+        return launch()
+    if retry is not None:
+        return retry.call(dispatch)
+    return dispatch()
+
+
+def default_retry(injector, retry):
+    """The dispatch's retry policy: ``retry``, or with an ``injector`` and
+    no ``retry`` three retries of `TransientDispatchError` without
+    sleeping, as the reference's streams default."""
+    if injector is not None and retry is None:
+        return Supervisor(max_retries=3, retry_on=(TransientDispatchError,))
+    return retry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -252,21 +300,27 @@ class BiosignalStream:
 
     ``device`` is where the dispatches run (default: the app's device;
     with no app, ``"cuda"``); `repin` moves later dispatches to another
-    device. ``telemetry`` makes the stream report every batch retire under
-    ``stream_id`` on ``column``.
+    device. Pinning a device is for column-pinned streams: with
+    ``cfg.n_columns > 1`` it is refused, as in the reference. ``telemetry``
+    makes the stream report every batch retire under ``stream_id`` on
+    ``column``. ``injector`` and ``retry`` are the fault hooks (module
+    docstring).
 
     Guarantee: `process` equals the fused graph on
     `frame_signal(signal, window, hop)` in one call — bit-identical across
-    framing modes, batch sizes and the resident mode (`process_resident`)
-    on one device; the zero-frame path returns the same keys/dtypes.
+    framing modes, batch sizes, column counts and weights and the resident
+    mode (`process_resident`) on one device; the zero-frame path returns
+    the same keys/dtypes.
     """
 
     def __init__(self, app=None, cfg: StreamConfig | None = None, *,
                  device=None, telemetry: StreamTelemetry | None = None,
                  stream_id=None, column: int = 0, injector=None,
                  retry=None):
-        _no_fault_hooks(injector, retry)
         cfg = cfg or StreamConfig()
+        if device is not None and cfg.n_columns != 1:
+            raise ValueError("pin a stream to one column OR deal it across "
+                             "columns, not both")
         self.app = app if app is not None else default_app(
             cfg.graph, device=device if device is not None else "cuda")
         _check_stream_config(cfg, self.app.fft_size)
@@ -282,13 +336,18 @@ class BiosignalStream:
         self.stream_id = stream_id if stream_id is not None else id(self)
         self.column = column
         self._resident = None       # lazy ResidentStream sibling (cached)
+        self.injector = injector
+        self._retry = default_retry(injector, retry)
         if telemetry is not None:
             telemetry.attach(self.stream_id, column)
 
     def repin(self, device, column: int | None = None) -> None:
         """Move the stream's future dispatches to another device; batches
         already in flight finish where they were launched. Pass
-        ``column`` to re-attribute later retires in the telemetry."""
+        ``column`` to re-attribute later retires in the telemetry. Only
+        for column-pinned (``n_columns == 1``) streams."""
+        if self.cfg.n_columns != 1:
+            raise ValueError("repin applies to column-pinned streams")
         self.device = resolve_device(device)
         self._operands = tuple(t.to(self.device) for t in self._app_operands)
         if column is not None:
@@ -316,19 +375,27 @@ class BiosignalStream:
         ev.record(torch.cuda.current_stream(self.device))
         return ev
 
+    def _guarded(self, launch) -> dict:
+        return guarded_dispatch(launch, injector=self.injector,
+                                retry=self._retry, column=self.column)
+
     def _dispatch_chunk(self, chunk: torch.Tensor) -> dict:
-        """Raw-chunk dispatch: the kernel cuts the frames itself."""
+        """Raw-chunk dispatch: the kernel cuts the frames itself, one
+        launch per column share."""
         cfg = self.cfg
-        return graph_stream_call(chunk, self._operands, graph=self._graph,
-                                 window=cfg.window, hop=cfg.hop,
-                                 block_frames=cfg.block_rows,
-                                 outputs=cfg.outputs)
+        return self._guarded(lambda: graph_stream_sharded(
+            chunk, self._operands, graph=self._graph, window=cfg.window,
+            hop=cfg.hop, n_columns=cfg.n_columns, weights=cfg.column_weights,
+            block_frames=cfg.block_rows, outputs=cfg.outputs))
 
     def _dispatch_frames(self, frames: torch.Tensor) -> dict:
-        """Pre-framed dispatch (reference path)."""
-        return graph_frames_call(frames, self._operands, graph=self._graph,
-                                 block_rows=self.cfg.block_rows,
-                                 outputs=self.cfg.outputs)
+        """Pre-framed dispatch (reference path), one launch per column's
+        row block."""
+        cfg = self.cfg
+        return self._guarded(lambda: graph_sharded(
+            frames, self._operands, graph=self._graph,
+            n_columns=cfg.n_columns, block_rows=cfg.block_rows,
+            outputs=cfg.outputs))
 
     def _batches(self, signal) -> Iterator[tuple]:
         """(in-flight output dict, n valid frames, retire event) per
@@ -407,5 +474,6 @@ class BiosignalStream:
             self._resident = ResidentStream(
                 self.app, self.cfg, rcfg, device=self.device,
                 telemetry=self.telemetry, stream_id=self.stream_id,
-                column=self.column)
+                column=self.column, injector=self.injector,
+                retry=self._retry)
         return self._resident.process(signal)

@@ -303,6 +303,7 @@ def test_later_slices_raise_not_implemented(apps):
     with pytest.raises(NotImplementedError, match="autotune"):
         ops.graph_pipeline_stream("asr", app, sig, window=512, hop=160,
                                   autotune=True)
-    with pytest.raises(NotImplementedError, match="column deal"):
+    # the ASR graph is single-column, as the reference asserts
+    with pytest.raises(ValueError, match="single-column"):
         BiosignalStream(app, StreamConfig(window=512, hop=160, graph="asr",
                                           n_columns=2))

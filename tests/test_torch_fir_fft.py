@@ -110,13 +110,57 @@ def test_fir_runs_over_the_whole_row():
 
 
 def test_fir_refuses_what_it_does_not_take():
+    """What the CPU path still refuses: a complex or boolean input, taps
+    that are not a non-empty vector, a rank other than 1 or 2, and
+    autotune. The tap cap and the float32/bfloat16 list are the card
+    kernel's (`fir_cuda`), not the plain version's."""
     x = torch.zeros(2, 64)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        fir_ops.fir(x.double(), [1.0, -0.97])
+    with pytest.raises(ValueError, match="real input"):
+        fir_ops.fir(x.to(torch.complex64), [1.0, -0.97])
+    with pytest.raises(ValueError, match="real input"):
+        fir_ops.fir(x.bool(), [1.0, -0.97])
     with pytest.raises(ValueError, match="taps"):
-        fir_ops.fir(x, np.ones(65, np.float32))
+        fir_ops.fir(x, np.ones(0, np.float32))
+    with pytest.raises(ValueError, match="taps"):
+        fir_ops.fir(x, np.ones((2, 3), np.float32))
+    with pytest.raises(ValueError, match=r"\(R, S\)"):
+        fir_ops.fir(torch.zeros(2, 2, 64), [1.0])
     with pytest.raises(NotImplementedError, match="autotune"):
         fir_ops.fir(x, [1.0], autotune=True)
+
+
+@pytest.mark.parametrize("k", [65, 129])
+def test_fir_past_the_kernel_tap_cap_matches_reference(k):
+    """More taps than the card kernel's 64 filter on the CPU as the
+    reference's `fir_pallas` filters them (ROADMAP C.1)."""
+    rng = np.random.default_rng(k)
+    x = rng.normal(size=(2, 2048)).astype(np.float32)
+    taps = rng.normal(size=k).astype(np.float32) / k
+    want = fir_pallas(jnp.asarray(x), jnp.asarray(taps))
+    got = fir_ops.fir(torch.as_tensor(x), torch.as_tensor(taps))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 2048)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,want_dtype", [
+    (np.float64, np.float32),      # 64-bit types off: float32 both sides
+    (np.float16, np.float16),
+    (np.int32, np.int32)])
+def test_fir_other_dtypes_match_reference(dtype, want_dtype):
+    rng = np.random.default_rng(7)
+    x = (rng.normal(size=(2, 512)) * 40).astype(dtype)
+    taps = lowpass_taps(11)
+    want = np.asarray(fir_pallas(jnp.asarray(x), jnp.asarray(taps)))
+    got = fir_ops.fir(torch.as_tensor(x), torch.as_tensor(taps)).numpy()
+    assert want.dtype == want_dtype and got.dtype == want_dtype
+    if dtype == np.int32:       # one float32 rounding may cross an integer
+        assert np.abs(got.astype(np.int64) - want).max() <= 1
+    else:
+        tol = 1e-5 if dtype == np.float64 else 2e-2
+        np.testing.assert_allclose(got.astype(np.float32),
+                                   want.astype(np.float32), atol=tol,
+                                   rtol=tol)
 
 
 # ------------------------------------------------------------------- FFT

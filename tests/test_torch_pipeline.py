@@ -326,9 +326,10 @@ def test_output_selection_errors():
 def test_later_slices_raise_not_implemented(apps):
     _, app = apps
     sig = torch.as_tensor(_signal(WINDOW))
-    with pytest.raises(NotImplementedError, match="column deal"):
+    # the column deal is ported; a weight vector must fit the columns
+    with pytest.raises(ValueError, match="column weights"):
         ops.app_pipeline_stream(app, sig, window=WINDOW, hop=128,
-                                n_columns=2)
+                                n_columns=2, column_weights=(1.0,))
     with pytest.raises(NotImplementedError, match="autotune"):
         ops.app_pipeline(app, sig[None], autotune=True)
     with pytest.raises(ValueError, match="window"):

@@ -259,14 +259,21 @@ def test_resident_drains_match_reference(apps):
 
 def test_later_slices_raise_not_implemented(apps):
     _, app = apps
-    with pytest.raises(NotImplementedError, match="fault"):
-        BiosignalStream(app, StreamConfig(), injector=object())
-    with pytest.raises(NotImplementedError, match="fault"):
-        ResidentStream(app, StreamConfig(), retry=object())
+    # the column deal and the fault hooks are ported: what stays refused
+    # is what the reference refuses too
     with pytest.raises(NotImplementedError, match="autotune"):
         BiosignalStream(app, StreamConfig(autotune=True))
-    with pytest.raises(NotImplementedError, match="column deal"):
-        BiosignalStream(app, StreamConfig(n_columns=2))
+    with pytest.raises(ValueError, match="not both"):
+        BiosignalStream(app, StreamConfig(n_columns=2), device="cpu")
+    with pytest.raises(ValueError, match="column weights"):
+        BiosignalStream(app, StreamConfig(n_columns=2, column_weights=(1,)))
+    with pytest.raises(ValueError, match="raw-chunk"):
+        BiosignalStream(app, StreamConfig(n_columns=2, framing="host",
+                                          column_weights=(1, 1)))
+    with pytest.raises(ValueError, match="column-pinned"):
+        ResidentStream(app, StreamConfig(n_columns=2))
+    with pytest.raises(ValueError, match="column-pinned"):
+        BiosignalStream(app, StreamConfig(n_columns=2)).repin("cpu")
     with pytest.raises(NotImplementedError, match="autotune"):
         ResidentStream(app, StreamConfig(), ResidentConfig(autotune=True))
     with pytest.raises(ValueError, match="raw-chunk"):
