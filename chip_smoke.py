@@ -105,7 +105,26 @@ S. the standalone entries at their users' full widths, each run with the
    also in bfloat16 at the same shape; for
    attention also the rate over the 4 dh operations per live pair, the
    share of the bound and the ratio to that call;
-6. the ported kernels and the entries that launched them.
+6. the ported kernels and the entries that launched them;
+L. LM serving at qwen1.5-0.5b's full width (24 layers, d_model 1024,
+   vocab 151,936; float32 parameters from seed 0, bfloat16 compute),
+   with the launch counts set to 0 before and read after (the path
+   launches none of the port's kernels): L1 the parameter count and
+   `max_memory_allocated` after each step; L2 four prompts of 64-300
+   tokens prefilled, then 8 teacher-forced decode steps, each step's
+   logits against `model.forward` over the extended sequences; L3 one
+   64-token prompt and 4 decode steps on the card against the same
+   parameters on the CPU, and what the check reads from a decode whose
+   rope angle is one position late (the run fails unless `LM_TOL` flags
+   it); L4 `Engine(slots=4, max_len=1024)` serving 8 requests of 16-480
+   prompt tokens, max_new 32, greedy three times and at temperature 0.8
+   twice (every request finishes, repeats are identical, each first
+   step's logits agree with its prompt prefilled alone), and whether
+   slots 1, slots 2 and a reversed submission order change any tokens
+   (printed); L5 prefill per bucket, decode ms a step at slots 4 and 16
+   (CUDA events, host wall, the card's busy time and launches of one
+   call from a `torch.profiler` trace, the idle share) beside the bytes
+   bound, and generated tokens/s end to end.
 
 The last two lines are a JSON object of per-kernel numbers and the
 contract line ``{"ok": true, "device": {...}}``. Any failing phase raises,
@@ -1696,6 +1715,468 @@ def column_paths(app, sig, day_ref: dict, n: int, card: str) -> dict:
     return res
 
 
+# phase L: LM serving at qwen1.5-0.5b's full width (random weights)
+LM_ARCH = "qwen1.5-0.5b"
+LM_PARAM_SEED, LM_DATA_SEED = 0, 1
+# Relative L2 error of one step's logits, ||got - want|| / ||want|| over
+# its (rows, vocab) float32 logits. Both sides compute in bfloat16 with
+# float32 accumulation but sum in different orders (another GEMM shape,
+# another device), so a layer output near a bfloat16 rounding boundary
+# rounds apart (2^-9 relative) and that spreads to the logits. On the CPU
+# at 4-12 full-width layers (`tools/lm_tolerance.py`) prefill + decode
+# read 0.006-0.010 against forward and bfloat16 0.012-0.016 against
+# float32 compute; a decode whose rope angle is one position late read
+# 0.25-0.33. 0.03 sits twice above the whole bfloat16 rounding error and
+# ~8x under the late angle.
+LM_TOL = 0.03
+LM_BATCH, LM_PROMPT_LEN, LM_FORCED = 4, (64, 300), 8
+LM_CPU_PROMPT, LM_CPU_STEPS = 64, 4
+LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_MAX_NEW = 4, 1024, 8, 32
+LM_SERVE_PROMPT = (16, 480)
+LM_WIDE_SLOTS = 16                  # the slots-16 decode timing, 16 requests
+LM_TEMPERATURE, LM_SAMPLE_SEED = 0.8, 7
+
+
+def rel_err(got, want) -> float:
+    """||got - want|| / ||want|| in float32 (the LM gates' measure)."""
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+def memory_line(tag: str) -> str:
+    import torch
+
+    return (f"{tag}: max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+
+def lm_prompts(n: int, lo: int, hi: int, vocab: int, seed: int) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab, int(rng.integers(lo, hi + 1))).tolist()
+            for _ in range(n)]
+
+
+def decode_work(cfg, weight_bytes: int, layer_params: int, n_rows: int,
+                contexts) -> tuple:
+    """(bytes, operations) one decode step over ``n_rows`` slots must
+    move and do: every weight once (the layers' in bfloat16, norm scales
+    and the float32 embedding that the tied head reads in full), each live
+    slot's K and V rows up to its position once, the new rows and the
+    float32 logits written once; products of 2 operations a weight a row,
+    attention's 4 dh a live pair."""
+    kv_row = 2 * cfg.num_kv_heads * cfg.hd * 2 * cfg.num_layers   # K+V bf16
+    live = int(sum(contexts))
+    nbytes = (weight_bytes + kv_row * live + kv_row * n_rows
+              + n_rows * cfg.vocab_size * 4)
+    ops = (2 * layer_params * n_rows + 2 * cfg.vocab_size * cfg.d_model
+           * n_rows + 4 * cfg.hd * cfg.num_heads * live * cfg.num_layers)
+    return nbytes, ops
+
+
+def prefill_work(cfg, weight_bytes: int, layer_params: int, n_rows: int,
+                 width: int) -> tuple:
+    """(bytes, operations) of one bucket's prefill over ``n_rows`` slots
+    of ``width`` tokens: weights once, the K/V rows written once, the
+    last position's logits; 2 operations a weight a token, causal
+    attention's 4 dh a pair, the head on one row a slot."""
+    kv_row = 2 * cfg.num_kv_heads * cfg.hd * 2 * cfg.num_layers
+    tokens = n_rows * width
+    pairs = n_rows * width * (width + 1) // 2
+    nbytes = weight_bytes + kv_row * tokens + n_rows * cfg.vocab_size * 4
+    ops = (2 * layer_params * tokens + 4 * cfg.hd * cfg.num_heads * pairs
+           * cfg.num_layers + 2 * cfg.vocab_size * cfg.d_model * n_rows)
+    return nbytes, ops
+
+
+def wrong_rope_decode(model, params, batch, cache):
+    """What phase L's check reads from a decode whose rotary angle is one
+    position late (q and k rotated at cache_len + 1; everything else
+    as the model): the run fails unless `LM_TOL` flags it."""
+    from repro_torch.models import attention as att
+
+    right = att.apply_rope
+    att.apply_rope = lambda x, pos, **kw: right(x, pos + 1, **kw)
+    try:
+        return model.decode(params, batch, cache)
+    finally:
+        att.apply_rope = right
+
+
+def make_timed_engine():
+    """An `Engine` whose dispatch hooks time each prefill (per bucket) and
+    decode with CUDA events and keep each request's first-step logits."""
+    import torch
+
+    from repro_torch.serve.engine import Engine
+
+    class TimedEngine(Engine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.prefills, self.decodes, self.first = [], [], {}
+
+        def _prefill_dispatch(self, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            e0.record()
+            out = super()._prefill_dispatch(batch)
+            e1.record()
+            torch.cuda.synchronize()
+            self.prefills.append({
+                "width": int(batch["tokens"].shape[1]),
+                "tokens": int((batch["tokens"] != 0).sum()),
+                "ms": e0.elapsed_time(e1),
+                "wall_ms": (time.perf_counter() - t) * 1e3})
+            return out
+
+        def _decode_dispatch(self, batch):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            e0.record()
+            logits, cache = super()._decode_dispatch(batch)
+            e1.record()
+            self.decodes.append((e0, e1, self.lens.copy(),
+                                 [r is not None for r in self.live]))
+            for s, r in enumerate(self.live):
+                if r is not None and not r.out:
+                    self.first[r.rid] = logits[s, 0].clone()
+            self.last_batch = batch
+            return logits, cache
+
+    return TimedEngine
+
+
+def serve_run(engine_cls, model, params, prompts, *, slots, dev,
+              temperature=0.0, order=None):
+    """Serve ``prompts`` (rid = index) through a fresh engine; returns
+    ({rid: tokens}, the engine, host wall per step, and whether each step
+    admitted)."""
+    import torch
+
+    from repro_torch.serve.engine import Request
+
+    eng = engine_cls(model, params, slots=slots, max_len=LM_MAX_LEN,
+                     temperature=temperature, seed=LM_SAMPLE_SEED,
+                     device=dev)
+    for rid in (order if order is not None else range(len(prompts))):
+        eng.add_request(Request(rid, list(prompts[rid]), max_new=LM_MAX_NEW))
+    torch.cuda.synchronize()
+    walls, admits, done = [], [], []
+    t0 = time.perf_counter()
+    while eng._work_pending():
+        queued = len(eng.queue)
+        t = time.perf_counter()
+        done += eng.step()          # ends in a host read of the tokens
+        walls.append(time.perf_counter() - t)
+        admits.append(len(eng.queue) < queued)
+    wall = time.perf_counter() - t0
+    if sorted(r.rid for r in done) != list(range(len(prompts))):
+        raise AssertionError("phase L: the engine lost requests")
+    bad = [r.rid for r in done if len(r.out) != LM_MAX_NEW]
+    if bad:
+        raise AssertionError(f"phase L: requests {bad} finished short of "
+                             f"max_new {LM_MAX_NEW}")
+    return {r.rid: tuple(r.out) for r in done}, eng, walls, admits, wall
+
+
+def lm_path(dev, card: str, cfg=None) -> dict:
+    """Phase L: `build_model` / `init_model_params` / `Engine` at
+    qwen1.5-0.5b's full width on the card (``cfg`` cuts it for a
+    rehearsal). Gates cache against forward, card against CPU (and the
+    late rope angle against the tolerance), and the server's repeats;
+    prints the times beside their bounds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import (build_model, cast_params, init_cache,
+                                    init_model_params)
+    from repro_torch.models.layers import param_count, tree_items, tree_map
+    from repro_torch.serve.engine import Engine
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    res: dict = {}
+    cfg = cfg or get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    # ---- L1: build and load
+    model = build_model(cfg, device=dev)
+    params = init_model_params(model, LM_PARAM_SEED, device=dev)
+    cparams = cast_params(model, params)
+    n_params = param_count(model.schema)
+    layer_params = sum(t.numel() for p, t in tree_items(cparams)
+                       if p[0] == "stack" and p[-2] in ("attn", "mlp"))
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for p, t in tree_items(cparams))
+    res["params"] = n_params
+    print(f"L1 {cfg.name}: {n_params:,} parameters ({cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads, dh {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}); float32 {n_params * 4 / 1e9:.3f} GB, "
+          f"{layer_params:,} layer weights cast once to bfloat16; one "
+          f"decode step reads {weight_bytes / 1e9:.3f} GB of weights; "
+          + memory_line("after load"))
+
+    # ---- L2: cache against forward, 4 prompts, 8 teacher-forced steps
+    prompts = lm_prompts(LM_BATCH, *LM_PROMPT_LEN, cfg.vocab_size,
+                         LM_DATA_SEED)
+    forced = lm_prompts(LM_BATCH, LM_FORCED, LM_FORCED, cfg.vocab_size,
+                        LM_DATA_SEED + 1)
+    lens = np.array([len(p) for p in prompts])
+    toks = np.zeros((LM_BATCH, lens.max() + LM_FORCED), np.int64)
+    for b in range(LM_BATCH):
+        seq = prompts[b] + forced[b]
+        toks[b, :len(seq)] = seq
+    toks_t = torch.as_tensor(toks, device=dev)
+    with torch.no_grad():
+        full, _ = model.forward(cparams, {"tokens": toks_t})
+        cache = init_cache(model, LM_BATCH, LM_MAX_LEN, device=dev)
+        last, cache = model.prefill(
+            cparams, {"tokens": toks_t[:, :lens.max()] * torch.as_tensor(
+                np.arange(lens.max())[None, :] < lens[:, None],
+                device=dev)}, cache)
+        errs = [rel_err(last[lens.argmax(), 0],
+                        full[lens.argmax(), lens.max() - 1])]
+        agree = 0
+        for t in range(LM_FORCED):
+            tok = torch.as_tensor([[f[t]] for f in forced], device=dev)
+            cl = torch.as_tensor(lens + t, device=dev)
+            got, cache = model.decode(cparams, {"tokens": tok,
+                                                "cache_len": cl}, cache)
+            want = full[torch.arange(LM_BATCH), torch.as_tensor(
+                lens + t, device=dev)]
+            errs.append(rel_err(got[:, 0], want))
+            agree += int((got[:, 0].argmax(-1) == want.argmax(-1)).sum())
+    del full
+    res["cache_vs_forward"] = errs
+    print(f"L2 cache vs forward: prompts of {lens.tolist()} tokens, prefill "
+          f"then {LM_FORCED} teacher-forced decode steps; relative error "
+          f"{min(errs):.5f}-{max(errs):.5f} (tol {LM_TOL}); argmax agrees "
+          f"on {agree}/{LM_BATCH * LM_FORCED} [{card}]; "
+          + memory_line("after L2"))
+    if max(errs) > LM_TOL:
+        raise AssertionError(f"phase L2: cache vs forward {max(errs):.5f} "
+                             f"> {LM_TOL}")
+
+    # ---- L3: card against CPU, and the late rope angle
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_params = cast_params(cpu_model, tree_map(lambda t: t.cpu(), params))
+    one = torch.as_tensor([prompts[0][:LM_CPU_PROMPT]])
+    steps = [[forced[0][t]] for t in range(LM_CPU_STEPS)]
+    outs = {}
+    with torch.no_grad():
+        for tag, m, p, d in (("cpu", cpu_model, cpu_params, "cpu"),
+                             ("card", model, cparams, dev),
+                             ("late rope", model, cparams, dev)):
+            c = init_cache(m, 1, LM_MAX_LEN, device=d)
+            lg, c = m.prefill(p, {"tokens": one.to(d)}, c)
+            seq = [lg[:, 0].cpu()]
+            for t in range(LM_CPU_STEPS):
+                b = {"tokens": torch.as_tensor([steps[t]], device=d),
+                     "cache_len": torch.as_tensor([LM_CPU_PROMPT + t],
+                                                  device=d)}
+                if tag == "late rope":
+                    lg, c = wrong_rope_decode(m, p, b, c)
+                else:
+                    lg, c = m.decode(p, b, c)
+                seq.append(lg[:, 0].cpu())
+            outs[tag] = seq
+    card_err = [rel_err(a, b) for a, b in zip(outs["card"], outs["cpu"])]
+    wrong = [rel_err(a, b) for a, b in zip(outs["late rope"][1:],
+                                           outs["cpu"][1:])]
+    res.update(card_vs_cpu=card_err, late_rope=wrong)
+    print(f"L3 card vs CPU: one {LM_CPU_PROMPT}-token prompt, prefill + "
+          f"{LM_CPU_STEPS} teacher-forced steps; relative error "
+          f"{min(card_err):.5f}-{max(card_err):.5f} (tol {LM_TOL}); a decode "
+          f"with the rope angle one position late reads "
+          f"{min(wrong):.5f}-{max(wrong):.5f} [{card}]; "
+          + memory_line("after L3"))
+    if max(card_err) > LM_TOL:
+        raise AssertionError(f"phase L3: card vs CPU {max(card_err):.5f} > "
+                             f"{LM_TOL}")
+    if min(wrong) <= LM_TOL:
+        raise AssertionError(f"phase L3: the tolerance {LM_TOL} does not "
+                             f"flag a late rope angle ({min(wrong):.5f})")
+    del cpu_model, cpu_params, outs
+
+    # ---- L4: the server, 8 requests at slots 4, greedy then sampled
+    TimedEngine = make_timed_engine()
+    reqs = lm_prompts(LM_REQUESTS, *LM_SERVE_PROMPT, cfg.vocab_size,
+                      LM_DATA_SEED + 2)
+    with torch.no_grad():
+        greedy, _, _, _, _ = serve_run(Engine, model, params, reqs,
+                                       slots=LM_SLOTS, dev=dev)
+        timed, teng, walls, admits, _ = serve_run(
+            TimedEngine, model, params, reqs, slots=LM_SLOTS, dev=dev)
+        again, _, _, _, e2e = serve_run(Engine, model, params, reqs,
+                                        slots=LM_SLOTS, dev=dev)
+        samp = [serve_run(Engine, model, params, reqs, slots=LM_SLOTS,
+                          dev=dev, temperature=LM_TEMPERATURE)[0]
+                for _ in range(2)]
+    if not greedy == timed == again:
+        raise AssertionError("phase L4: repeated greedy runs differ")
+    if samp[0] != samp[1]:
+        raise AssertionError("phase L4: repeated sampled runs differ")
+    if samp[0] == greedy:
+        raise AssertionError("phase L4: temperature 0.8 gave the greedy "
+                             "tokens")
+    # each request's first token against its prompt prefilled alone
+    first_err, ties = [], []
+    with torch.no_grad():
+        for rid, prompt in enumerate(reqs):
+            c = init_cache(model, 1, LM_MAX_LEN, device=dev)
+            lg, _ = model.prefill(cparams, {"tokens": torch.as_tensor(
+                [prompt], device=dev)}, c)
+            want, got = lg[0, 0], teng.first[rid]
+            first_err.append(rel_err(got, want))
+            top = torch.topk(want, 2).values
+            gap = float(top[0] - top[1])
+            if int(want.argmax()) != greedy[rid][0]:
+                if gap > 2 * float((got - want).abs().max()):
+                    raise AssertionError(
+                        f"phase L4: request {rid}'s first token "
+                        f"{greedy[rid][0]} != {int(want.argmax())} (gap "
+                        f"{gap:.4f})")
+                ties.append(rid)
+    res["first_token"] = {"rel_err": first_err, "near_ties": ties}
+    if max(first_err) > LM_TOL:
+        raise AssertionError(f"phase L4: first-step logits "
+                             f"{max(first_err):.5f} > {LM_TOL} against the "
+                             f"prompt alone")
+    res["tokens"] = {str(k): v for k, v in greedy.items()}
+    print(f"L4 server: Engine(slots={LM_SLOTS}, max_len={LM_MAX_LEN}) served "
+          f"{LM_REQUESTS} requests of {min(map(len, reqs))}-"
+          f"{max(map(len, reqs))} prompt tokens, max_new {LM_MAX_NEW}, "
+          f"greedy three times and at temperature {LM_TEMPERATURE} (seed "
+          f"{LM_SAMPLE_SEED}) twice: every request finished, repeats "
+          f"identical; first-step logits vs each prompt alone "
+          f"{max(first_err):.5f} (tol {LM_TOL}), first tokens equal"
+          + (f" but near ties {ties}" if ties else "") + "; "
+          + memory_line("after L4"))
+    # placement (printed, not gated)
+    with torch.no_grad():
+        place = {
+            "slots=1": serve_run(Engine, model, params, reqs, slots=1,
+                                 dev=dev)[0],
+            "slots=2": serve_run(Engine, model, params, reqs, slots=2,
+                                 dev=dev)[0],
+            "reversed order": serve_run(
+                Engine, model, params, reqs, slots=LM_SLOTS, dev=dev,
+                order=list(range(LM_REQUESTS))[::-1])[0]}
+    res["placement"] = {k: sorted(r for r in v if v[r] != greedy[r])
+                        for k, v in place.items()}
+    print("L4 placement (printed, not gated): requests whose greedy tokens "
+          "differ from slots 4 in order: " + "; ".join(
+              f"{k} {v or 'none'}" for k, v in res["placement"].items()))
+
+    # ---- L5: times beside their bounds
+    res["prefill"] = []
+    for p in teng.prefills:
+        nbytes, ops = prefill_work(cfg, weight_bytes, layer_params,
+                                   LM_SLOTS, p["width"])
+        bms, by = bound_ms(nbytes, ops, PEAK_BF16)
+        p.update(bound_ms=bms, bound_by=by)
+        res["prefill"].append(p)
+    by_width: dict = {}
+    for p in res["prefill"]:
+        by_width.setdefault(p["width"], []).append(p)
+    busy = {}
+    with torch.no_grad():
+        for w in by_width:
+            pad = torch.ones((LM_SLOTS, w), dtype=torch.int64, device=dev)
+            busy[w] = device_busy(lambda: model.prefill(
+                cparams, {"tokens": pad}, teng.cache))
+    res["prefill_busy"] = busy
+    print("L5 prefill per bucket (slots x width rows; CUDA-event span of "
+          "the dispatch; the card's busy time and launches of one call, "
+          "profiler): " + "; ".join(
+              f"{w}: {len(ps)} call(s), {min(p['ms'] for p in ps):.3f} ms, "
+              f"{LM_SLOTS * w / min(p['ms'] for p in ps) * 1e3:,.0f} rows/s "
+              f"({max(p['tokens'] for p in ps) / min(p['ms'] for p in ps) * 1e3:,.0f}"
+              f" prompt tokens/s), busy {busy[w][0]:.3f} ms over "
+              f"{busy[w][1]} launches, bound {ps[0]['bound_ms']:.4f} ms "
+              f"({ps[0]['bound_by']})" for w, ps in sorted(by_width.items()))
+          + f" [{card}]")
+    res["decode"] = {LM_SLOTS: decode_times(teng, walls, admits, cfg,
+                                            weight_bytes, layer_params,
+                                            model, card)}
+    res["e2e_tok_s"] = LM_REQUESTS * LM_MAX_NEW / e2e
+    print(f"L5 end to end: {LM_REQUESTS * LM_MAX_NEW} tokens in {e2e:.3f} s,"
+          f" {res['e2e_tok_s']:.1f} generated tokens/s at slots {LM_SLOTS} "
+          f"[{card}]")
+    wide = lm_prompts(LM_WIDE_SLOTS, *LM_SERVE_PROMPT, cfg.vocab_size,
+                      LM_DATA_SEED + 3)
+    with torch.no_grad():
+        _, weng, wwalls, wadmits, _ = serve_run(
+            TimedEngine, model, params, wide, slots=LM_WIDE_SLOTS, dev=dev)
+        _, _, _, _, we2e = serve_run(Engine, model, params, wide,
+                                     slots=LM_WIDE_SLOTS, dev=dev)
+    res["decode"][LM_WIDE_SLOTS] = decode_times(
+        weng, wwalls, wadmits, cfg, weight_bytes, layer_params, model, card)
+    res["e2e_tok_s_wide"] = LM_WIDE_SLOTS * LM_MAX_NEW / we2e
+    print(f"L5 end to end: {LM_WIDE_SLOTS * LM_MAX_NEW} tokens in "
+          f"{we2e:.3f} s, {res['e2e_tok_s_wide']:.1f} generated tokens/s at "
+          f"slots {LM_WIDE_SLOTS} [{card}]; " + memory_line("after L5"))
+    return res
+
+
+def decode_times(eng, walls, admits, cfg, weight_bytes, layer_params, model,
+                 card) -> dict:
+    """Decode ms per engine step of ``eng``'s run: CUDA-event span of each
+    decode dispatch and host wall of each step without admission (medians
+    of the warm steps, the first two left out), the device time of one
+    decode behind a device sleep, and the bound of the median step."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    steps = [(e0.elapsed_time(e1), lens, live)
+             for e0, e1, lens, live in eng.decodes]
+    warm = [i for i in range(2, len(steps)) if not admits[i]]
+    ev = float(np.median([steps[i][0] for i in warm]))
+    host = float(np.median([walls[i] * 1e3 for i in warm]))
+    mid = warm[len(warm) // 2]
+    _, lens, live = steps[mid]
+    contexts = [int(n) for n, a in zip(lens, live) if a]
+    nbytes, ops = decode_work(cfg, weight_bytes, layer_params, eng.slots,
+                              contexts)
+    bms, by = bound_ms(nbytes, ops, PEAK_BF16)
+    batch = eng.last_batch
+    busy, launches = device_busy(
+        lambda: model.decode(eng.params, batch, eng.cache))
+    out = {"event_ms": ev, "host_ms": host, "device_busy_ms": busy,
+           "launches": launches, "idle_share": 1 - busy / host,
+           "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+           "warm_steps": len(warm), "contexts": contexts}
+    print(f"L5 decode at slots {eng.slots}: {ev:.3f} ms a step (CUDA-event "
+          f"median of {len(warm)} warm steps), {host:.3f} ms host wall a "
+          f"step; one decode keeps the card busy {busy:.3f} ms over "
+          f"{launches} launches (profiler), idle {out['idle_share']:.1%} "
+          f"of the step; bound {bms:.4f} ms ({by}: {nbytes / 1e9:.3f} GB "
+          f"over {len(contexts)} live contexts) [{card}]")
+    return out
+
+
+def device_busy(fn) -> tuple:
+    """(device-busy ms, kernel launches) of one warm call of ``fn``: the
+    summed durations of the CUDA kernels and copies of a `torch.profiler`
+    trace. `event_ms`'s device sleep cannot time a call of a thousand
+    launches or more: the launch queue fills before the sleep ends and
+    the card then waits on the host."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in kern) / 1e3, len(kern)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -2296,6 +2777,13 @@ def main(argv=None) -> int:
         if not all(entries.values()):
             raise AssertionError(f"{kernel}: an entry launched no kernel on "
                                  f"phase S: {entries}")
+    # ---- phase L: LM serving at qwen1.5-0.5b's full width
+    lm, lm_launches = counted(lambda: lm_path(dev, card))
+    if any(n for entries in lm_launches.values() for n in entries.values()):
+        raise AssertionError(f"phase L launched a kernel: {lm_launches}")
+    print("phase L: no kernel of the port launched (the LM path calls none, "
+          "as the reference's calls no Pallas kernel)")
+    report["lm"] = lm
     report.update({"card": card, "kind": kind, "rates": rates,
                    "launches": launches, "columns": columns,
                    "asr_launches": asr_launches,

@@ -1,11 +1,13 @@
 """VWR2A reproduction, PyTorch/CUDA port: the raw-signal biosignal stream,
-the streaming ASR front-end and the standalone shuffle, RoPE and
-flash-attention kernels.
+the streaming ASR front-end, the standalone shuffle, RoPE and
+flash-attention kernels, column replication and LM serving for the dense
+transformer family.
 
 A package of its own beside the JAX reference `repro`, laid out like it so
 each counterpart sits at the same path:
 
-  configs/vwr2a_biosignal — the MBioTracker configuration (own copy)
+  configs/                — the MBioTracker configuration and the ten
+                            LM architectures (own copies)
   core/                   — FIR, packed rFFT, the biosignal application and
                             the shuffle unit's permutations
   kernels/pipeline/       — the stage-graph layer with the biosignal and
@@ -16,8 +18,11 @@ each counterpart sits at the same path:
   kernels/shuffle/, rope/,
   flash_attention/        — the standalone shuffle-unit, RoPE and
                             flash-attention kernels
-  models/attention        — the O(S^2) attention oracle
-  serve/                  — the host-driven and the resident stream
+  models/                 — the dense LM stack (layers, attention with
+                            the O(S^2) oracle, transformer, api)
+  serve/                  — the host-driven and the resident stream, the
+                            column runner and the LM `Engine`
+  launch/serve            — the LM serving CLI
 
 It imports torch and numpy, never jax and nothing of `repro`. Entry points
 take an explicit ``device=`` (default ``"cuda"``); the kernel entries

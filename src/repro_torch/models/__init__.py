@@ -1,2 +1,11 @@
-"""Model layers of the port. So far `attention` holds the O(S^2) oracle
-that the flash-attention kernel is held to; the LM slice extends it."""
+"""Model layers of the port: the dense transformer family (`layers`,
+`attention`, `transformer`) behind `api`'s ``build_model``, and the O(S^2)
+attention oracle that the flash-attention kernel is held to."""
+from repro_torch.models.api import (  # noqa: F401
+    Model,
+    build_model,
+    cast_params,
+    init_cache,
+    init_model_params,
+    params_from_numpy,
+)

@@ -1,0 +1,177 @@
+"""Public model API: ``build_model(cfg) -> Model`` with forward, prefill,
+decode and the cache schema (the port's counterpart of the JAX package's
+`models/api.py`), dense family.
+
+The entry points are plain functions of (params, batch[, cache]) on
+tensors. A batch is a dict: ``tokens`` (B, S) integer tensor and, for
+decode, ``cache_len`` (a scalar or (B,) integer tensor: the position of
+each row's new token). ``prefill`` returns a fresh cache and leaves the
+one it was given as it was; ``decode`` writes each row's new K/V into the
+given cache in place and returns it.
+
+Parameters are float32 (``cfg.param_dtype``) and compute runs in
+``cfg.compute_dtype``; the reference casts each weight at each product,
+and `cast_params` casts those weights once, the same bits.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as tfm
+
+__all__ = ["Model", "build_model", "init_model_params", "init_cache",
+           "params_from_numpy", "cast_params"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: Any
+    schema: dict
+    plan: list
+    forward: Callable      # (params, batch) -> (logits, aux)
+    prefill: Callable      # (params, batch, cache) -> (last logits, new cache)
+    decode: Callable       # (params, batch, cache) -> (logits, cache)
+    cache_schema: Callable  # (batch_size, max_len) -> schema tree
+
+
+def _embed_tokens(params, tokens, cfg):
+    return L.embed(params["embed"], tokens).to(cfg.compute_dtype)
+
+
+def _positions(batch, *, mode):
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    if mode == "decode":
+        cl = torch.as_tensor(batch["cache_len"], device=tokens.device)
+        return cl.reshape(-1).expand(B)[:, None]
+    return torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+
+
+def _final_logits(params, x, cfg):
+    x = L.apply_norm(params["final_norm"], x, kind=cfg.norm_type,
+                     eps=cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return L.unembed(params["embed"], x)
+    return L.linear_head(params["head"], x)
+
+
+def build_model(cfg, *, device="cuda") -> Model:
+    """The model of ``cfg``, meant for ``device`` (default the card;
+    raises on a host without one unless given ``device="cpu"``); its
+    functions run where their tensors are. Families outside the dense
+    slice raise `NotImplementedError` naming their slice."""
+    resolve_device(device)
+    plan = tfm.stack_plan(cfg)
+    schema: dict = {
+        "embed": L.embed_schema(cfg.vocab_size, cfg.d_model),
+        "stack": tfm.stack_schema(cfg, plan),
+        "final_norm": L.norm_schema(cfg.d_model, cfg.norm_type),
+    }
+    if not cfg.tie_embeddings:
+        schema["head"] = L.linear_head_schema(cfg.d_model, cfg.vocab_size)
+
+    def _run(params, batch, cache, mode):
+        x = _embed_tokens(params, batch["tokens"], cfg)
+        pos = _positions(batch, mode=mode)
+        cache_len = pos[:, 0] if mode == "decode" else None
+        ctx = tfm.Ctx(cfg=cfg, mode=mode, positions=pos, cache_len=cache_len,
+                      causal=True)
+        return tfm.apply_stack(params["stack"], x, plan, ctx, cache=cache)
+
+    def forward(params, batch):
+        x, _ = _run(params, batch, None, "train")
+        logits = _final_logits(params, x, cfg)
+        # the dense family has no auxiliary loss
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=logits.device)
+
+    def prefill(params, batch, cache):
+        x, new_cache = _run(params, batch, cache, "prefill")
+        # the head runs on the last position only: the reference's
+        # logits[:, -1:], without the (B, S, vocab) float32 product
+        return _final_logits(params, x[:, -1:], cfg), new_cache
+
+    def decode(params, batch, cache):
+        x, cache = _run(params, batch, cache, "decode")
+        return _final_logits(params, x, cfg), cache
+
+    def cache_schema_fn(batch_size: int, max_len: int):
+        return tfm.cache_schema(cfg, plan, batch_size, max_len)
+
+    return Model(cfg=cfg, schema=schema, plan=plan, forward=forward,
+                 prefill=prefill, decode=decode, cache_schema=cache_schema_fn)
+
+
+# ---------------------------------------------------------------------------
+# Parameters and caches
+# ---------------------------------------------------------------------------
+
+def init_model_params(model: Model, seed: int = 0, *, device="cuda"):
+    """Random parameters from ``torch.Generator(seed)`` on ``device``,
+    by the reference's per-leaf rules (the draws are torch's)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return L.init_params(gen, model.schema, model.cfg.param_dtype)
+
+
+def init_cache(model: Model, batch_size: int, max_len: int, *,
+               device="cuda"):
+    """Zeroed decode cache for ``batch_size`` slots of ``max_len`` rows
+    (a ring of ``sliding_window`` rows where the window is shorter)."""
+    dev = resolve_device(device)
+    return L.tree_map(
+        lambda p: torch.zeros(p.shape, dtype=p.dtype or torch.float32,
+                              device=dev),
+        model.cache_schema(batch_size, max_len))
+
+
+def params_from_numpy(model: Model, tree, *, device="cuda"):
+    """The port's parameters from another package's parameter tree as
+    numpy arrays (the JAX package's, same nesting and names): every leaf
+    is checked against the schema's shape and becomes a tensor of the
+    schema's dtype on ``device``."""
+    dev = resolve_device(device)
+    want = dict(L.tree_items(model.schema))
+    got = dict(L.tree_items(tree))
+    if want.keys() != got.keys():
+        raise ValueError(
+            f"parameter tree differs from the schema: missing "
+            f"{sorted(want.keys() - got.keys())}, unexpected "
+            f"{sorted(got.keys() - want.keys())}")
+
+    def leaf(p, a):
+        a = np.asarray(a)
+        if a.shape != p.shape:
+            raise ValueError(f"leaf of shape {a.shape}, schema {p.shape}")
+        dtype = p.dtype or model.cfg.param_dtype
+        return torch.from_numpy(np.array(a, np.float32)).to(
+            device=dev, dtype=dtype)
+
+    return L.tree_map(leaf, model.schema, tree)
+
+
+def cast_params(model: Model, params):
+    """``params`` with the attention and MLP weights and biases cast to
+    ``cfg.compute_dtype`` once. The reference casts them at every product
+    (``.astype(x.dtype)``); one rounding from float32 gives the same bits
+    wherever it happens. Norm scales, the embedding (which the float32
+    ``unembed`` reads) and the head stay as they are."""
+    dt = model.cfg.compute_dtype
+
+    def cast(path, t):
+        return t.to(dt) if path[-2] in ("attn", "mlp") else t
+
+    out = {}
+    for path, t in L.tree_items(params):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = cast(path, t)
+    return out

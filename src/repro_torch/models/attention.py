@@ -1,16 +1,335 @@
-"""Attention for the port's models. So far only the O(S^2)-memory oracle
-(`reference_attention`) and the mask fill (`NEG_INF`) that the
-flash-attention kernel shares; GQA, causal and sliding-window masks as in
-the JAX package's `models/attention.py`."""
+"""Attention for the port's models: GQA/MHA with the kv-major padded head
+layout, RoPE, sliding windows, the blockwise (online-softmax) train and
+prefill path, the cached decode paths (linear and ring) and the O(S^2)
+oracle (`reference_attention`) that the flash-attention kernel is held
+to. The JAX package's `models/attention.py`, in PyTorch.
+
+Like the reference, the LM path calls no hand-written kernel: RoPE is
+applied here in plain PyTorch and attention runs through
+`blockwise_attention` / `decode_attention`. Products of activations and
+weights run in the activations' dtype (bfloat16 at full width, with
+float32 accumulation); scores, softmax and the value product run in
+float32.
+"""
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
-__all__ = ["NEG_INF", "reference_attention"]
+from repro_torch.models.layers import P, fanin_std
+
+__all__ = ["NEG_INF", "padded_heads", "head_mask", "attention_schema",
+           "apply_rope", "blockwise_attention", "decode_attention",
+           "decode_attention_ring", "qkv_project", "out_project",
+           "attention_block", "reference_attention"]
 
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Schema (with grouped head padding)
+# ---------------------------------------------------------------------------
+
+def padded_heads(cfg) -> tuple[int, int]:
+    """(H_padded, group_padded): pad the per-KV-group query-head count so
+    H_padded = KV * G_p is divisible by cfg.tp_pad. Head index layout is
+    kv-major (h = kv * G_p + g) so GQA grouping survives the padding."""
+    H, KV, tp = cfg.num_heads, cfg.num_kv_heads, max(1, cfg.tp_pad)
+    G = H // KV
+    Gp = G
+    while (KV * Gp) % tp:
+        Gp += 1
+    return KV * Gp, Gp
+
+
+def head_mask(cfg, dtype=torch.float32, device="cpu"):
+    """(H_padded,) 1.0 for real heads, 0.0 for padding."""
+    Hp, Gp = padded_heads(cfg)
+    G = cfg.num_heads // cfg.num_kv_heads
+    m = (np.arange(Hp) % Gp) < G
+    return torch.as_tensor(m, dtype=dtype, device=device)
+
+
+def attention_schema(cfg):
+    d, KV, dh = cfg.d_model, cfg.num_kv_heads, cfg.hd
+    Hp, _ = padded_heads(cfg)
+    s = {
+        "wq": P((d, Hp, dh), ("embed", "heads", "head_dim"), fanin_std(d)),
+        "wk": P((d, KV, dh), ("embed", "kv_heads", "head_dim"), fanin_std(d)),
+        "wv": P((d, KV, dh), ("embed", "kv_heads", "head_dim"), fanin_std(d)),
+        "wo": P((Hp, dh, d), ("heads", "head_dim", "embed"),
+                fanin_std(cfg.num_heads * dh)),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = P((Hp, dh), ("heads", "head_dim"), 0.0)
+        s["bk"] = P((KV, dh), ("kv_heads", "head_dim"), 0.0)
+        s["bv"] = P((KV, dh), ("kv_heads", "head_dim"), 0.0)
+    if cfg.proj_bias:
+        s["bo"] = P((d,), ("embed",), 0.0)
+    return s
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def _inv_freq(dh: int, theta: float):
+    return 1.0 / (theta ** (np.arange(0, dh, 2, dtype=np.float64) / dh))
+
+
+@functools.lru_cache(maxsize=32)
+def _inv_freq_table(dh: int, theta: float, device: torch.device):
+    """The (dh/2,) float32 frequencies, taken in float64 and cast once."""
+    return torch.as_tensor(_inv_freq(dh, theta).astype(np.float32),
+                           device=device)
+
+
+def apply_rope(x, positions, *, theta, style="neox"):
+    """x: (B, S, H, dh); positions: (B, S) integers. ``neox`` rotates the
+    two halves of each head; ``none`` returns x. The angles and the
+    rotation are float32; the result is cast back to x's dtype. (The
+    reference's ``mrope`` comes with its vision-language slice.)"""
+    if style == "none":
+        return x
+    if style != "neox":
+        raise NotImplementedError(
+            f"rope_style {style!r}: mrope comes with the qwen2-vl slice")
+    dh = x.shape[-1]
+    inv = _inv_freq_table(dh, float(theta), x.device)
+    ang = positions.float()[..., None] * inv               # (B, S, dh/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Blockwise (flash-style) attention — train / prefill
+# ---------------------------------------------------------------------------
+
+def blockwise_attention(q, k, v, *, causal=True, window=None,
+                        q_chunk=1024, kv_chunk=1024):
+    """Online-softmax chunked attention.
+
+    q: (B, Sq, H, dh); k, v: (B, Skv, KV, dh) with H % KV == 0.
+    Returns (B, Sq, H, dh) in q's dtype. Never materializes (Sq x Skv):
+    one (q chunk, kv chunk) score block at a time, and chunk pairs wholly
+    outside the causal or window band are skipped, as the reference's
+    ``lax.cond`` skips them."""
+    B, Sq, H, dh = q.shape
+    _, Skv, KV, _ = k.shape
+    G = H // KV
+    qc = min(q_chunk, Sq)
+    kc = min(kv_chunk, Skv)
+    sq_valid, skv_valid = Sq, Skv
+    nq, nk = -(-Sq // qc), -(-Skv // kc)
+    scale = 1.0 / math.sqrt(dh)
+    dev = q.device
+    # queries past Sq and keys past Skv are the reference's zero padding
+    # up to whole chunks: padded keys are masked, padded rows dropped
+    q = _pad_seq(q, nq * qc)
+    k, v = _pad_seq(k, nk * kc), _pad_seq(v, nk * kc)
+    qr = q.reshape(B, nq * qc, KV, G, dh)
+    outs = []
+    for i in range(nq):
+        qb = qr[:, i * qc:(i + 1) * qc].float() * scale   # (B,qc,KV,G,dh)
+        q_pos = torch.arange(i * qc, (i + 1) * qc, device=dev)
+        m = torch.full((B, KV, G, qc), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, KV, G, qc), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, KV, G, qc, dh), dtype=torch.float32, device=dev)
+        for j in range(nk):
+            if window is not None and \
+                    j * kc < i * qc - (window - 1) - (kc - 1):
+                continue
+            if causal and j * kc > i * qc + (qc - 1):
+                continue
+            kb = k[:, j * kc:(j + 1) * kc].float()        # (B,kc,KV,dh)
+            vb = v[:, j * kc:(j + 1) * kc].float()
+            s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb)  # (B,KV,G,qc,kc)
+            k_pos = torch.arange(j * kc, (j + 1) * kc, device=dev)
+            mask = (k_pos < skv_valid)[None, :].expand(qc, kc)
+            if causal:
+                mask = mask & (q_pos[:, None] >= k_pos[None, :])
+            if window is not None:
+                mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p, vb)
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]   # (B,KV,G,qc,dh)
+        outs.append(out.permute(0, 3, 1, 2, 4))            # (B,qc,KV,G,dh)
+    out = torch.cat(outs, dim=1).reshape(B, nq * qc, H, dh)
+    return out[:, :sq_valid].to(q.dtype)
+
+
+def _pad_seq(x, n: int):
+    """Zero-pad axis 1 of x up to n rows."""
+    if x.shape[1] == n:
+        return x
+    pad = x.new_zeros((x.shape[0], n - x.shape[1]) + tuple(x.shape[2:]))
+    return torch.cat([x, pad], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Cached decode attention (one new token)
+# ---------------------------------------------------------------------------
+
+def _softmax_value(s, mask, v_cache, B, H, dh, dtype):
+    """Masked softmax over the cache axis of s (B, KV, G, S) and the value
+    product, in float32, with the reference's guards."""
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bskd->bkgd", p / torch.clamp(l, min=1e-30),
+                       v_cache.float())
+    return out.reshape(B, 1, H, dh).to(dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, window=None):
+    """q: (B, 1, H, dh); caches: (B, S, KV, dh); cache_len: scalar or (B,)
+    integer tensor, the index of the new token (per slot under continuous
+    batching). Positions past cache_len, or at least ``window`` behind
+    it, are masked."""
+    B, _, H, dh = q.shape
+    _, S, KV, _ = k_cache.shape
+    G = H // KV
+    scale = 1.0 / math.sqrt(dh)
+    cl = torch.as_tensor(cache_len, device=q.device).reshape(-1).expand(B)
+    qr = q.reshape(B, KV, G, dh).float() * scale
+    s = torch.einsum("bkgd,bskd->bkgs", qr, k_cache.float())
+    pos = torch.arange(S, device=q.device)
+    mask = pos[None, :] <= cl[:, None]
+    if window is not None:
+        mask = mask & (pos[None, :] > cl[:, None] - window)
+    return _softmax_value(s, mask, v_cache, B, H, dh, q.dtype)
+
+
+def decode_attention_ring(q, k_cache, v_cache, cl):
+    """Sliding-window decode over a RING cache of W slots: slot i holds the
+    key of absolute position p == i (mod W), p <= cache_len. All slots are
+    in-window once warm; cold slots (p would be negative) are masked."""
+    B, _, H, dh = q.shape
+    _, W, KV, _ = k_cache.shape
+    G = H // KV
+    scale = 1.0 / math.sqrt(dh)
+    cl = torch.as_tensor(cl, device=q.device).reshape(-1).expand(B)
+    qr = q.reshape(B, KV, G, dh).float() * scale
+    s = torch.einsum("bkgd,bskd->bkgs", qr, k_cache.float())
+    slots = torch.arange(W, device=q.device)[None, :]
+    # absolute position held by slot i: largest p <= cl with p % W == i
+    abs_pos = cl[:, None] - torch.remainder(cl[:, None] - slots, W)
+    return _softmax_value(s, abs_pos >= 0, v_cache, B, H, dh, q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Full attention block
+# ---------------------------------------------------------------------------
+
+def qkv_project(params, x, cfg):
+    """x: (B, S, d) -> q (B, S, Hp, dh), k and v (B, S, KV, dh), in x's
+    dtype (weights cast to it, as the reference's ``.astype``)."""
+    B, S, d = x.shape
+    dt = x.dtype
+
+    def proj(w, b):
+        y = torch.matmul(x, w.to(dt).reshape(d, -1)).view(B, S, *w.shape[1:])
+        return y + b.to(dt) if b is not None else y
+
+    return (proj(params["wq"], params.get("bq")),
+            proj(params["wk"], params.get("bk")),
+            proj(params["wv"], params.get("bv")))
+
+
+def out_project(params, o, x_dtype, cfg):
+    """o: (B, S, Hp, dh) -> (B, S, d). Padded heads are zeroed first (the
+    multiply is skipped where there is no padding: a mask of ones)."""
+    B, S, Hp, dh = o.shape
+    if Hp != cfg.num_heads:
+        o = o * head_mask(cfg, o.dtype, o.device)[None, None, :, None]
+    out = torch.matmul(o.reshape(B, S, Hp * dh),
+                       params["wo"].to(o.dtype).reshape(Hp * dh, -1))
+    if "bo" in params:
+        out = out + params["bo"].to(out.dtype)
+    return out.to(x_dtype)
+
+
+def attention_block(params, x, *, cfg, positions, causal=True, cache=None,
+                    cache_len=None):
+    """One attention sub-layer (no norm/residual — the caller owns those).
+
+    Returns (out, cache). ``cache`` is a (k, v) pair of one layer's
+    (B, S_cache, KV, dh) tensors, or None:
+
+      * train: no cache, returns (out, None);
+      * prefill (x is (B, S, d), S > 1, cache given): the fresh K/V are
+        written into ``cache`` IN PLACE at rows [0:S] — for a ring of W =
+        sliding_window slots, the last W keys rotated so that the key of
+        position p sits in slot p % W — and the same pair is returned;
+        callers that need the reference's fresh-array semantics pass a
+        copy (`models.transformer.apply_stack` does);
+      * decode (x is (B, 1, d), cache given): each row b's K/V is written
+        in place at position ``cache_len[b]`` (slot cache_len % W for a
+        ring), then attends over the cache.
+    """
+    q, k, v = qkv_project(params, x, cfg)
+    if cfg.rope_style != "none":
+        q = apply_rope(q, positions, theta=cfg.rope_theta,
+                       style=cfg.rope_style)
+        k = apply_rope(k, positions, theta=cfg.rope_theta,
+                       style=cfg.rope_style)
+
+    if cache is not None and x.shape[1] == 1:  # decode
+        k_cache, v_cache = cache
+        B = x.shape[0]
+        S_cache = k_cache.shape[1]
+        cl = torch.as_tensor(cache_len, device=x.device).reshape(-1)
+        cl = cl.expand(B).long()
+        rows = torch.arange(B, device=x.device)
+        ring = bool(cfg.sliding_window) and S_cache == cfg.sliding_window
+        # ring buffer: slot i holds the key of absolute position p with
+        # p == i (mod W); the new token at cache_len lands in slot cl % W
+        slot = torch.remainder(cl, S_cache) if ring else cl
+        k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
+        v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+        if ring:
+            o = decode_attention_ring(q, k_cache, v_cache, cl)
+        else:
+            o = decode_attention(q, k_cache, v_cache, cl,
+                                 window=cfg.sliding_window)
+        return out_project(params, o, x.dtype, cfg), (k_cache, v_cache)
+
+    o = blockwise_attention(q, k, v, causal=causal,
+                            window=cfg.sliding_window,
+                            q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    if cache is None:
+        return out_project(params, o, x.dtype, cfg), None
+    k_cache, v_cache = cache
+    S_cache = k_cache.shape[1]
+    S = k.shape[1]
+    if cfg.sliding_window and S_cache == cfg.sliding_window:
+        # ring prefill: keep the last W keys, rotated so that the key of
+        # absolute position p sits in slot p % W
+        W = S_cache
+        if S >= W:
+            tail_k, tail_v, shift = k[:, -W:], v[:, -W:], (S - W) % W
+        else:
+            tail_k, tail_v, shift = _pad_seq(k, W), _pad_seq(v, W), 0
+        k_cache.copy_(torch.roll(tail_k, shift, dims=1))
+        v_cache.copy_(torch.roll(tail_v, shift, dims=1))
+    else:
+        k_cache[:, :S] = k.to(k_cache.dtype)
+        v_cache[:, :S] = v.to(v_cache.dtype)
+    return out_project(params, o, x.dtype, cfg), (k_cache, v_cache)
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

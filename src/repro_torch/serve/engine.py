@@ -1,39 +1,313 @@
-"""Serving engine layer. In this slice: `ColumnScheduler`, the admission
-policy for continuous biosignal streams (the LM `Engine` of the
-reference's `serve/engine.py` joins this file with the LM stack).
+"""Serving engine layer: the LM `Engine`, continuous-batching decode over
+fixed slots, and `ColumnScheduler`, the admission policy for continuous
+biosignal streams — the reference's `serve/engine.py`, in PyTorch.
 
-Independent streams are placed on distinct column replicas (devices),
-the multi-tenant complement of dealing one stream across all columns
-(`StreamConfig.n_columns`). With a `serve.stream.StreamTelemetry`
-attached the scheduler is load-aware: placement by least MEASURED
-windows/s (stream count is only the cold-start fallback), a `rebalance`
-work-stealing pass that re-pins streams when the max/min column-load
-ratio passes a threshold, and `deal_weights` feeding measured
-per-column rates into the non-uniform frame deal. With a heartbeat
-timeout and/or a straggler detector it also supervises column liveness
-(`supervise`, `mark_dead`), the detection + drain half of
-`serve/fault.py`'s closed loop.
+`Engine`: requests occupy slots of a fixed-capacity batch; each engine
+step decodes one token for every slot (one batched decode call — free
+slots ride along). Admission claims every free slot, then runs one padded
+prefill per prompt-length bucket; the new cache rows of the admitted
+slots are merged into the live cache by the schema's named "batch" axis.
+Greedy decoding is an argmax; temperature sampling draws each token from
+the request's OWN stream, a `torch.Generator` seeded by (engine seed,
+rid, token index) (`sample_per_request`), so a request's tokens are a
+function of (seed, rid, prompt, model) and never of its slot, its
+co-tenants or the engine step — the invariant replay after an eviction
+rests on. (The reference's ``fold_in`` keys cannot be reproduced in
+torch; greedy tokens are the reference's exactly.) The dispatch path is
+factored into the reference's overridable hooks (`_admissible`,
+`_pre_dispatch_prefill`, `_prefill_dispatch`, `_decode_dispatch`,
+`_slot_retires`, `_on_retire`, `_on_finish`, `_on_evict`) for a
+supervision layer. Typed errors at the admission boundary:
+`PromptTooLong` at `add_request`, `EngineStalled` from
+`run_to_completion`.
 
-Every decision is host arithmetic over the telemetry's numbers, the
-reference's to the last comparison, so one stream of telemetry events
-gives the same placements, moves and deaths in both packages
-(`tests/test_torch_chaos.py`). The port's devices are `torch.device`s;
-the default is every CUDA device of the host, and with no card it
-raises rather than placing streams on the CPU.
+`ColumnScheduler`: independent streams are placed on distinct column
+replicas (devices), the multi-tenant complement of dealing one stream
+across all columns (`StreamConfig.n_columns`). With a
+`serve.stream.StreamTelemetry` attached the scheduler is load-aware:
+placement by least MEASURED windows/s (stream count is only the
+cold-start fallback), a `rebalance` work-stealing pass that re-pins
+streams when the max/min column-load ratio passes a threshold, and
+`deal_weights` feeding measured per-column rates into the non-uniform
+frame deal. With a heartbeat timeout and/or a straggler detector it also
+supervises column liveness (`supervise`, `mark_dead`), the detection +
+drain half of `serve/fault.py`'s closed loop.
+
+Every scheduler decision is host arithmetic over the telemetry's
+numbers, the reference's to the last comparison, so one stream of
+telemetry events gives the same placements, moves and deaths in both
+packages (`tests/test_torch_chaos.py`). The port's devices are
+`torch.device`s; the default is every CUDA device of the host, and with
+no card it raises rather than placing streams on the CPU.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 import warnings
+from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.api import cast_params, init_cache
+from repro_torch.models.layers import tree_items, tree_map
 from repro_torch.runtime.fault import (HeartbeatMonitor,
                                        InsufficientHealthyWorkers,
                                        StragglerDetector)
+from repro_torch.serve.errors import EngineStalled, PromptTooLong
 
-__all__ = ["ColumnScheduler", "cuda_devices"]
+__all__ = ["Request", "Engine", "sample_per_request", "ColumnScheduler",
+           "cuda_devices"]
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: list
+    max_new: int = 16
+    out: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    # set by a supervision layer when the request was evicted from a
+    # faulty slot and requeued for replay
+    replayed: bool = False
+
+
+def _stream_seed(seed: int, rid: int, step: int) -> int:
+    """A fixed 64-bit mix of (engine seed, rid, token index)."""
+    words = np.random.SeedSequence(
+        [int(v) % 2 ** 64 for v in (seed, rid, step)]).generate_state(2)
+    return int(words[0]) | int(words[1]) << 32
+
+
+def sample_per_request(seed: int, rids, steps, logits):
+    """Per-request-stream categorical sample of each row of ``logits``
+    ((n, V), already divided by the temperature) by the Gumbel-max rule:
+    row r takes argmax(logits[r] + g), g drawn in float64 on the CPU from
+    a `torch.Generator` seeded by (seed, rids[r], steps[r]) and moved to
+    the logits' device. ``steps[r]`` is the token's index WITHIN its
+    request, so a draw depends only on (seed, rid, step) and the row's
+    logits."""
+    V = logits.shape[-1]
+    noise = []
+    for rid, step in zip(rids, steps):
+        g = torch.Generator().manual_seed(_stream_seed(seed, rid, step))
+        u = torch.rand(V, generator=g, dtype=torch.float64)
+        noise.append(-torch.log(-torch.log(u)))
+    noise = torch.stack(noise).to(device=logits.device, dtype=torch.float32)
+    return torch.argmax(logits.float() + noise, dim=-1)
+
+
+class Engine:
+    """Continuous batching over ``slots`` fixed cache slots of ``max_len``
+    rows each, on ``device`` (default the card; raises on a host without
+    one unless given ``device="cpu"``). ``params`` must live on that
+    device; the attention and MLP weights are cast to the compute dtype
+    once (`models.api.cast_params`)."""
+
+    def __init__(self, model, params, *, slots: int = 4, max_len: int = 256,
+                 temperature: float = 0.0, seed: int = 0, compiled=None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        for path, t in tree_items(params):
+            if t.device.type != self.device.type:
+                raise ValueError(f"parameter {'/'.join(path)} is on "
+                                 f"{t.device}, the engine on {self.device}")
+        self.model = model
+        self.params = cast_params(model, params)
+        self.slots = slots
+        self.max_len = max_len
+        self.temperature = temperature
+        self.seed = seed
+        self.cache = init_cache(model, slots, max_len, device=self.device)
+        self.live: list[Optional[Request]] = [None] * slots
+        self.lens = np.zeros(slots, np.int32)
+        self.queue: list[Request] = []
+        # poisoned slots: masked out of admission by a supervision layer;
+        # the base engine never adds to it
+        self.dead_slots: set[int] = set()
+        # per-leaf index of the SLOT axis, read from the cache schema's
+        # named axes ("batch") — never guessed from shapes: a stacked-layer
+        # leaf is (layers, slots, ...) and with n_layers == slots a shape
+        # probe picks the layer axis and merges the wrong rows
+        self._slot_axes = tree_map(lambda p: p.axes.index("batch"),
+                                   model.cache_schema(slots, max_len))
+        self._prefill, self._decode = (compiled if compiled is not None
+                                       else self.compile_model(model))
+
+    @staticmethod
+    def compile_model(model):
+        """The (prefill, decode) pair, shareable across engines via
+        ``Engine(..., compiled=...)`` (the reference's jitted pair)."""
+        return model.prefill, model.decode
+
+    def add_request(self, req: Request):
+        """Enqueue one request for admission. Raises the typed
+        `PromptTooLong` for a prompt the cache cannot hold."""
+        if len(req.prompt) > self.max_len:
+            raise PromptTooLong(req.rid, len(req.prompt), self.max_len)
+        self.queue.append(req)
+
+    def submit(self, req: Request, **kwargs):
+        """Deprecated alias of `add_request`; dispatches through
+        ``self.add_request`` so subclass overrides apply."""
+        warnings.warn(
+            "Engine.submit is deprecated; use Engine.add_request",
+            DeprecationWarning, stacklevel=2)
+        return self.add_request(req, **kwargs)
+
+    def _length_bucket(self, n: int) -> int:
+        """Pad prompt lengths up to the next power of two, capped at
+        max_len: the cache has no rows past it."""
+        return min(1 << max(n - 1, 0).bit_length(), self.max_len)
+
+    def _admissible(self, s: int) -> bool:
+        """Is slot ``s`` free AND not poisoned?"""
+        return self.live[s] is None and s not in self.dead_slots
+
+    def _pad_ok(self) -> bool:
+        """Is right-padding a prompt safe for this model's cache? Yes for
+        linear causal caches (pad K/V lie past the prompt: decode masks
+        them and overwrites them before they become visible); no for
+        sliding-window RING caches (the kept tail and its rotation come
+        from the padded length) or recurrent state — those bucket by
+        exact length."""
+        cfg = self.model.cfg
+        return (getattr(cfg, "ssm", None) is None and
+                getattr(cfg, "sliding_window", None) is None)
+
+    def _work_pending(self) -> bool:
+        return bool(self.queue) or any(r is not None for r in self.live)
+
+    def _pending_rids(self) -> set:
+        return ({r.rid for r in self.queue} |
+                {r.rid for r in self.live if r is not None})
+
+    def _pre_dispatch_prefill(self, admitted: list) -> list:
+        """Hook called with the claimed ``(slot, request)`` pairs before
+        any prefill dispatch; returns the pairs that actually prefill."""
+        return admitted
+
+    def _prefill_dispatch(self, batch):
+        """One prefill dispatch over every slot."""
+        return self._prefill(self.params, batch, self.cache)
+
+    def _admit(self):
+        # claim every free slot first, then admit them in one padded
+        # prefill per prompt-length bucket. A replayed request prefills
+        # its prompt + already-generated prefix.
+        admitted = []
+        for s in range(self.slots):
+            if self._admissible(s) and self.queue:
+                req = self.queue.pop(0)
+                self.live[s] = req
+                admitted.append((s, req))
+        if not admitted:
+            return
+        admitted = self._pre_dispatch_prefill(admitted)
+        if not admitted:
+            return
+        pad_ok = self._pad_ok()
+        buckets: dict[int, list] = {}
+        for s, req in admitted:
+            n = len(req.prompt) + len(req.out)
+            buckets.setdefault(self._length_bucket(n) if pad_ok else n,
+                               []).append((s, req))
+        for width, group in sorted(buckets.items()):
+            tokens = np.zeros((self.slots, width), np.int64)
+            for s, req in group:
+                seq = req.prompt + req.out
+                tokens[s, : len(seq)] = seq
+            _, cache = self._prefill_dispatch(
+                {"tokens": torch.as_tensor(tokens, device=self.device)})
+            self.cache = self._merge_slots(cache, [s for s, _ in group])
+            for s, req in group:
+                self.lens[s] = len(req.prompt) + len(req.out)
+
+    def _merge_slots(self, new_cache, slots: list):
+        """Copy the admitted ``slots``' rows of ``new_cache`` into the live
+        cache, in place, along each leaf's slot axis (from the schema,
+        `self._slot_axes`); every other slot's rows stay bitwise as they
+        were. Returns the live cache."""
+        idx = torch.as_tensor(sorted(slots), device=self.device)
+        for (_, old), (_, new), (_, ax) in zip(
+                tree_items(self.cache), tree_items(new_cache),
+                tree_items(self._slot_axes)):
+            old.index_copy_(ax, idx, new.index_select(ax, idx))
+        return self.cache
+
+    def _decode_dispatch(self, batch):
+        """One batched decode dispatch for all slots."""
+        return self._decode(self.params, batch, self.cache)
+
+    def _slot_retires(self, s: int) -> bool:
+        """Does slot ``s`` retire its sampled token this step?"""
+        return True
+
+    def _on_retire(self, s: int, req: Request) -> None:
+        """Hook after slot ``s`` retires one token."""
+
+    def _on_finish(self, s: int, req: Request) -> None:
+        """Hook after ``req`` completes and frees slot ``s``."""
+
+    def _on_evict(self, req: Request) -> None:
+        """Hook when a supervision layer evicts ``req`` from a faulty
+        slot, before it requeues."""
+
+    def step(self):
+        """One decode step for all live slots; returns finished requests."""
+        self._admit()
+        if all(r is None for r in self.live):
+            return []
+        last_tokens = np.zeros((self.slots, 1), np.int64)
+        rows, rids, steps = [], [], []
+        for s, r in enumerate(self.live):
+            if r is not None:
+                last_tokens[s, 0] = (r.prompt + r.out)[-1]
+                rows.append(s)
+                rids.append(r.rid)
+                steps.append(len(r.out))
+        # per-slot positions: slot s's last token sits at lens[s]-1; free
+        # slots park at 0 (overwritten on admit)
+        cl = np.maximum(self.lens - 1, 0)
+        batch = {"tokens": torch.as_tensor(last_tokens, device=self.device),
+                 "cache_len": torch.as_tensor(cl, device=self.device)}
+        logits, self.cache = self._decode_dispatch(batch)
+        if self.temperature > 0:
+            picked = sample_per_request(
+                self.seed, rids, steps, logits[rows, 0, :] / self.temperature)
+        else:
+            picked = torch.argmax(logits[rows, 0, :], dim=-1)
+        sampled = dict(zip(rows, picked.tolist()))
+        finished = []
+        for s, r in enumerate(self.live):
+            if r is None or not self._slot_retires(s):
+                continue
+            r.out.append(sampled[s])
+            self.lens[s] += 1
+            self._on_retire(s, r)
+            if len(r.out) >= r.max_new or self.lens[s] >= self.max_len - 1:
+                r.done = True
+                finished.append(r)
+                self.live[s] = None
+                self.lens[s] = 0
+                self._on_finish(s, r)
+        return finished
+
+    def run_to_completion(self, max_steps: int = 10_000):
+        """Step until every submitted request finishes; returns the
+        finished requests. Exhausting ``max_steps`` with work still queued
+        or live raises the typed `EngineStalled` (the unfinished rids and
+        the done subset)."""
+        done = []
+        for _ in range(max_steps):
+            done += self.step()
+            if not self._work_pending():
+                return done
+        if not self._work_pending():
+            return done
+        raise EngineStalled(sorted(self._pending_rids()), done=done)
 
 
 def cuda_devices() -> list[torch.device]:

@@ -43,7 +43,10 @@ def test_port_has_sources():
                  "kernels/rope/ops.py", "kernels/rope/ref.py",
                  "models/attention.py", "kernels/flash_attention/kernel.py",
                  "kernels/flash_attention/ops.py",
-                 "kernels/flash_attention/ref.py"):
+                 "kernels/flash_attention/ref.py", "configs/base.py",
+                 "configs/qwen1_5_0_5b.py", "models/layers.py",
+                 "models/transformer.py", "models/api.py",
+                 "serve/engine.py", "launch/serve.py"):
         assert need in names
     for src in ("pipeline/csrc/biosignal_graph.cu",
                 "pipeline/csrc/asr_graph.cu", "fir/csrc/fir.cu",

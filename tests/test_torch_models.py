@@ -1,0 +1,353 @@
+"""The port's dense LM stack (`repro_torch.configs`, `models/layers.py`,
+`models/attention.py`, `models/transformer.py`, `models/api.py`) against
+the JAX package's, on the CPU.
+
+Inputs are drawn from a numpy seed; the parameters are the JAX package's
+`init_model_params`, carried into the port by `params_from_numpy`, with
+every bias and norm leaf redrawn from the seed so that the bias and scale
+paths do real work (the reference initialises them to 0 and 1). Both
+sides compute in float32 (the reduced configs' compute dtype), so the
+tolerance is float32's: the two packages' products and reductions sum in
+different orders. Functions are held to atol = rtol = 2e-5 (values of
+order 1, sums over <= 128 terms); model logits, after two layers, the
+final norm and a 256-way head, to atol = rtol = 1e-4.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as j_get_config
+from repro.configs import reduced as j_reduced
+from repro.models import attention as j_att
+from repro.models import build_model as j_build_model
+from repro.models import init_cache as j_init_cache
+from repro.models import init_model_params as j_init_model_params
+from repro.models import layers as j_layers
+from repro_torch.configs import ASSIGNED, get_config, list_configs, reduced
+from repro_torch.models import (build_model, init_cache, init_model_params,
+                                params_from_numpy)
+from repro_torch.models import attention as att
+from repro_torch.models import layers as L
+
+FN_TOL = dict(atol=2e-5, rtol=2e-5)
+LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
+# (config, tp_pad): tp_pad 16 pads starcoder2's 4 query heads over 2 kv
+# heads to 16 (kv-major), so the padded-head mask does real work
+DENSE = [("qwen1.5-0.5b", 1), ("h2o-danube-3-4b", 1), ("starcoder2-7b", 1),
+         ("starcoder2-7b", 16)]
+B, S, N_DECODE = 2, 64, 3
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               **tol)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _randomize(tree, rng):
+    """Redraw the zero-initialised (bias) and one-initialised (norm scale)
+    leaves of a numpy parameter tree, so their paths do real work."""
+    def leaf(a):
+        a = np.asarray(a)
+        if np.all(a == 0) or np.all(a == 1):
+            return (np.asarray(a) + rng.normal(0, 0.1, a.shape)).astype(
+                np.float32)
+        return a
+    return jax.tree.map(leaf, tree)
+
+
+# ---------------------------------------------------------------------------
+# Configs
+# ---------------------------------------------------------------------------
+
+def test_every_reference_config_is_registered_alike():
+    assert list_configs() == sorted(ASSIGNED)
+    for name in ASSIGNED:
+        mine = dataclasses.asdict(get_config(name))
+        ref = dataclasses.asdict(j_get_config(name))
+        for key in ("param_dtype", "compute_dtype"):
+            assert str(mine.pop(key)).split(".")[-1] == \
+                np.dtype(ref.pop(key)).name
+        assert mine == ref, name
+        assert dataclasses.asdict(reduced(get_config(name)))["d_model"] == \
+            dataclasses.asdict(j_reduced(j_get_config(name)))["d_model"]
+
+
+@pytest.mark.parametrize("name", ["qwen1.5-0.5b", "h2o-danube-3-4b",
+                                  "starcoder2-7b", "deepseek-coder-33b"])
+def test_full_width_schema_matches_the_reference(name):
+    """Every parameter leaf of a dense config at its published widths has
+    the reference's path, shape and axes (schemas only: nothing is
+    allocated)."""
+    mine = dict(L.tree_items(build_model(get_config(name),
+                                         device="cpu").schema))
+    ref = j_build_model(j_get_config(name)).schema
+    ref = {tuple(k.key for k in path): p for path, p in
+           jax.tree_util.tree_flatten_with_path(
+               ref, is_leaf=lambda x: isinstance(x, j_layers.P))[0]}
+    assert mine.keys() == ref.keys()
+    for k, p in mine.items():
+        assert (p.shape, p.axes, p.std) == (ref[k].shape, ref[k].axes,
+                                            ref[k].std), k
+    assert L.param_count(build_model(get_config(name), device="cpu").schema) \
+        == j_layers.param_count(j_build_model(j_get_config(name)).schema)
+
+
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "rwkv6-7b",
+                                  "zamba2-7b", "whisper-medium",
+                                  "qwen2-vl-2b"])
+def test_build_model_refuses_families_outside_the_slice(name):
+    cfg = reduced(get_config(name))
+    with pytest.raises(NotImplementedError, match="slice"):
+        build_model(cfg, device="cpu")
+
+
+def test_entries_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    cfg = reduced(get_config("qwen1.5-0.5b"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model(cfg)
+    model = build_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_model_params(model)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_cache(model, 2, 16)
+    params = jax.tree.map(np.asarray,
+                          j_init_model_params(j_build_model(
+                              j_reduced(j_get_config("qwen1.5-0.5b")))))
+    with pytest.raises(RuntimeError, match="cuda"):
+        params_from_numpy(model, params)
+
+
+def test_params_from_numpy_checks_the_tree():
+    cfg = reduced(get_config("qwen1.5-0.5b"))
+    model = build_model(cfg, device="cpu")
+    tree = jax.tree.map(np.asarray, j_init_model_params(
+        j_build_model(j_reduced(j_get_config("qwen1.5-0.5b")))))
+    params = params_from_numpy(model, tree, device="cpu")
+    for (path, t), (_, p) in zip(L.tree_items(params),
+                                 L.tree_items(model.schema)):
+        assert tuple(t.shape) == p.shape and t.dtype == torch.float32, path
+    bad = dict(tree, embed={"embedding": tree["embed"]["embedding"][:-1]})
+    with pytest.raises(ValueError, match="shape"):
+        params_from_numpy(model, bad, device="cpu")
+    with pytest.raises(ValueError, match="missing"):
+        params_from_numpy(model, {k: v for k, v in tree.items()
+                                  if k != "final_norm"}, device="cpu")
+
+
+def test_init_model_params_follows_the_leaf_rules():
+    cfg = reduced(get_config("starcoder2-7b"))
+    model = build_model(cfg, device="cpu")
+    a = init_model_params(model, 5, device="cpu")
+    b = init_model_params(model, 5, device="cpu")
+    c = init_model_params(model, 6, device="cpu")
+    for (path, x), (_, y), (_, z), (_, p) in zip(
+            L.tree_items(a), L.tree_items(b), L.tree_items(c),
+            L.tree_items(model.schema)):
+        assert torch.equal(x, y), path
+        if p.std == "ones":
+            assert torch.all(x == 1), path
+        elif p.std == 0.0:
+            assert torch.all(x == 0), path
+        else:
+            assert not torch.equal(x, z), path
+            assert abs(float(x.std()) / p.std - 1) < 0.2, path
+
+
+# ---------------------------------------------------------------------------
+# Layers and attention functions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+def test_apply_norm(kind, rng):
+    x = rng.normal(1.0, 2.0, (3, 7, 64)).astype(np.float32)
+    p = {"scale": rng.normal(1, 0.2, 64).astype(np.float32),
+         "bias": rng.normal(0, 0.2, 64).astype(np.float32)}
+    want = j_layers.apply_norm(p, jnp.asarray(x), kind=kind, eps=1e-5)
+    got = L.apply_norm({k: _t(v) for k, v in p.items()}, _t(x), kind=kind,
+                       eps=1e-5)
+    _close(got, want, FN_TOL)
+
+
+@pytest.mark.parametrize("gated,act,bias", [(True, "silu", False),
+                                            (False, "gelu", True)])
+def test_apply_mlp(gated, act, bias, rng):
+    """Gated silu (llama/qwen) and the plain tanh-approximated gelu with
+    biases (starcoder2): torch's gelu is exact unless asked for tanh."""
+    schema = j_layers.mlp_schema(64, 128, gated=gated, bias=bias)
+    p = jax.tree.map(np.asarray, j_layers.init_params(
+        jax.random.PRNGKey(1), schema))
+    p = _randomize(p, rng)
+    x = rng.normal(0, 1, (2, 5, 64)).astype(np.float32)
+    want = j_layers.apply_mlp(p, jnp.asarray(x), act=act)
+    got = L.apply_mlp({k: _t(v) for k, v in p.items()}, _t(x), act=act)
+    _close(got, want, FN_TOL)
+
+
+def test_apply_rope_neox(rng):
+    x = rng.normal(0, 1, (2, 33, 4, 64)).astype(np.float32)
+    pos = rng.integers(0, 5000, (2, 33)).astype(np.int32)
+    want = j_att.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta=1e6,
+                            style="neox")
+    got = att.apply_rope(_t(x), _t(pos), theta=1e6, style="neox")
+    _close(got, want, FN_TOL)
+    assert att.apply_rope(_t(x), _t(pos), theta=1e6, style="none") \
+        .equal(_t(x))
+
+
+BLOCKWISE = [(c, w, ch) for c in (True, False) for w in (None, 24)
+             for ch in ((16, 16), (32, 64), (64, 37)) if c or w is None]
+
+
+@pytest.mark.parametrize("causal,window,chunks", BLOCKWISE)
+def test_blockwise_attention(causal, window, chunks, rng):
+    """The cases of tests/test_models.py::test_blockwise_attention_vs_
+    reference (sliding windows are causal), against the reference's
+    blockwise path and the port's O(S^2) oracle."""
+    q = rng.normal(size=(2, 128, 8, 32)).astype(np.float32)
+    k = rng.normal(size=(2, 128, 4, 32)).astype(np.float32)
+    v = rng.normal(size=(2, 128, 4, 32)).astype(np.float32)
+    want = j_att.blockwise_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, q_chunk=chunks[0], kv_chunk=chunks[1])
+    got = att.blockwise_attention(_t(q), _t(k), _t(v), causal=causal,
+                                  window=window, q_chunk=chunks[0],
+                                  kv_chunk=chunks[1])
+    _close(got, want, FN_TOL)
+    oracle = att.reference_attention(_t(q), _t(k), _t(v), causal=causal,
+                                     window=window)
+    _close(got, oracle.numpy(), FN_TOL)
+
+
+def test_blockwise_attention_uneven_kv(rng):
+    q = rng.normal(size=(1, 5, 4, 16)).astype(np.float32)
+    k = rng.normal(size=(1, 1500 % 97, 4, 16)).astype(np.float32)
+    v = rng.normal(size=(1, 1500 % 97, 4, 16)).astype(np.float32)
+    want = j_att.blockwise_attention(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), causal=False,
+                                     q_chunk=32, kv_chunk=32)
+    got = att.blockwise_attention(_t(q), _t(k), _t(v), causal=False,
+                                  q_chunk=32, kv_chunk=32)
+    _close(got, want, FN_TOL)
+
+
+@pytest.mark.parametrize("window", [None, 9])
+def test_decode_attention(window, rng):
+    q = rng.normal(size=(3, 1, 8, 16)).astype(np.float32)
+    kc = rng.normal(size=(3, 40, 4, 16)).astype(np.float32)
+    vc = rng.normal(size=(3, 40, 4, 16)).astype(np.float32)
+    cl = np.array([0, 17, 39], np.int32)
+    want = j_att.decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                                  jnp.asarray(vc), jnp.asarray(cl),
+                                  window=window)
+    got = att.decode_attention(_t(q), _t(kc), _t(vc), _t(cl), window=window)
+    _close(got, want, FN_TOL)
+
+
+def test_decode_attention_ring(rng):
+    q = rng.normal(size=(4, 1, 8, 16)).astype(np.float32)
+    kc = rng.normal(size=(4, 12, 2, 16)).astype(np.float32)
+    vc = rng.normal(size=(4, 12, 2, 16)).astype(np.float32)
+    cl = np.array([3, 11, 12, 40], np.int32)       # cold, warm, wrapped
+    want = j_att.decode_attention_ring(jnp.asarray(q), jnp.asarray(kc),
+                                       jnp.asarray(vc), jnp.asarray(cl))
+    got = att.decode_attention_ring(_t(q), _t(kc), _t(vc), _t(cl))
+    _close(got, want, FN_TOL)
+
+
+# ---------------------------------------------------------------------------
+# The model: forward, prefill, decode on three reduced dense configs
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=DENSE,
+                ids=[f"{n}-tp{t}" for n, t in DENSE])
+def pair(request):
+    """(name, JAX model, its params, port model, the same params, tokens):
+    the params redrawn where the reference initialises constants."""
+    name, tp_pad = request.param
+    jcfg = dataclasses.replace(j_reduced(j_get_config(name)), tp_pad=tp_pad)
+    jm = j_build_model(jcfg)
+    rng = np.random.default_rng(11)
+    tree = _randomize(jax.tree.map(np.asarray, j_init_model_params(jm, 2)),
+                      rng)
+    jp = jax.tree.map(jnp.asarray, tree)
+    tm = build_model(dataclasses.replace(reduced(get_config(name)),
+                                         tp_pad=tp_pad), device="cpu")
+    assert att.padded_heads(tm.cfg)[0] == (16 if tp_pad == 16 else 4)
+    tp = params_from_numpy(tm, tree, device="cpu")
+    tokens = rng.integers(0, jcfg.vocab_size, (B, S + N_DECODE))
+    return name, jm, jp, tm, tp, tokens
+
+
+def test_model_forward(pair):
+    name, jm, jp, tm, tp, tokens = pair
+    want, _ = jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(tokens,
+                                                            jnp.int32)})
+    got, aux = tm.forward(tp, {"tokens": torch.as_tensor(tokens)})
+    assert got.dtype == torch.float32 and float(aux) == 0.0
+    _close(got, want, LOGIT_TOL)
+
+
+def test_model_prefill_then_decode(pair):
+    """Prefill S tokens into a cache of S + 8 rows (a 48-slot ring for
+    h2o-danube's window), then decode N_DECODE tokens teacher-forced with
+    a per-row cache_len (row 1 rewinds three positions, as a slot of a
+    continuous batch would): every step's logits and the caches against
+    the reference's."""
+    name, jm, jp, tm, tp, tokens = pair
+    jc = j_init_cache(jm, B, S + 8)
+    tc = init_cache(tm, B, S + 8, device="cpu")
+    for (_, a), (_, b) in zip(L.tree_items(tc), L.tree_items(
+            jax.tree.map(np.asarray, jc))):
+        assert tuple(a.shape) == b.shape
+    if name == "h2o-danube-3-4b":
+        assert tc["seg0"]["l0_attn"]["k"].shape[2] == 48
+    first = {"tokens": tokens[:, :S]}
+    want, jc = jax.jit(jm.prefill)(jp, {"tokens": jnp.asarray(
+        first["tokens"], jnp.int32)}, jc)
+    snapshot = L.tree_map(torch.clone, tc)
+    got, tc2 = tm.prefill(tp, {"tokens": torch.as_tensor(first["tokens"])},
+                          tc)
+    _close(got, want, LOGIT_TOL)
+    for (_, a), (_, b) in zip(L.tree_items(tc), L.tree_items(snapshot)):
+        assert torch.equal(a, b), "prefill wrote into the caller's cache"
+    tc = tc2
+    jdec = jax.jit(jm.decode)
+    for t in range(N_DECODE):
+        cl = np.array([S + t, S - 3 + t], np.int32)
+        tok = tokens[:, S + t:S + t + 1]
+        want, jc = jdec(jp, {"tokens": jnp.asarray(tok, jnp.int32),
+                             "cache_len": jnp.asarray(cl)}, jc)
+        got, tc = tm.decode(tp, {"tokens": torch.as_tensor(tok),
+                                 "cache_len": torch.as_tensor(cl)}, tc)
+        assert got.shape == (B, 1, tm.cfg.vocab_size)
+        _close(got, want, LOGIT_TOL)
+    for (_, a), (_, b) in zip(L.tree_items(tc), L.tree_items(
+            jax.tree.map(np.asarray, jc))):
+        _close(a, b, FN_TOL)
+
+
+def test_model_decode_matches_forward(pair):
+    """Within the port: prefill + teacher-forced decode equals forward
+    over the extended sequence (the tolerance of tests/test_models.py's
+    cache check)."""
+    name, jm, jp, tm, tp, tokens = pair
+    cache = init_cache(tm, B, S + 8, device="cpu")
+    last, cache = tm.prefill(tp, {"tokens": torch.as_tensor(tokens[:, :S])},
+                             cache)
+    full, _ = tm.forward(tp, {"tokens": torch.as_tensor(tokens)})
+    torch.testing.assert_close(last[:, 0], full[:, S - 1], **LOGIT_TOL)
+    for t in range(N_DECODE):
+        got, cache = tm.decode(tp, {
+            "tokens": torch.as_tensor(tokens[:, S + t:S + t + 1]),
+            "cache_len": S + t}, cache)
+        torch.testing.assert_close(got[:, 0], full[:, S + t], **LOGIT_TOL)

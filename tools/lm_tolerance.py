@@ -1,0 +1,95 @@
+#!/usr/bin/env python3
+"""What `chip_smoke.py`'s `LM_TOL` has to separate, read on the CPU at
+qwen1.5-0.5b's layer widths with the depth and the vocabulary cut.
+
+    PYTHONPATH=src python3 tools/lm_tolerance.py [--layers 4 8 12] \
+        [--vocab 32768]
+
+For each depth: 4 prompts of 64-300 tokens are prefilled and then decoded
+8 steps teacher-forced in bfloat16; each step's logits are held against
+`model.forward` over the extended sequences (relative L2 error, as phase
+L2 reads it), and so are the logits of the same decode with its rope
+angle one position late (what phase L3's check must flag). It also
+prints bfloat16 against float32 compute of the forward, the whole
+rounding error of the compute dtype. Random weights from seed 0. A few
+seconds a depth; nothing here runs on a card.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def rel_err(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--layers", type=int, nargs="+", default=[4, 8, 12])
+    ap.add_argument("--vocab", type=int, default=32768)
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.models import (build_model, cast_params, init_cache,
+                                    init_model_params)
+    from repro_torch.models import attention as att
+    from repro_torch.models.layers import tree_map
+
+    right = att.apply_rope
+    for n_layers in args.layers:
+        cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
+                                  num_layers=n_layers, vocab_size=args.vocab)
+        model = build_model(cfg, device="cpu")
+        params = cast_params(model, init_model_params(model, 0, device="cpu"))
+        rng = np.random.default_rng(1)
+        lens = rng.integers(64, 301, 4)
+        seqs = [rng.integers(1, cfg.vocab_size, n + 8) for n in lens]
+        toks = np.zeros((4, lens.max() + 8), np.int64)
+        for b, seq in enumerate(seqs):
+            toks[b, :len(seq)] = seq
+        with torch.no_grad():
+            full, _ = model.forward(params, {"tokens": torch.as_tensor(toks)})
+            cache = init_cache(model, 4, 1024, device="cpu")
+            first = toks[:, :lens.max()] * (np.arange(lens.max())[None, :]
+                                            < lens[:, None])
+            _, cache = model.prefill(params, {"tokens": torch.as_tensor(
+                first)}, cache)
+            late = tree_map(torch.clone, cache)
+            errs, wrong = [], []
+            for t in range(8):
+                batch = {"tokens": torch.as_tensor(
+                    [[s[n + t]] for s, n in zip(seqs, lens)]),
+                         "cache_len": torch.as_tensor(lens + t)}
+                want = full[torch.arange(4), torch.as_tensor(lens + t)]
+                got, cache = model.decode(params, batch, cache)
+                errs.append(rel_err(got[:, 0], want))
+                att.apply_rope = lambda x, pos, **kw: right(x, pos + 1, **kw)
+                try:
+                    got, late = model.decode(params, batch, late)
+                finally:
+                    att.apply_rope = right
+                wrong.append(rel_err(got[:, 0], want))
+            f32 = build_model(dataclasses.replace(
+                cfg, compute_dtype=torch.float32), device="cpu")
+            full32, _ = f32.forward(params, {"tokens": torch.as_tensor(toks)})
+            dtype_err = [rel_err(full[b, :lens[b] + 8], full32[b, :lens[b] + 8])
+                         for b in range(4)]
+        print(f"{n_layers} layers, vocab {args.vocab} (CPU): cache vs "
+              f"forward {min(errs):.5f}-{max(errs):.5f}; late rope angle "
+              f"{min(wrong):.5f}-{max(wrong):.5f}; bfloat16 vs float32 "
+              f"forward {min(dtype_err):.5f}-{max(dtype_err):.5f}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
