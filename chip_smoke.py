@@ -124,7 +124,38 @@ L. LM serving at qwen1.5-0.5b's full width (24 layers, d_model 1024,
    (printed); L5 prefill per bucket, decode ms a step at slots 4 and 16
    (CUDA events, host wall, the card's busy time and launches of one
    call from a `torch.profiler` trace, the idle share) beside the bytes
-   bound, and generated tokens/s end to end.
+   bound, and generated tokens/s end to end;
+P. paged KV, the supervised engines and the unified front-end, each run
+   with the launch counts set to 0 before and read after. P1
+   `PagedEngine(slots=4, max_len=1024, page_size=16)` against the dense
+   `Engine` on phase L's 8 requests, greedy and at temperature 0.8, and
+   on the reference bench's oversubscribed mix (14 requests of 2 prompt
+   tokens, max_new 12, max_len 256): every request finishes, every page
+   is freed, ``peak_admitted`` is 14 on the mix, each request's decode
+   logits up to its first greedy token that differs are within `LM_TOL`
+   of dense, a repeated run and a run through a defrag after every
+   finish are bitwise (every decode's logits); prints token
+   agreement with dense and one decode step's times (as L5) beside
+   dense's. P2 `FaultTolerantEngine` and `FaultTolerantPagedEngine` on
+   the 8 requests at 0.8, fault-free (bitwise P1's unsupervised tokens),
+   with slot 0 killed at its dispatch 4 (one eviction, one replay, every
+   token retired before the kill bitwise) and with one transient
+   (absorbed, bitwise); prints the agreement after the kill and the
+   recovered / fault-free wall. P3 whisper-medium at full width (24 + 24
+   layers, d_model 1024, vocab 51,865, enc_ctx 1500; random weights from
+   seed 0): its logits on the card against the CPU (one 8-token prompt
+   over 1,500 frames from a seed, prefill + 2 decodes, within
+   `WHISPER_TOL`; the run fails unless the tolerance flags a decode with
+   the encoder K/V zeroed), then `ServeFrontend` on a
+   `FaultTolerantEngine(slots=4)` and a `ColumnScheduler` over 4 columns
+   of the card: 4 LM requests, 2 `StreamOpen`s and 3 `AsrTranscribe`s of
+   30 s of synthetic 16 kHz audio under QoS {lm: 2, stream: 1, asr: 1}:
+   every ticket done, the dispatch order the policy's, one ASR graph
+   launch a ticket (and none of any other kernel), features bitwise a
+   direct `graph_pipeline_stream` call and within `ASR_LOGMEL_TOL` of the
+   plain version; ``max_queue=1`` backpressure re-dispatches without a
+   second launch; `lend_columns` (1, then 3: one stream re-pins) and
+   `return_columns` restore the columns, the streams' outputs bitwise.
 
 The last two lines are a JSON object of per-kernel numbers and the
 contract line ``{"ok": true, "device": {...}}``. Any failing phase raises,
@@ -1750,6 +1781,18 @@ def memory_line(tag: str) -> str:
             f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
 
+def weight_counts(cparams) -> tuple:
+    """(the layers' attention and MLP weights, the bytes one decode step
+    reads of all weights) of cast parameters."""
+    from repro_torch.models.layers import tree_items
+
+    layer_params = sum(t.numel() for p, t in tree_items(cparams)
+                       if p[0] == "stack" and p[-2] in ("attn", "mlp"))
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for p, t in tree_items(cparams))
+    return layer_params, weight_bytes
+
+
 def lm_prompts(n: int, lo: int, hi: int, vocab: int, seed: int) -> list:
     import numpy as np
 
@@ -1804,17 +1847,21 @@ def wrong_rope_decode(model, params, batch, cache):
         att.apply_rope = right
 
 
-def make_timed_engine():
-    """An `Engine` whose dispatch hooks time each prefill (per bucket) and
-    decode with CUDA events and keep each request's first-step logits."""
+def make_timed_engine(base=None, keep_steps: bool = False):
+    """An engine of class ``base`` (default `Engine`) whose dispatch hooks
+    time each prefill (per bucket) and decode with CUDA events and keep
+    each request's first-step logits (and, with ``keep_steps``, every
+    decode's logits of each request, ``steps[rid]``); a paged engine's
+    decode also keeps its block table."""
     import torch
 
     from repro_torch.serve.engine import Engine
 
-    class TimedEngine(Engine):
+    class TimedEngine(base or Engine):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             self.prefills, self.decodes, self.first = [], [], {}
+            self.steps: dict = {}
 
         def _prefill_dispatch(self, batch):
             torch.cuda.synchronize()
@@ -1832,6 +1879,10 @@ def make_timed_engine():
             return out
 
         def _decode_dispatch(self, batch):
+            if getattr(self, "table", None) is not None:
+                self.last_bt = torch.as_tensor(self.table.block_table(
+                    [r.rid if r is not None else None for r in self.live]),
+                    device=self.device)
             e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
             e0.record()
             logits, cache = super()._decode_dispatch(batch)
@@ -1841,6 +1892,9 @@ def make_timed_engine():
             for s, r in enumerate(self.live):
                 if r is not None and not r.out:
                     self.first[r.rid] = logits[s, 0].clone()
+                if r is not None and keep_steps:
+                    self.steps.setdefault(r.rid, []).append(
+                        logits[s, 0].clone())
             self.last_batch = batch
             return logits, cache
 
@@ -1848,19 +1902,25 @@ def make_timed_engine():
 
 
 def serve_run(engine_cls, model, params, prompts, *, slots, dev,
-              temperature=0.0, order=None):
+              temperature=0.0, order=None, max_len=None, max_new=None,
+              tag="phase L", prepare=None, on_step=None, **engine_kw):
     """Serve ``prompts`` (rid = index) through a fresh engine; returns
-    ({rid: tokens}, the engine, host wall per step, and whether each step
-    admitted)."""
+    ({rid: tokens}, the engine, host wall per step, whether each step
+    admitted, and the wall of the whole run). ``prepare(eng)`` runs once
+    the requests are queued, ``on_step(eng, done)`` after every step."""
     import torch
 
     from repro_torch.serve.engine import Request
 
-    eng = engine_cls(model, params, slots=slots, max_len=LM_MAX_LEN,
+    max_len = LM_MAX_LEN if max_len is None else max_len
+    max_new = LM_MAX_NEW if max_new is None else max_new
+    eng = engine_cls(model, params, slots=slots, max_len=max_len,
                      temperature=temperature, seed=LM_SAMPLE_SEED,
-                     device=dev)
+                     device=dev, **engine_kw)
     for rid in (order if order is not None else range(len(prompts))):
-        eng.add_request(Request(rid, list(prompts[rid]), max_new=LM_MAX_NEW))
+        eng.add_request(Request(rid, list(prompts[rid]), max_new=max_new))
+    if prepare is not None:
+        prepare(eng)
     torch.cuda.synchronize()
     walls, admits, done = [], [], []
     t0 = time.perf_counter()
@@ -1870,13 +1930,15 @@ def serve_run(engine_cls, model, params, prompts, *, slots, dev,
         done += eng.step()          # ends in a host read of the tokens
         walls.append(time.perf_counter() - t)
         admits.append(len(eng.queue) < queued)
+        if on_step is not None:
+            on_step(eng, done)
     wall = time.perf_counter() - t0
     if sorted(r.rid for r in done) != list(range(len(prompts))):
-        raise AssertionError("phase L: the engine lost requests")
-    bad = [r.rid for r in done if len(r.out) != LM_MAX_NEW]
+        raise AssertionError(f"{tag}: the engine lost requests")
+    bad = [r.rid for r in done if len(r.out) != max_new]
     if bad:
-        raise AssertionError(f"phase L: requests {bad} finished short of "
-                             f"max_new {LM_MAX_NEW}")
+        raise AssertionError(f"{tag}: requests {bad} finished short of "
+                             f"max_new {max_new}")
     return {r.rid: tuple(r.out) for r in done}, eng, walls, admits, wall
 
 
@@ -1892,7 +1954,7 @@ def lm_path(dev, card: str, cfg=None) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models import (build_model, cast_params, init_cache,
                                     init_model_params)
-    from repro_torch.models.layers import param_count, tree_items, tree_map
+    from repro_torch.models.layers import param_count, tree_map
     from repro_torch.serve.engine import Engine
 
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -1904,10 +1966,7 @@ def lm_path(dev, card: str, cfg=None) -> dict:
     params = init_model_params(model, LM_PARAM_SEED, device=dev)
     cparams = cast_params(model, params)
     n_params = param_count(model.schema)
-    layer_params = sum(t.numel() for p, t in tree_items(cparams)
-                       if p[0] == "stack" and p[-2] in ("attn", "mlp"))
-    weight_bytes = sum(t.numel() * t.element_size()
-                       for p, t in tree_items(cparams))
+    layer_params, weight_bytes = weight_counts(cparams)
     res["params"] = n_params
     print(f"L1 {cfg.name}: {n_params:,} parameters ({cfg.num_layers} "
           f"layers, d_model {cfg.d_model}, {cfg.num_heads}/"
@@ -2121,11 +2180,12 @@ def lm_path(dev, card: str, cfg=None) -> dict:
 
 
 def decode_times(eng, walls, admits, cfg, weight_bytes, layer_params, model,
-                 card) -> dict:
+                 card, tag="L5", busy_call=None) -> dict:
     """Decode ms per engine step of ``eng``'s run: CUDA-event span of each
     decode dispatch and host wall of each step without admission (medians
-    of the warm steps, the first two left out), the device time of one
-    decode behind a device sleep, and the bound of the median step."""
+    of the warm steps, the first two left out), the card's busy time and
+    launches of one decode (``busy_call``, default the model's decode on
+    the engine's cache), and the bound of the median step."""
     import numpy as np
     import torch
 
@@ -2142,13 +2202,13 @@ def decode_times(eng, walls, admits, cfg, weight_bytes, layer_params, model,
                               contexts)
     bms, by = bound_ms(nbytes, ops, PEAK_BF16)
     batch = eng.last_batch
-    busy, launches = device_busy(
-        lambda: model.decode(eng.params, batch, eng.cache))
+    busy, launches = device_busy(busy_call or (
+        lambda: model.decode(eng.params, batch, eng.cache)))
     out = {"event_ms": ev, "host_ms": host, "device_busy_ms": busy,
            "launches": launches, "idle_share": 1 - busy / host,
            "bound_ms": bms, "bound_by": by, "bytes": nbytes,
            "warm_steps": len(warm), "contexts": contexts}
-    print(f"L5 decode at slots {eng.slots}: {ev:.3f} ms a step (CUDA-event "
+    print(f"{tag} decode at slots {eng.slots}: {ev:.3f} ms a step (CUDA-event "
           f"median of {len(warm)} warm steps), {host:.3f} ms host wall a "
           f"step; one decode keeps the card busy {busy:.3f} ms over "
           f"{launches} launches (profiler), idle {out['idle_share']:.1%} "
@@ -2175,6 +2235,583 @@ def device_busy(fn) -> tuple:
         torch.cuda.synchronize()
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     return sum(e.time_range.elapsed_us() for e in kern) / 1e3, len(kern)
+
+
+# phase P: paged KV, the supervised engines and the unified front-end
+PAGE_SIZE = 16
+# the reference bench's oversubscribed mix (benchmarks/table5_app.py):
+# requests, prompt tokens, max_new, max_len; slots LM_SLOTS
+P_OVERSUB = (14, 2, 12, 256)
+P_KILL = {0: 4}              # slot 0 dies at its fourth decode dispatch
+P_TRANSIENT = {(1, 3)}       # one transient on slot 1's third decode
+WHISPER_ARCH = "whisper-medium"
+# Relative L2 error of whisper's logits, card against CPU (the measure of
+# `LM_TOL`). `tools/lm_tolerance.py --arch whisper-medium` on the CPU at
+# full width, vocab cut to 32,768, 2 / 4 / 8 / 12 / 24 encoder and
+# decoder layers, one 8-token prompt over 1,500 frames: bfloat16 against
+# float32 compute 0.0057 / 0.0066 / 0.0083 / 0.0094 / 0.0126, prefill +
+# decode against forward at most 0.011; a decode whose sinusoidal
+# position is one late 0.125 / 0.088 / 0.075 / 0.055 / 0.038 (falling
+# with depth, so printed, not gated); the same decode with the cache's
+# encoder K/V zeroed (a prefill that stored none) 0.43 / 0.57 / 0.65 /
+# 0.69 / 0.77. 0.03 sits 2.4x above the whole bfloat16 rounding error at
+# 24 layers and 25x under the lost encoder K/V, which the run must flag.
+WHISPER_TOL = 0.03
+WHISPER_PROMPT, WHISPER_STEPS, WHISPER_MAX_LEN = 8, 2, 448
+P_LM = (4, 3, 8, 8)          # LM requests: count, prompt 3-8 tokens, max_new
+P_ASR_SECONDS, P_ASR_MAX_NEW, P_ASR_TICKETS = 30, 8, 3
+P_QOS = {"lm": 2, "stream": 1, "asr": 1}
+P_COLUMNS = 4
+
+
+def token_agreement(a: dict, b: dict) -> float:
+    """The share of token positions where runs ``a`` and ``b`` agree."""
+    same = sum(x == y for r in a for x, y in zip(a[r], b[r]))
+    return same / sum(len(a[r]) for r in a)
+
+
+def same_steps(a, b) -> bool:
+    """Did timed engines ``a`` and ``b`` give every request bitwise the
+    same logits at every decode?"""
+    import torch
+
+    return a.steps.keys() == b.steps.keys() and all(
+        len(a.steps[r]) == len(b.steps[r]) and all(
+            torch.equal(x, y) for x, y in zip(a.steps[r], b.steps[r]))
+        for r in a.steps)
+
+
+def diverge(a, b) -> int:
+    """The index of the first token where sequences ``a`` and ``b``
+    differ (their length if none does)."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def paged_path(dev, card: str, cfg=None) -> dict:
+    """Phase P1: `PagedEngine` against the dense `Engine` at qwen1.5-0.5b's
+    full width (``cfg`` cuts it for a rehearsal) on phase L's 8 requests
+    and on the oversubscribed mix. Gates completion, freed pages,
+    ``peak_admitted``, each request's decode logits within `LM_TOL` of
+    dense up to its first greedy token that differs, repeats and a
+    mid-decode defrag bitwise; prints token agreement and one decode
+    step's times beside dense's."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, cast_params, init_model_params
+    from repro_torch.serve.engine import Engine, PagedEngine
+    from repro_torch.serve.paged import paged_decode
+
+    res: dict = {}
+    cfg = cfg or get_config(LM_ARCH)
+    model = build_model(cfg, device=dev)
+    params = init_model_params(model, LM_PARAM_SEED, device=dev)
+    layer_params, weight_bytes = weight_counts(cast_params(model, params))
+    reqs = lm_prompts(LM_REQUESTS, *LM_SERVE_PROMPT, cfg.vocab_size,
+                      LM_DATA_SEED + 2)
+    TimedDense = make_timed_engine(Engine, keep_steps=True)
+    TimedPaged = make_timed_engine(PagedEngine, keep_steps=True)
+    run = dict(model=model, params=params, prompts=reqs, slots=LM_SLOTS,
+               dev=dev, tag="phase P1")
+    moves = []
+
+    def defrag_each_step(eng, done):
+        if done:
+            moves.append(eng.defrag())
+
+    def freed(eng, tag):
+        if eng.pool.n_free != eng.pool.capacity:
+            raise AssertionError(f"phase P1 {tag}: {eng.pool.n_free} pages "
+                                 f"free of {eng.pool.capacity}")
+
+    with torch.no_grad():
+        dense, deng, dwalls, dadmits, _ = serve_run(TimedDense, **run)
+        paged, peng, pwalls, padmits, _ = serve_run(
+            TimedPaged, page_size=PAGE_SIZE, **run)
+        again, aeng, _, _, _ = serve_run(TimedPaged, page_size=PAGE_SIZE,
+                                         **run)
+        moved, meng, _, _, _ = serve_run(TimedPaged, page_size=PAGE_SIZE,
+                                         on_step=defrag_each_step, **run)
+        dsamp = serve_run(Engine, temperature=LM_TEMPERATURE, **run)[0]
+        psamp, seng, _, _, _ = serve_run(PagedEngine, page_size=PAGE_SIZE,
+                                         temperature=LM_TEMPERATURE, **run)
+        n, plen, max_new, max_len = P_OVERSUB
+        short = lm_prompts(n, plen, plen, cfg.vocab_size, LM_DATA_SEED + 4)
+        over = dict(run, prompts=short, max_new=max_new, max_len=max_len)
+        odense = serve_run(Engine, **over)[0]
+        opaged, oeng, _, _, _ = serve_run(PagedEngine, page_size=PAGE_SIZE,
+                                          **over)
+    for tag, eng in (("greedy", peng), ("repeat", aeng), ("defrag", meng),
+                     ("sampled", seng), ("oversubscribed", oeng)):
+        freed(eng, tag)
+    if oeng.peak_admitted != n:
+        raise AssertionError(f"phase P1: peak_admitted {oeng.peak_admitted} "
+                             f"on the oversubscribed mix, expected {n}")
+    if again != paged or not same_steps(aeng, peng):
+        raise AssertionError("phase P1: a repeated paged run differs")
+    n_moves = sum(len(m) for m in moves)
+    if not n_moves:
+        raise AssertionError("phase P1: the defrag run moved no page")
+    if moved != paged or not same_steps(meng, peng):
+        raise AssertionError("phase P1: decoding through a defrag differs "
+                             "from the paged run")
+    first = [rel_err(peng.first[r], deng.first[r]) for r in range(len(reqs))]
+    # each request's decodes against dense up to and including its first
+    # greedy token that differs: until then both fed the same tokens, and
+    # every step past the first reads rows that decode wrote to the pool
+    steps = {r: [rel_err(p, d) for p, d in zip(
+        peng.steps[r][: diverge(paged[r], dense[r]) + 1], deng.steps[r])]
+        for r in range(len(reqs))}
+    worst = max(max(e) for e in steps.values())
+    if worst > LM_TOL:
+        raise AssertionError(f"phase P1: decode logits paged vs dense "
+                             f"{worst:.5f} > {LM_TOL} before the tokens "
+                             f"part")
+    n_steps = sum(len(e) for e in steps.values())
+    res.update(first_vs_dense=first, steps_vs_dense=steps,
+               defrag_moves=n_moves,
+               peak_admitted={"serve": peng.peak_admitted,
+                              "oversubscribed": oeng.peak_admitted},
+               agreement={"greedy": token_agreement(paged, dense),
+                          "sampled": token_agreement(psamp, dsamp),
+                          "oversubscribed": token_agreement(opaged, odense)})
+    print(f"P1 paged: PagedEngine(slots={LM_SLOTS}, max_len={LM_MAX_LEN}, "
+          f"page_size={PAGE_SIZE}) against Engine on phase L's "
+          f"{LM_REQUESTS} requests (max_new {LM_MAX_NEW}): every request "
+          f"finished, every page freed, peak_admitted "
+          f"{peng.peak_admitted}; first-step logits vs dense "
+          f"{min(first):.5f}-{max(first):.5f}, all {n_steps} decodes up to "
+          f"each request's first differing token at most {worst:.5f} (tol "
+          f"{LM_TOL}); token "
+          f"agreement with dense {res['agreement']['greedy']:.3f} greedy, "
+          f"{res['agreement']['sampled']:.3f} at temperature "
+          f"{LM_TEMPERATURE}; a repeated run and one through {n_moves} "
+          f"defrag moves bitwise (every decode's logits) [{card}]")
+    print(f"P1 oversubscribed: {n} requests of {plen} prompt tokens, max_new "
+          f"{max_new}, slots {LM_SLOTS}, max_len {max_len}: peak_admitted "
+          f"{oeng.peak_admitted} (the dense engine holds {LM_SLOTS}), token "
+          f"agreement with dense {res['agreement']['oversubscribed']:.3f}")
+    res["decode"] = {
+        "dense": decode_times(deng, dwalls, dadmits, cfg, weight_bytes,
+                              layer_params, model, card, tag="P1 dense"),
+        "paged": decode_times(
+            peng, pwalls, padmits, cfg, weight_bytes, layer_params, model,
+            card, tag="P1 paged", busy_call=lambda: paged_decode(
+                model.decode, peng.pool.paths, peng.pool.specs,
+                peng.params, peng.last_batch, peng.pool.leaves,
+                peng.last_bt))}
+    res["reqs"], res["sampled"] = reqs, {"dense": dsamp, "paged": psamp}
+    print(memory_line("P1 done"))
+    return res, model, params
+
+
+def supervised_path(model, params, reqs, sampled, dev, card: str) -> dict:
+    """Phase P2: `FaultTolerantEngine` and `FaultTolerantPagedEngine` on
+    phase L's requests at temperature 0.8, fault-free, with slot 0 killed
+    (`P_KILL`) and with one transient (`P_TRANSIENT`). Gates completion,
+    the fault-free tokens bitwise the unsupervised engine's of P1
+    (``sampled``), one eviction and one replay, the tokens before the
+    kill bitwise, the transient absorbed bitwise; prints the agreement
+    after the kill and the recovered to fault-free wall ratio."""
+    import torch
+
+    from repro_torch.serve.engine_fault import (FaultInjector,
+                                                FaultTolerantEngine,
+                                                FaultTolerantPagedEngine)
+
+    res: dict = {}
+    run = dict(model=model, params=params, prompts=reqs, slots=LM_SLOTS,
+               dev=dev, temperature=LM_TEMPERATURE, tag="phase P2")
+    for name, cls, kw in (("dense", FaultTolerantEngine, {}),
+                          ("paged", FaultTolerantPagedEngine,
+                           {"page_size": PAGE_SIZE})):
+        at_kill: dict = {}
+
+        def snapshot_at_eviction(eng):
+            reqs_all = list(eng.queue)
+            real = eng._evict
+
+            def evict(s):
+                at_kill.update({r.rid: tuple(r.out) for r in reqs_all})
+                real(s)
+            eng._evict = evict
+
+        with torch.no_grad():
+            free, feng, _, _, fwall = serve_run(
+                cls, injector=FaultInjector(), **run, **kw)
+            killed, keng, _, _, kwall = serve_run(
+                cls, injector=FaultInjector(kill=dict(P_KILL)),
+                prepare=snapshot_at_eviction, **run, **kw)
+            trans, teng, _, _, _ = serve_run(
+                cls, injector=FaultInjector(transient=set(P_TRANSIENT)),
+                **run, **kw)
+        if (keng.evictions, keng.replays) != (1, 1):
+            raise AssertionError(f"phase P2 {name}: evictions "
+                                 f"{keng.evictions}, replays {keng.replays}")
+        if free != sampled[name]:
+            raise AssertionError(f"phase P2 {name}: fault-free supervised "
+                                 f"tokens differ from the plain engine's")
+        if feng.evictions or teng.evictions or teng.dead_slots:
+            raise AssertionError(f"phase P2 {name}: a fault-free or "
+                                 f"transient run evicted")
+        before = {r: out for r, out in at_kill.items()
+                  if killed[r][:len(out)] != out or free[r][:len(out)] != out}
+        if not at_kill or before:
+            raise AssertionError(f"phase P2 {name}: tokens before the kill "
+                                 f"differ for requests {sorted(before)}")
+        if trans != free:
+            raise AssertionError(f"phase P2 {name}: the transient run's "
+                                 f"tokens differ from the fault-free run's")
+        if name == "paged" and keng.pool.n_free != keng.pool.capacity:
+            raise AssertionError("phase P2 paged: pages leaked after the kill")
+        n_before = sum(len(v) for v in at_kill.values())
+        res[name] = {"agreement_after_kill": token_agreement(killed, free),
+                     "tokens_before_kill": n_before,
+                     "wall_ratio": kwall / fwall, "wall_s": [fwall, kwall],
+                     "decode_steps": [feng.decode_steps, keng.decode_steps],
+                     "prefill_dispatches": [feng.prefill_dispatches,
+                                            keng.prefill_dispatches]}
+        print(f"P2 {cls.__name__}: {LM_REQUESTS} requests at temperature "
+              f"{LM_TEMPERATURE}, every one completed fault-free, with slot "
+              f"0 killed at dispatch {P_KILL[0]} (evictions 1, replays 1; "
+              f"{n_before} tokens before the kill bitwise the fault-free "
+              f"run's; token agreement after it "
+              f"{res[name]['agreement_after_kill']:.3f}) and with a "
+              f"transient at {sorted(P_TRANSIENT)} (absorbed in place, "
+              f"tokens bitwise); recovered / fault-free wall "
+              f"{res[name]['wall_ratio']:.3f} ({kwall:.3f} / {fwall:.3f} s; "
+              f"the reference gates 1.5x; host-bound, printed only) [{card}]")
+    return res
+
+
+def round_robin(classes: list, qos: dict) -> list:
+    """The submission indices in the order weighted round-robin over
+    ``qos`` dispatches arrivals of ``classes``, nothing refused."""
+    pending = list(enumerate(classes))
+    order = []
+    while pending:
+        for cls, weight in qos.items():
+            for _ in range(weight):
+                item = next((p for p in pending if p[1] == cls), None)
+                if item is None:
+                    break
+                order.append(item[0])
+                pending.remove(item)
+    return order
+
+
+def asr_launches_per_ticket(front) -> dict:
+    """Wrap ``front``'s ASR dispatch so that each attempt adds the ASR
+    graph launches it made to its ticket's rid; returns {rid: [launches
+    of each attempt]}, filled as the front-end runs."""
+    from repro_torch.kernels import _cuda
+
+    seen: dict = {}
+    real = front._dispatch_asr
+
+    def dispatch(ticket, work, kwargs):
+        n0 = _cuda.LAUNCHES["asr_graph"]["stream"]
+        try:
+            real(ticket, work, kwargs)
+        finally:
+            seen.setdefault(work.rid, []).append(
+                _cuda.LAUNCHES["asr_graph"]["stream"] - n0)
+    front._dispatch_asr = dispatch
+    return seen
+
+
+def whisper_vs_cpu(model, params, card: str) -> dict:
+    """Whisper's logits on the card against the same parameters on the
+    CPU: one `WHISPER_PROMPT`-token prompt prefilled over the encoder
+    output of ``enc_ctx`` frames from a seed, then `WHISPER_STEPS`
+    decodes; and what the check reads from the card's decode with the
+    cache's encoder K/V zeroed (gated above `WHISPER_TOL`) or with the
+    sinusoidal position one late (printed)."""
+    import torch
+
+    from repro_torch.models import (api, build_model, cast_params,
+                                    init_cache)
+    from repro_torch.models.layers import tree_map
+
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(LM_DATA_SEED + 5)
+    frames = torch.randn((1, cfg.enc_ctx, cfg.d_model), generator=g)
+    toks = torch.randint(1, cfg.vocab_size,
+                         (1, WHISPER_PROMPT + WHISPER_STEPS), generator=g)
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_params = cast_params(cpu_model, tree_map(lambda t: t.cpu(), params))
+    dev = next(iter(params["embed"].values())).device
+    cparams = cast_params(model, params)
+    table = api.L.sinusoidal_positions
+    outs, secs = {}, {}
+    with torch.no_grad():
+        for tag, m, p, d in (("cpu", cpu_model, cpu_params, "cpu"),
+                             ("card", model, cparams, dev),
+                             ("no encoder K/V", model, cparams, dev),
+                             ("late position", model, cparams, dev)):
+            t0 = time.perf_counter()
+            c = init_cache(m, 1, WHISPER_MAX_LEN, device=d)
+            lg, c = m.prefill(p, {"tokens": toks[:, :WHISPER_PROMPT].to(d),
+                                  "frames": frames.to(d)}, c)
+            seq = [lg[:, 0].float().cpu()]
+            if tag == "no encoder K/V":
+                for leaf in ("ek", "ev"):
+                    c["seg0"]["l0_cross"][leaf].zero_()
+            for t in range(WHISPER_STEPS):
+                n = WHISPER_PROMPT + t
+                b = {"tokens": toks[:, n:n + 1].to(d),
+                     "cache_len": torch.as_tensor([n], device=d)}
+                if tag == "late position":
+                    api.L.sinusoidal_positions = \
+                        lambda s, dd, dt, dv: table(s, dd, dt, dv)[1:]
+                try:
+                    lg, c = m.decode(p, b, c)
+                finally:
+                    api.L.sinusoidal_positions = table
+                seq.append(lg[:, 0].float().cpu())
+            outs[tag], secs[tag] = seq, time.perf_counter() - t0
+    err = [rel_err(a, b) for a, b in zip(outs["card"], outs["cpu"])]
+    blind = [rel_err(a, b) for a, b in zip(outs["no encoder K/V"][1:],
+                                           outs["cpu"][1:])]
+    late = [rel_err(a, b) for a, b in zip(outs["late position"][1:],
+                                          outs["cpu"][1:])]
+    print(f"P3 whisper card vs CPU: one {WHISPER_PROMPT}-token prompt over "
+          f"{cfg.enc_ctx} frames from a seed, prefill + {WHISPER_STEPS} "
+          f"decodes; relative error {min(err):.5f}-{max(err):.5f} (tol "
+          f"{WHISPER_TOL}); the decode with the encoder K/V zeroed reads "
+          f"{min(blind):.5f}-{max(blind):.5f}, with the position one late "
+          f"{min(late):.5f}-{max(late):.5f} (printed); CPU "
+          f"{secs['cpu']:.1f} s, card {secs['card']:.2f} s [{card}]")
+    if max(err) > WHISPER_TOL:
+        raise AssertionError(f"phase P3: whisper card vs CPU {max(err):.5f} "
+                             f"> {WHISPER_TOL}")
+    if min(blind) <= WHISPER_TOL:
+        raise AssertionError(f"phase P3: the tolerance {WHISPER_TOL} does "
+                             f"not flag lost encoder K/V ({min(blind):.5f})")
+    return {"card_vs_cpu": err, "no_encoder_kv": blind,
+            "late_position": late, "seconds": secs}
+
+
+def frontend_path(dev, card: str, bio_app, cfg=None) -> dict:
+    """Phase P3: `ServeFrontend` over whisper-medium at full width (``cfg``
+    cuts it for a rehearsal) on a `FaultTolerantEngine(slots=4)` and a
+    `ColumnScheduler` over `P_COLUMNS` columns of the one card: LM
+    requests, two `StreamOpen`s and `P_ASR_TICKETS` `AsrTranscribe`s of
+    30 s of synthetic audio under `P_QOS`. Gates one ASR graph launch a
+    ticket, features bitwise a direct entry call and within
+    `ASR_LOGMEL_TOL` of the plain version, the round-robin order,
+    ``max_queue=1`` backpressure without a second launch, column lending
+    and return, and whisper's logits against the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.biosignal import synthetic_respiration
+    from repro_torch.kernels.pipeline.graph import (default_app,
+                                                    get_graph_factory,
+                                                    graph_stream_plain)
+    from repro_torch.kernels.pipeline.ops import graph_pipeline_stream
+    from repro_torch.models import build_model, init_model_params
+    from repro_torch.serve.engine import ColumnScheduler, Request
+    from repro_torch.serve.engine_fault import FaultTolerantEngine
+    from repro_torch.serve.frontend import (AsrTranscribe, ServeFrontend,
+                                            StreamOpen)
+    from repro_torch.serve.stream import StreamConfig
+
+    res: dict = {}
+    cfg = cfg or get_config(WHISPER_ARCH)
+    model = build_model(cfg, device=dev)
+    params = init_model_params(model, LM_PARAM_SEED, device=dev)
+    res["logits"] = whisper_vs_cpu(model, params, card)
+    rng = np.random.default_rng(LM_DATA_SEED + 6)
+    n_lm, lo, hi, lm_new = P_LM
+    prompts = [rng.integers(1, cfg.vocab_size, int(rng.integers(lo, hi + 1)))
+               .tolist() for _ in range(n_lm)]
+    audio = [synthetic_audio(P_ASR_SECONDS * ASR_RATE, seed=10 + i,
+                             device=dev)
+             for i in range(P_ASR_TICKETS)]
+    works = ([Request(i, prompts[i], max_new=lm_new) for i in range(n_lm)]
+             + [StreamOpen(f"sensor-{i}", bio_app,
+                           StreamConfig(window=WINDOW, hop=HOP))
+                for i in range(2)]
+             + [AsrTranscribe(100 + i, audio[i], max_new=P_ASR_MAX_NEW)
+                for i in range(P_ASR_TICKETS)])
+    classes = ["lm"] * n_lm + ["stream"] * 2 + ["asr"] * P_ASR_TICKETS
+    ids = list(range(n_lm)) + ["sensor-0", "sensor-1"] + \
+        [100 + i for i in range(P_ASR_TICKETS)]
+
+    def engine(**kw):
+        return FaultTolerantEngine(model, params, slots=LM_SLOTS,
+                                   max_len=WHISPER_MAX_LEN, device=dev, **kw)
+
+    eng = engine()
+    sched = ColumnScheduler(devices=[dev] * P_COLUMNS)
+    front = ServeFrontend(engine=eng, scheduler=sched, qos=P_QOS)
+    order = []
+    add, place = eng.add_request, sched.place_stream
+    eng.add_request = lambda req, **kw: (order.append(req.rid),
+                                         add(req, **kw))[1]
+    sched.place_stream = lambda app=None, cfg=None, *, stream_id: (
+        order.append(stream_id), place(app, cfg, stream_id=stream_id))[1]
+    tickets = [front.submit(w) for w in works]
+    per_ticket = asr_launches_per_ticket(front)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        _, launches = counted(front.run)
+    wall = time.perf_counter() - t0
+    expect_launches("phase P3 front-end", launches,
+                    {("asr_graph", "stream"): P_ASR_TICKETS})
+    if sorted(per_ticket) != ids[-P_ASR_TICKETS:] or \
+            any(sum(v) != 1 for v in per_ticket.values()):
+        raise AssertionError(f"phase P3: ASR graph launches per ticket "
+                             f"{per_ticket}, expected one each")
+    if [t.status for t in tickets] != ["done"] * len(tickets):
+        raise AssertionError(f"phase P3: tickets "
+                             f"{[t.status for t in tickets]}")
+    want = [ids[i] for i in round_robin(classes, P_QOS)]
+    if order != want:
+        raise AssertionError(f"phase P3: dispatch order {order}, the "
+                             f"policy gives {want}")
+    graph, ops = get_graph_factory("asr")(default_app("asr", device=dev))
+    errs = []
+    for i, t in enumerate(tickets[-P_ASR_TICKETS:]):
+        got = t.result().features
+        direct = graph_pipeline_stream("asr", None, audio[i], window=ASR_WINDOW,
+                                       hop=ASR_HOP, outputs=("logmel",))
+        if not torch.equal(got, direct["logmel"]):
+            raise AssertionError(f"phase P3: ticket {t.tid}'s features differ "
+                                 f"from a direct graph_pipeline_stream call")
+        plain = graph_stream_plain(audio[i], ops, graph=graph,
+                                   window=ASR_WINDOW, hop=ASR_HOP,
+                                   outputs=("logmel",))
+        errs.append(check_asr(f"phase P3 ticket {t.tid}", {"logmel": got},
+                              plain))
+    n_frames = tuple(tickets[-1].result().features.shape)
+    streams = [t.result() for t in tickets[n_lm:n_lm + 2]]
+    # one whisper decode at the engine's slots, as L5 reads qwen's
+    step = {"tokens": torch.ones((LM_SLOTS, 1), dtype=torch.int64,
+                                 device=dev),
+            "cache_len": torch.full((LM_SLOTS,), WHISPER_PROMPT,
+                                    device=dev)}
+    with torch.no_grad():
+        wbusy, wlaunches = device_busy(
+            lambda: eng._decode(eng.params, step, eng.cache))
+        whost = host_ms(lambda: eng._decode(eng.params, step, eng.cache), 5)
+    res["decode"] = {"device_busy_ms": wbusy, "launches": wlaunches,
+                     "host_ms": whost}
+    res.update(launches=launches, order=order, max_abs_err=max(errs),
+               wall_s=wall, features=n_frames,
+               tokens={str(i): t.result().out for i, t in
+                       zip(ids, tickets[:n_lm])} |
+               {str(i): t.result().tokens for i, t in
+                zip(ids[-P_ASR_TICKETS:], tickets[-P_ASR_TICKETS:])})
+    print(f"P3 front-end: ServeFrontend(qos={P_QOS}) over whisper-medium "
+          f"({cfg.num_layers} + {cfg.encoder_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, enc_ctx {cfg.enc_ctx}) on "
+          f"FaultTolerantEngine(slots={LM_SLOTS}, max_len={WHISPER_MAX_LEN}) "
+          f"and {P_COLUMNS} columns: {n_lm} LM requests, 2 StreamOpens, "
+          f"{P_ASR_TICKETS} AsrTranscribes of {P_ASR_SECONDS} s "
+          f"({n_frames[0]} frames x {n_frames[1]} mels each) all done in "
+          f"{wall:.2f} s (one whisper decode at slots {LM_SLOTS}: "
+          f"{whost:.1f} ms of host, the card busy {wbusy:.2f} ms over "
+          f"{wlaunches} launches); dispatch order {order} is the "
+          f"policy's; asr_graph "
+          f"launched {launches['asr_graph']['stream']} times (stream entry, "
+          f"one a ticket), features bitwise a direct call, within "
+          f"{max(errs):.2e} of the plain version [{card}]")
+
+    # backpressure: max_queue 1 refuses all but one ticket a pump
+    eng2 = engine(max_queue=1)
+    front2 = ServeFrontend(engine=eng2)
+    per_ticket2 = asr_launches_per_ticket(front2)
+    t2 = [front2.submit(AsrTranscribe(200 + i, audio[i], max_new=2))
+          for i in range(P_ASR_TICKETS)]
+    with torch.no_grad():
+        _, launches2 = counted(front2.run)
+    expect_launches("phase P3 backpressure", launches2,
+                    {("asr_graph", "stream"): P_ASR_TICKETS})
+    attempts = sum(len(v) for v in per_ticket2.values())
+    if [t.status for t in t2] != ["done"] * P_ASR_TICKETS or \
+            attempts <= P_ASR_TICKETS or \
+            any(v[0] != 1 or sum(v) != 1 for v in per_ticket2.values()):
+        raise AssertionError(f"phase P3 backpressure: "
+                             f"{[t.status for t in t2]}, launches per "
+                             f"attempt {per_ticket2}")
+    for a, b in zip(t2, tickets[-P_ASR_TICKETS:]):
+        if not torch.equal(a.result().features, b.result().features):
+            raise AssertionError("phase P3 backpressure: features differ")
+    res["backpressure_launches"] = per_ticket2
+    print(f"P3 backpressure: max_queue=1, {P_ASR_TICKETS} AsrTranscribes "
+          f"dispatched in {attempts} attempts, asr_graph launched "
+          f"{launches2['asr_graph']['stream']} times, once at each ticket's "
+          f"first attempt ({per_ticket2}: the stash reused on every "
+          f"retry), features bitwise the first front-end's")
+
+    # column lending: lend 1 (a free column), then 3 (one stream re-pins)
+    sig = synthetic_respiration(1, 64 * HOP + WINDOW, seed=4,
+                                device=dev)[0][0]
+    before = [s.process(sig) for s in streams]
+    lent = []
+    for n in (1, 3):
+        front.lend_columns(n)
+        moves = sched.pop_moves()
+        for s in streams:
+            if s.stream_id in moves:
+                s.repin(moves[s.stream_id],
+                        column=sched.column_of(s.stream_id))
+        if any(s.column in sched.dead for s in streams):
+            raise AssertionError("phase P3: a stream stayed on a lent column")
+        after = [s.process(sig) for s in streams]
+        for a, b in zip(after, before):
+            if any(not torch.equal(a[k], b[k]) for k in b):
+                raise AssertionError("phase P3: a re-pinned stream's "
+                                     "output differs")
+        restored = front.return_columns()
+        lent.append({"lent": n, "moves": sorted(moves),
+                     "healthy_while_lent": P_COLUMNS - n,
+                     "restored": restored})
+        if sched.healthy_columns() != list(range(P_COLUMNS)):
+            raise AssertionError(f"phase P3: columns after return "
+                                 f"{sched.healthy_columns()}")
+    if not lent[1]["moves"]:
+        raise AssertionError("phase P3: lending 3 columns re-pinned no "
+                             "stream")
+    res["lending"] = lent
+    print(f"P3 columns: lend_columns(1) moved {lent[0]['moves'] or 'no'} "
+          f"stream(s), lend_columns(3) re-pinned {lent[1]['moves']}; each "
+          f"stream's output bitwise before and after, return_columns "
+          f"restored {lent[0]['restored']} and {lent[1]['restored']}; "
+          + memory_line("after P3"))
+    return res
+
+
+def phase_p(dev, card: str, bio_app, lm_cfg=None, whisper_cfg=None) -> dict:
+    """Phase P: P1 and P2 with the launch counts set to 0 just before and
+    read just after (the paged and supervised engines launch no kernel of
+    the port), then P3."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    (p1, model, params), launches = counted(
+        lambda: paged_path(dev, card, lm_cfg))
+    p2, launches2 = counted(lambda: supervised_path(
+        model, params, p1.pop("reqs"), p1.pop("sampled"), dev, card))
+    for tag, got in (("P1", launches), ("P2", launches2)):
+        if any(n for entries in got.values() for n in entries.values()):
+            raise AssertionError(f"phase {tag} launched a kernel: {got}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    p3 = frontend_path(dev, card, bio_app, whisper_cfg)
+    secs = time.perf_counter() - t0
+    print(f"phase P: {secs:.1f} s; P1 and P2 launched no kernel of the "
+          f"port, P3's ASR tickets the ASR graph only; peak "
+          + memory_line("phase P"))
+    return {"paged": p1, "supervised": p2, "frontend": p3, "seconds": secs,
+            "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
 def main(argv=None) -> int:
@@ -2784,6 +3421,14 @@ def main(argv=None) -> int:
     print("phase L: no kernel of the port launched (the LM path calls none, "
           "as the reference's calls no Pallas kernel)")
     report["lm"] = lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- phase P: paged KV, the supervised engines, the front-end
+    report["phase_p"] = phase_p(dev, card, app)
+    for k in kernels:
+        if k["name"] == "asr_graph[stream]":
+            k["launches_phase_p"] = report["phase_p"]["frontend"][
+                "launches"]["asr_graph"]["stream"]
     report.update({"card": card, "kind": kind, "rates": rates,
                    "launches": launches, "columns": columns,
                    "asr_launches": asr_launches,

@@ -1,13 +1,18 @@
 """Public model API: ``build_model(cfg) -> Model`` with forward, prefill,
 decode and the cache schema (the port's counterpart of the JAX package's
-`models/api.py`), dense family.
+`models/api.py`), dense and encoder-decoder families.
 
 The entry points are plain functions of (params, batch[, cache]) on
 tensors. A batch is a dict: ``tokens`` (B, S) integer tensor and, for
 decode, ``cache_len`` (a scalar or (B,) integer tensor: the position of
-each row's new token). ``prefill`` returns a fresh cache and leaves the
-one it was given as it was; ``decode`` writes each row's new K/V into the
-given cache in place and returns it.
+each row's new token). An encoder-decoder model (whisper) also takes
+``frames`` (B, S_enc, d_model), the encoder's input embeddings, in
+forward and prefill (prefill stores the cross-attention K/V of
+``enc_ctx`` frames in the cache; decode reads them from there), and
+decode takes an optional ``enc_out`` override of the encoder output, as
+the reference's. ``prefill`` returns a fresh cache and leaves the one it
+was given as it was; ``decode`` writes each row's new K/V into the given
+cache in place and returns it.
 
 Parameters are float32 (``cfg.param_dtype``) and compute runs in
 ``cfg.compute_dtype``; the reference casts each weight at each product,
@@ -40,8 +45,25 @@ class Model:
     cache_schema: Callable  # (batch_size, max_len) -> schema tree
 
 
-def _embed_tokens(params, tokens, cfg):
-    return L.embed(params["embed"], tokens).to(cfg.compute_dtype)
+# the decode position table's rows (the reference's)
+DECODE_POSITIONS = 8192
+
+
+def _embed_tokens(params, batch, cfg, *, mode):
+    tokens = batch["tokens"]
+    x = L.embed(params["embed"], tokens).to(cfg.compute_dtype)
+    if cfg.is_encdec:  # whisper decoder: absolute sinusoidal positions
+        if mode == "decode":
+            # the new token's position is cache_len (scalar or per slot)
+            B = tokens.shape[0]
+            cl = torch.as_tensor(batch["cache_len"], device=tokens.device)
+            tab = L.sinusoidal_positions(DECODE_POSITIONS, cfg.d_model,
+                                         x.dtype, x.device)
+            x = x + tab[cl.reshape(-1).expand(B).long()][:, None, :]
+        else:
+            x = x + L.sinusoidal_positions(tokens.shape[1], cfg.d_model,
+                                           x.dtype, x.device)[None]
+    return x
 
 
 def _positions(batch, *, mode):
@@ -61,13 +83,29 @@ def _final_logits(params, x, cfg):
     return L.linear_head(params["head"], x)
 
 
+def _encode(params, batch, cfg, enc_plan):
+    """The encoder over ``frames``: sinusoidal positions, the encoder
+    stack without a causal mask, the final encoder norm."""
+    frames = batch["frames"].to(cfg.compute_dtype)
+    B, S = frames.shape[:2]
+    x = frames + L.sinusoidal_positions(S, cfg.d_model, frames.dtype,
+                                        frames.device)[None]
+    pos = torch.arange(S, device=frames.device)[None, :].expand(B, S)
+    ctx = tfm.Ctx(cfg=cfg, mode="train", positions=pos, causal=False)
+    x, _ = tfm.apply_stack(params["encoder"], x, enc_plan, ctx)
+    return L.apply_norm(params["enc_norm"], x, kind=cfg.norm_type,
+                        eps=cfg.norm_eps)
+
+
 def build_model(cfg, *, device="cuda") -> Model:
     """The model of ``cfg``, meant for ``device`` (default the card;
     raises on a host without one unless given ``device="cpu"``); its
     functions run where their tensors are. Families outside the dense
-    slice raise `NotImplementedError` naming their slice."""
+    and encoder-decoder slices raise `NotImplementedError` naming their
+    slice."""
     resolve_device(device)
     plan = tfm.stack_plan(cfg)
+    enc_plan = tfm.encoder_plan(cfg) if cfg.is_encdec else None
     schema: dict = {
         "embed": L.embed_schema(cfg.vocab_size, cfg.d_model),
         "stack": tfm.stack_schema(cfg, plan),
@@ -75,19 +113,27 @@ def build_model(cfg, *, device="cuda") -> Model:
     }
     if not cfg.tie_embeddings:
         schema["head"] = L.linear_head_schema(cfg.d_model, cfg.vocab_size)
+    if cfg.is_encdec:
+        schema["encoder"] = tfm.stack_schema(cfg, enc_plan)
+        schema["enc_norm"] = L.norm_schema(cfg.d_model, cfg.norm_type)
 
     def _run(params, batch, cache, mode):
-        x = _embed_tokens(params, batch["tokens"], cfg)
+        x = _embed_tokens(params, batch, cfg, mode=mode)
         pos = _positions(batch, mode=mode)
+        enc_out = None
+        if cfg.is_encdec and mode != "decode":
+            enc_out = _encode(params, batch, cfg, enc_plan)
+        elif cfg.is_encdec and "enc_out" in batch:   # optional override
+            enc_out = batch["enc_out"].to(cfg.compute_dtype)
         cache_len = pos[:, 0] if mode == "decode" else None
         ctx = tfm.Ctx(cfg=cfg, mode=mode, positions=pos, cache_len=cache_len,
-                      causal=True)
+                      causal=True, enc_out=enc_out)
         return tfm.apply_stack(params["stack"], x, plan, ctx, cache=cache)
 
     def forward(params, batch):
         x, _ = _run(params, batch, None, "train")
         logits = _final_logits(params, x, cfg)
-        # the dense family has no auxiliary loss
+        # neither family has an auxiliary loss
         return logits, torch.zeros((), dtype=torch.float32,
                                    device=logits.device)
 
@@ -164,14 +210,6 @@ def cast_params(model: Model, params):
     wherever it happens. Norm scales, the embedding (which the float32
     ``unembed`` reads) and the head stay as they are."""
     dt = model.cfg.compute_dtype
-
-    def cast(path, t):
-        return t.to(dt) if path[-2] in ("attn", "mlp") else t
-
-    out = {}
-    for path, t in L.tree_items(params):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = cast(path, t)
-    return out
+    return L.tree_from_items(
+        (path, t.to(dt) if path[-2] in ("attn", "mlp") else t)
+        for path, t in L.tree_items(params))

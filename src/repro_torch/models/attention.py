@@ -23,8 +23,10 @@ from repro_torch.models.layers import P, fanin_std
 
 __all__ = ["NEG_INF", "padded_heads", "head_mask", "attention_schema",
            "apply_rope", "blockwise_attention", "decode_attention",
-           "decode_attention_ring", "qkv_project", "out_project",
-           "attention_block", "reference_attention"]
+           "decode_attention_ring", "gather_page_view",
+           "scatter_page_token", "scatter_page_prefill", "project",
+           "qkv_project", "out_project", "attention_block",
+           "reference_attention"]
 
 NEG_INF = -1e30
 
@@ -232,22 +234,97 @@ def decode_attention_ring(q, k_cache, v_cache, cl):
 
 
 # ---------------------------------------------------------------------------
+# Paged cache views
+# ---------------------------------------------------------------------------
+#
+# The paged twin of the dense decode cache (`serve/paged.py`): K/V rows
+# live in fixed-size pages of a preallocated pool leaf shaped
+# (n_pages, page_size, *rest), and a per-request block table maps view
+# positions to pages. The three helpers below are the only tensor ops the
+# paging layer needs: gather a contiguous attention view through the
+# block table, and scatter freshly written rows back (one row per lane
+# after a decode step, whole pages after a prefill). Both decode paths
+# (`decode_attention`'s linear mask, `decode_attention_ring`'s modulo
+# slots) run unchanged on the gathered view; a ring leaf's view is sliced
+# to exactly its window so that the ring path triggers as on the dense
+# cache. Page 0 is reserved as scratch: block-table entries past a
+# request's allocation (and whole rows of empty lanes) point at it, and
+# the positions they back are always masked, so they add exactly zero to
+# the softmax's sums. (The view is shorter than the dense cache, so the
+# sums run over another length: on the card another kernel shape, close
+# to the dense result rather than bitwise.)
+
+
+def gather_page_view(pool, block_table, *, batch_ax, seq_ax, seq_len):
+    """One leaf's dense attention view through a block table.
+
+    ``pool``: (n_pages, page_size, *rest); ``block_table``: (L, Q) integer
+    page ids per lane. Returns a new tensor laid out as the leaf's dense
+    twin (lanes at ``batch_ax``, the sequence at ``seq_ax``) with view
+    length ``min(seq_len, Q * page_size)``: a ring leaf (seq_len = W) is
+    sliced to exactly W; a linear leaf spans only the pages allocated."""
+    L, Q = block_table.shape
+    ps = pool.shape[1]
+    v = pool[block_table]                            # (L, Q, ps, *rest)
+    v = v.reshape((L, Q * ps) + tuple(pool.shape[2:]))
+    v = v[:, :min(seq_len, Q * ps)]
+    return torch.movedim(v, (0, 1), (batch_ax, seq_ax))
+
+
+def scatter_page_token(pool, view, block_table, pos, *, batch_ax, seq_ax):
+    """Write each lane's one decoded K/V row of ``view`` back to its page,
+    in place. ``pos`` is the (L,) absolute cache position the decode step
+    wrote; the view row is ``pos % view_len`` (the identity for a linear
+    view, the ring slot for a ring view). Lanes whose row lands on the
+    scratch page (empty lanes) collide there: which write wins is
+    undefined, and scratch rows only ever back masked positions."""
+    ps = pool.shape[1]
+    vm = torch.movedim(view, (batch_ax, seq_ax), (0, 1))  # (L, Sv, *rest)
+    L, sv = vm.shape[0], vm.shape[1]
+    lanes = torch.arange(L, device=pool.device)
+    p = torch.remainder(pos.to(device=pool.device, dtype=torch.long), sv)
+    rows = vm[lanes, p]                              # (L, *rest)
+    page = block_table[lanes, torch.div(p, ps, rounding_mode="floor")]
+    pool[page, torch.remainder(p, ps)] = rows.to(pool.dtype)
+    return pool
+
+
+def scatter_page_prefill(pool, view, block_table, *, batch_ax, seq_ax):
+    """Write a freshly prefilled view into pages, whole pages at a time,
+    in place: the view is zero-padded up to a whole page and every page
+    the first ``ceil(view_len / page_size)`` block-table columns name is
+    overwritten; rows past a request's allocation land on scratch. What
+    the dense engine's slot merge becomes under paging."""
+    ps = pool.shape[1]
+    vm = torch.movedim(view, (batch_ax, seq_ax), (0, 1))  # (L, Sv, *rest)
+    L, sv = vm.shape[0], vm.shape[1]
+    npg = -(-sv // ps)
+    if npg * ps != sv:
+        vm = torch.cat([vm, vm.new_zeros((L, npg * ps - sv)
+                                         + tuple(vm.shape[2:]))], dim=1)
+    vm = vm.reshape((L, npg, ps) + tuple(vm.shape[2:]))
+    pool[block_table[:, :npg]] = vm.to(pool.dtype)
+    return pool
+
+
+# ---------------------------------------------------------------------------
 # Full attention block
 # ---------------------------------------------------------------------------
 
-def qkv_project(params, x, cfg):
-    """x: (B, S, d) -> q (B, S, Hp, dh), k and v (B, S, KV, dh), in x's
-    dtype (weights cast to it, as the reference's ``.astype``)."""
+def project(x, w, b=None):
+    """x: (B, S, d) times a (d, heads, dh) weight, plus a (heads, dh) bias
+    where given, in x's dtype (weights cast to it, as the reference's
+    ``.astype``): (B, S, heads, dh)."""
     B, S, d = x.shape
-    dt = x.dtype
+    y = torch.matmul(x, w.to(x.dtype).reshape(d, -1)).view(B, S, *w.shape[1:])
+    return y + b.to(x.dtype) if b is not None else y
 
-    def proj(w, b):
-        y = torch.matmul(x, w.to(dt).reshape(d, -1)).view(B, S, *w.shape[1:])
-        return y + b.to(dt) if b is not None else y
 
-    return (proj(params["wq"], params.get("bq")),
-            proj(params["wk"], params.get("bk")),
-            proj(params["wv"], params.get("bv")))
+def qkv_project(params, x, cfg):
+    """x: (B, S, d) -> q (B, S, Hp, dh), k and v (B, S, KV, dh)."""
+    return (project(x, params["wq"], params.get("bq")),
+            project(x, params["wk"], params.get("bk")),
+            project(x, params["wv"], params.get("bv")))
 
 
 def out_project(params, o, x_dtype, cfg):
@@ -263,8 +340,8 @@ def out_project(params, o, x_dtype, cfg):
     return out.to(x_dtype)
 
 
-def attention_block(params, x, *, cfg, positions, causal=True, cache=None,
-                    cache_len=None):
+def attention_block(params, x, *, cfg, positions, causal=True, cross_kv=None,
+                    cache=None, cache_len=None):
     """One attention sub-layer (no norm/residual — the caller owns those).
 
     Returns (out, cache). ``cache`` is a (k, v) pair of one layer's
@@ -279,8 +356,18 @@ def attention_block(params, x, *, cfg, positions, causal=True, cache=None,
         copy (`models.transformer.apply_stack` does);
       * decode (x is (B, 1, d), cache given): each row b's K/V is written
         in place at position ``cache_len[b]`` (slot cache_len % W for a
-        ring), then attends over the cache.
+        ring), then attends over the cache;
+      * ``cross_kv`` = (k, v), precomputed (B, S_enc, KV, dh) encoder keys
+        and values: cross-attention of x's queries over them, unmasked,
+        returning (out, None).
     """
+    if cross_kv is not None:
+        k, v = cross_kv
+        q = project(x, params["wq"], params.get("bq"))
+        o = blockwise_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk,
+                                kv_chunk=cfg.kv_chunk)
+        return out_project(params, o, x.dtype, cfg), None
+
     q, k, v = qkv_project(params, x, cfg)
     if cfg.rope_style != "none":
         q = apply_rope(q, positions, theta=cfg.rope_theta,

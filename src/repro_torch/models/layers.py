@@ -15,16 +15,19 @@ sorted key order, the order in which the JAX package flattens them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 __all__ = ["P", "fanin_std", "stack_schema", "tree_map", "tree_items",
-           "init_params", "param_count", "norm_schema", "apply_norm",
-           "embed_schema", "embed", "unembed", "linear_head_schema",
-           "linear_head", "mlp_schema", "apply_mlp"]
+           "tree_from_items", "init_params", "param_count", "norm_schema",
+           "apply_norm", "embed_schema", "embed", "unembed",
+           "linear_head_schema", "linear_head", "mlp_schema", "apply_mlp",
+           "sinusoidal_positions"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +64,18 @@ def tree_items(tree, prefix: tuple = ()):
         return
     for k in sorted(tree):
         yield from tree_items(tree[k], prefix + (k,))
+
+
+def tree_from_items(items) -> dict:
+    """The nested dict whose leaves are the (path, leaf) pairs ``items``
+    (the inverse of `tree_items`)."""
+    out: dict = {}
+    for path, leaf in items:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
 
 
 def fanin_std(fan_in: int) -> float:
@@ -189,3 +204,21 @@ def apply_mlp(params, x, *, act: str = "silu"):
     if "b_out" in params:
         out = out + params["b_out"].to(dt)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Misc
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=16)
+def sinusoidal_positions(seq_len: int, d: int, dtype=torch.float32,
+                         device="cpu"):
+    """(seq_len, d) absolute positions, sines then cosines, computed in
+    float64 (numpy, as the reference) and cast once to ``dtype`` on
+    ``device``; row p is the same for every ``seq_len`` > p."""
+    pos = np.arange(seq_len)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    inv = 1.0 / (10000 ** (2 * dim / d))
+    ang = pos * inv
+    out = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.as_tensor(out).to(device=device, dtype=dtype)

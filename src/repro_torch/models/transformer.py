@@ -1,13 +1,18 @@
 """Config-driven layer-stack assembler (the port's counterpart of the JAX
-package's `models/transformer.py`), dense family.
+package's `models/transformer.py`), dense and encoder-decoder families.
 
 A stack is a list of Segments; each Segment is a repeated *pattern* of
 layers whose parameters are stacked on a leading "layers" axis. A layer
-is an ordered tuple of sublayer kinds; the dense transformer layer is
-``("attn", "mlp")``. Where the reference scans the layer axis with
-``lax.scan`` (remat-wrapped for training), the port loops over it.
-The MoE, RWKV, Mamba, shared-attention and encoder-decoder layers come
-with their own slices (`unsupported_family`).
+is an ordered tuple of sublayer kinds:
+
+    ("attn", "mlp")            dense transformer layer (and whisper's
+                               encoder layer, run without a causal mask)
+    ("attn", "cross", "mlp")   whisper decoder layer
+
+Where the reference scans the layer axis with ``lax.scan``
+(remat-wrapped for training), the port loops over it. The MoE, RWKV,
+Mamba and shared-attention layers come with their own slices
+(`unsupported_family`).
 """
 from __future__ import annotations
 
@@ -20,23 +25,23 @@ from repro_torch.models import attention as att
 from repro_torch.models import layers as L
 from repro_torch.models.layers import P
 
-__all__ = ["Segment", "stack_plan", "stack_schema", "cache_schema", "Ctx",
-           "apply_stack", "unsupported_family"]
+__all__ = ["Segment", "stack_plan", "encoder_plan", "stack_schema",
+           "cache_schema", "paged_pool_schema", "Ctx", "apply_stack",
+           "unsupported_family"]
 
 # the slice of the port that brings each family the dense slice lacks
 LATER_SLICES = {
     "moe": "the MoE slice (models/moe.py)",
     "ssm": "the RWKV slice (models/rwkv.py)",
     "hybrid": "the Mamba2 hybrid slice (models/mamba.py)",
-    "audio": "the encoder-decoder slice (whisper's cross-attention)",
     "vlm": "the vision-language slice (mrope)",
 }
 
 
 def unsupported_family(cfg) -> None:
-    """Raise `NotImplementedError` for a config outside the dense slice,
-    naming the slice that brings it."""
-    if cfg.family != "dense":
+    """Raise `NotImplementedError` for a config outside the dense and
+    encoder-decoder families, naming the slice that brings it."""
+    if cfg.family not in ("dense", "audio"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; it comes "
             f"with {LATER_SLICES.get(cfg.family, 'a later slice')}")
@@ -50,7 +55,13 @@ class Segment:
 
 def stack_plan(cfg) -> list[Segment]:
     unsupported_family(cfg)
+    if cfg.is_encdec:
+        return [Segment((("attn", "cross", "mlp"),), cfg.num_layers)]  # decoder
     return [Segment((("attn", "mlp"),), cfg.num_layers)]
+
+
+def encoder_plan(cfg) -> list[Segment]:
+    return [Segment((("attn", "mlp"),), cfg.encoder_layers)]
 
 
 # ---------------------------------------------------------------------------
@@ -58,7 +69,7 @@ def stack_plan(cfg) -> list[Segment]:
 # ---------------------------------------------------------------------------
 
 def _sublayer_schema(kind: str, cfg):
-    if kind == "attn":
+    if kind in ("attn", "cross"):
         return {"norm": L.norm_schema(cfg.d_model, cfg.norm_type),
                 "attn": att.attention_schema(cfg)}
     if kind == "mlp":
@@ -79,10 +90,16 @@ def stack_schema(cfg, plan) -> dict:
 
 
 def _sublayer_cache_schema(kind: str, cfg, batch: int, max_len: int):
-    if kind != "attn":
-        return None  # mlp: stateless
     KV, dh = cfg.num_kv_heads, cfg.hd
     kv_axes = ("batch", "seq", "kv_heads", "head_dim")
+    if kind == "cross":
+        # encoder K/V: computed once at prefill, read by every decoded token
+        return {"ek": P((batch, cfg.enc_ctx, KV, dh), kv_axes, 0.0,
+                        cfg.compute_dtype),
+                "ev": P((batch, cfg.enc_ctx, KV, dh), kv_axes, 0.0,
+                        cfg.compute_dtype)}
+    if kind != "attn":
+        return None  # mlp: stateless
     # sliding-window archs only ever attend to the last `window` keys: a
     # RING of `window` slots when the window is under max_len
     slots = max_len
@@ -105,6 +122,32 @@ def cache_schema(cfg, plan, batch: int, max_len: int) -> dict:
     return out
 
 
+def paged_pool_schema(cfg, plan, *, n_pages: int, page_size: int,
+                      max_len: int) -> dict:
+    """The PAGED view of `cache_schema`: one pool leaf per cache leaf.
+
+    Each dense leaf's named "batch" and "seq" axes are replaced by a
+    leading (pages, page) pair (pool shape ``(n_pages, page_size,
+    *rest)``, the remaining axes in their order), so that a per-request
+    block table and `models.attention.gather_page_view` rebuild the dense
+    per-slot layout. A ring leaf pages its W slots the same way; a leaf
+    without a "seq" axis cannot be paged and raises ``ValueError`` (the
+    serving layer raises its typed `serve.errors.PagedCacheUnsupported`
+    before it gets here)."""
+    def pool_leaf(p: P) -> P:
+        if "batch" not in p.axes or "seq" not in p.axes:
+            raise ValueError(
+                f"cache leaf with axes {p.axes} has no (batch, seq) pair "
+                f"to page over")
+        b, s = p.axes.index("batch"), p.axes.index("seq")
+        rest = [i for i in range(len(p.shape)) if i not in (b, s)]
+        return P((n_pages, page_size) + tuple(p.shape[i] for i in rest),
+                 ("pages", "page") + tuple(p.axes[i] for i in rest),
+                 0.0, p.dtype)
+
+    return L.tree_map(pool_leaf, cache_schema(cfg, plan, 1, max_len))
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -116,6 +159,7 @@ class Ctx:
     positions: Any              # (B, S) integer tensor
     cache_len: Any = None       # (B,) integer tensor (decode)
     causal: bool = True
+    enc_out: Any = None         # encoder output for cross sublayers
 
 
 def _apply_sublayer(kind, params, x, cache, ctx):
@@ -127,6 +171,25 @@ def _apply_sublayer(kind, params, x, cache, ctx):
         out, _ = att.attention_block(
             params["attn"], h, cfg=cfg, positions=ctx.positions,
             causal=ctx.causal, cache=kv, cache_len=ctx.cache_len)
+        return x + out
+    if kind == "cross":
+        if ctx.mode == "decode" and cache is not None:
+            ek, ev = cache["ek"], cache["ev"]     # prefilled encoder K/V
+        else:
+            ek = att.project(ctx.enc_out, params["attn"]["wk"],
+                             params["attn"].get("bk"))
+            ev = att.project(ctx.enc_out, params["attn"]["wv"],
+                             params["attn"].get("bv"))
+        out, _ = att.attention_block(params["attn"], h, cfg=cfg,
+                                     positions=ctx.positions,
+                                     cross_kv=(ek, ev))
+        if cache is not None and ctx.mode == "prefill":
+            if ek.shape[1] != cache["ek"].shape[1]:
+                raise ValueError(
+                    f"{ek.shape[1]} encoder frames, the cache holds "
+                    f"enc_ctx = {cache['ek'].shape[1]}")
+            cache["ek"].copy_(ek)
+            cache["ev"].copy_(ev)
         return x + out
     if kind == "mlp":
         return x + L.apply_mlp(params["mlp"], h, act=cfg.act)

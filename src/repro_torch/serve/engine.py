@@ -1,6 +1,7 @@
 """Serving engine layer: the LM `Engine`, continuous-batching decode over
-fixed slots, and `ColumnScheduler`, the admission policy for continuous
-biosignal streams — the reference's `serve/engine.py`, in PyTorch.
+fixed slots, its paged twin `PagedEngine`, and `ColumnScheduler`, the
+admission policy for continuous biosignal streams — the reference's
+`serve/engine.py`, in PyTorch.
 
 `Engine`: requests occupy slots of a fixed-capacity batch; each engine
 step decodes one token for every slot (one batched decode call — free
@@ -17,9 +18,13 @@ torch; greedy tokens are the reference's exactly.) The dispatch path is
 factored into the reference's overridable hooks (`_admissible`,
 `_pre_dispatch_prefill`, `_prefill_dispatch`, `_decode_dispatch`,
 `_slot_retires`, `_on_retire`, `_on_finish`, `_on_evict`) for a
-supervision layer. Typed errors at the admission boundary:
-`PromptTooLong` at `add_request`, `EngineStalled` from
-`run_to_completion`.
+supervision layer (`serve/engine_fault.py`). An encoder-decoder model
+(whisper) admits token at a time through decode, as the reference's.
+Typed errors at the admission boundary: `PromptTooLong` at
+`add_request`, `EngineStalled` from `run_to_completion`.
+
+`PagedEngine`: the same engine over a paged KV cache (`serve/paged.py`),
+admission bounded by free pages instead of slots.
 
 `ColumnScheduler`: independent streams are placed on distinct column
 replicas (devices), the multi-tenant complement of dealing one stream
@@ -52,14 +57,18 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.api import cast_params, init_cache
-from repro_torch.models.layers import tree_items, tree_map
+from repro_torch.models.layers import (tree_from_items, tree_items,
+                                       tree_map)
 from repro_torch.runtime.fault import (HeartbeatMonitor,
                                        InsufficientHealthyWorkers,
                                        StragglerDetector)
-from repro_torch.serve.errors import EngineStalled, PromptTooLong
+from repro_torch.serve import paged
+from repro_torch.serve.errors import (EngineStalled, InsufficientPages,
+                                      PagedCacheUnsupported,  # noqa: F401
+                                      PromptTooLong)
 
-__all__ = ["Request", "Engine", "sample_per_request", "ColumnScheduler",
-           "cuda_devices"]
+__all__ = ["Request", "Engine", "PagedEngine", "sample_per_request",
+           "ColumnScheduler", "cuda_devices"]
 
 
 @dataclasses.dataclass
@@ -120,7 +129,7 @@ class Engine:
         self.max_len = max_len
         self.temperature = temperature
         self.seed = seed
-        self.cache = init_cache(model, slots, max_len, device=self.device)
+        self.cache = self._init_cache()
         self.live: list[Optional[Request]] = [None] * slots
         self.lens = np.zeros(slots, np.int32)
         self.queue: list[Request] = []
@@ -135,6 +144,11 @@ class Engine:
                                    model.cache_schema(slots, max_len))
         self._prefill, self._decode = (compiled if compiled is not None
                                        else self.compile_model(model))
+
+    def _init_cache(self):
+        """The dense ``(slots, max_len)`` cache the engine decodes into."""
+        return init_cache(self.model, self.slots, self.max_len,
+                          device=self.device)
 
     @staticmethod
     def compile_model(model):
@@ -208,6 +222,28 @@ class Engine:
         admitted = self._pre_dispatch_prefill(admitted)
         if not admitted:
             return
+        if getattr(self.model.cfg, "is_encdec", False):
+            # an enc-dec decoder has no engine-supplied encoder frames
+            # (prefill would run the encoder), so it admits token at a
+            # time through decode, as the reference's: a full-slot batch
+            # a token. Decode writes every slot's row in place, so it
+            # runs on a copy of the self-attention K/V (the encoder K/V,
+            # which decode only reads, are shared) and slot s's rows are
+            # merged back once its sequence is in.
+            for s, req in admitted:
+                seq = req.prompt + req.out
+                cache = tree_from_items(
+                    (path, leaf if path[-1] in ("ek", "ev") else leaf.clone())
+                    for path, leaf in tree_items(self.cache))
+                for t, tok in enumerate(seq):
+                    batch = {"tokens": torch.full((self.slots, 1), tok,
+                                                  dtype=torch.int64,
+                                                  device=self.device),
+                             "cache_len": torch.tensor(t, device=self.device)}
+                    _, cache = self._decode(self.params, batch, cache)
+                self.cache = self._merge_slots(cache, [s])
+                self.lens[s] = len(seq)
+            return
         pad_ok = self._pad_ok()
         buckets: dict[int, list] = {}
         for s, req in admitted:
@@ -229,12 +265,14 @@ class Engine:
         """Copy the admitted ``slots``' rows of ``new_cache`` into the live
         cache, in place, along each leaf's slot axis (from the schema,
         `self._slot_axes`); every other slot's rows stay bitwise as they
-        were. Returns the live cache."""
+        were, and a leaf ``new_cache`` shares with it is left alone.
+        Returns the live cache."""
         idx = torch.as_tensor(sorted(slots), device=self.device)
         for (_, old), (_, new), (_, ax) in zip(
                 tree_items(self.cache), tree_items(new_cache),
                 tree_items(self._slot_axes)):
-            old.index_copy_(ax, idx, new.index_select(ax, idx))
+            if new is not old:
+                old.index_copy_(ax, idx, new.index_select(ax, idx))
         return self.cache
 
     def _decode_dispatch(self, batch):
@@ -308,6 +346,187 @@ class Engine:
         if not self._work_pending():
             return done
         raise EngineStalled(sorted(self._pending_rids()), done=done)
+
+
+class PagedEngine(Engine):
+    """`Engine` with a paged KV cache: ADMISSION IS BOUNDED BY FREE
+    PAGES, not by ``slots``.
+
+    Every request's K/V lives in fixed-size pages of one preallocated
+    pool (`serve/paged.py`), so:
+
+    * ``slots`` is only the DECODE LANE count (the batch width of one
+      decode dispatch). Admission pulls from the queue while the free
+      pages cover a request's worst-case footprint (``ceil(min(len +
+      max_new, max_len) / page_size)`` pages, the max over cache leaves;
+      a ring leaf never needs more than its W slots). Admitted requests
+      beyond the lane count wait PREFILLED in ``paused``; when a lane
+      frees, the refill is a block-table row swap (no prefill, no copy).
+      With the default pool (the dense engine's memory, ``slots *
+      ceil(max_len / page_size)`` pages plus scratch) short requests
+      oversubscribe the lanes: ``peak_admitted`` > ``slots``.
+    * prefill and decode read and write THROUGH the block table
+      (`serve.paged.paged_prefill` / `paged_decode`, one dispatch each,
+      as dense); the dense slot merge becomes page assignment.
+    * decode attends over each lane's ALLOCATED span instead of
+      ``max_len``; masked positions add exactly zero. On the CPU in
+      float32 the tokens equal the dense engine's; on the card the
+      shorter span is another kernel shape, so bfloat16 logits are
+      close to the dense engine's, not bitwise.
+
+    A model whose cache cannot be paged (recurrent state, enc-dec)
+    raises the typed `PagedCacheUnsupported` at construction; a request
+    whose footprint exceeds the POOL raises `InsufficientPages` at
+    `add_request`. The supervision layer stacks on top unchanged
+    (`serve/engine_fault.py:FaultTolerantPagedEngine`)."""
+
+    def __init__(self, model, params, *, slots: int = 4, max_len: int = 256,
+                 temperature: float = 0.0, seed: int = 0, compiled=None,
+                 device="cuda", page_size: int = 16,
+                 n_pages: Optional[int] = None):
+        if n_pages is None:
+            # the dense engine's exact K/V memory, repartitioned into
+            # pages (+1 for scratch): oversubscription comes from
+            # requests shorter than max_len, not from extra memory
+            n_pages = slots * (-(-max_len // page_size)) + 1
+        self.pool = paged.PagePool(model, page_size=page_size,
+                                   n_pages=n_pages, max_len=max_len,
+                                   device=device)
+        self.table = paged.PageTable(self.pool)
+        super().__init__(model, params, slots=slots, max_len=max_len,
+                         temperature=temperature, seed=seed,
+                         compiled=compiled, device=device)
+        # admitted (pages held, prefilled) but waiting for a free lane
+        self.paused: list[Request] = []
+        self.peak_admitted = 0   # max concurrent admissions observed
+
+    def _init_cache(self):
+        return None              # every K/V row lives in the pool
+
+    # ------------------------------------------------------- admission
+
+    def _pages_for(self, req: Request) -> int:
+        total = min(len(req.prompt) + len(req.out) + req.max_new,
+                    self.max_len)
+        return self.pool.pages_for(total)
+
+    def add_request(self, req: Request):
+        """Page-aware admission bound: a request whose worst-case footprint
+        can NEVER fit the pool raises the typed `InsufficientPages` (the
+        paged twin of `PromptTooLong`); one that only exceeds the current
+        free count waits in the queue for pages to free."""
+        need = self._pages_for(req)
+        if need > self.pool.capacity:
+            raise InsufficientPages(need, self.pool.n_free,
+                                    self.pool.capacity)
+        super().add_request(req)
+
+    def _work_pending(self) -> bool:
+        return bool(self.paused) or super()._work_pending()
+
+    def _pending_rids(self) -> set:
+        return super()._pending_rids() | {r.rid for r in self.paused}
+
+    def _admit(self):
+        # 1. refill free lanes from the paused set first: their K/V is
+        # already paged in, so the "prefill" is a block-table row swap
+        for s in range(self.slots):
+            if not self.paused:
+                break
+            if self._admissible(s):
+                req = self.paused.pop(0)
+                self.live[s] = req
+                self.lens[s] = len(req.prompt) + len(req.out)
+        # 2. admit from the queue while free pages cover the head
+        # request's footprint: THE admission bound; lanes don't gate it
+        admitted: list[Request] = []
+        while self.queue:
+            need = self._pages_for(self.queue[0])
+            if need > self.pool.n_free:
+                break
+            req = self.queue.pop(0)
+            self.table.assign(req.rid, need)
+            admitted.append(req)
+        n_live = sum(r is not None for r in self.live)
+        self.peak_admitted = max(
+            self.peak_admitted, n_live + len(self.paused) + len(admitted))
+        if not admitted:
+            return
+        # 3. claim free lanes for as many as fit; the rest decode later
+        lane_pairs, pausing = [], []
+        for req in admitted:
+            s = next((s for s in range(self.slots)
+                      if self._admissible(s)), None)
+            if s is None:
+                pausing.append(req)
+            else:
+                self.live[s] = req
+                self.lens[s] = len(req.prompt) + len(req.out)
+                lane_pairs.append((s, req))
+        # the supervision hook probes LANE claims (a paused admission has
+        # no slot yet; it is probed when it joins a lane's decodes)
+        kept = self._pre_dispatch_prefill(lane_pairs)
+        jobs = kept + [(None, r) for r in pausing]
+        if not jobs:
+            return
+        # 4. prefill into pages, bucketed exactly like the dense engine
+        pad_ok = self._pad_ok()
+        buckets: dict[int, list] = {}
+        for s, req in jobs:
+            n = len(req.prompt) + len(req.out)
+            buckets.setdefault(self._length_bucket(n) if pad_ok else n,
+                               []).append((s, req))
+        ps = self.pool.page_size
+        for width, group in sorted(buckets.items()):
+            qbt = paged.prefill_table_width(self.pool.specs, ps, width)
+            for i0 in range(0, len(group), self.slots):
+                chunk = group[i0:i0 + self.slots]
+                tokens = np.zeros((self.slots, width), np.int64)
+                for row, (s, req) in enumerate(chunk):
+                    seq = req.prompt + req.out
+                    tokens[row, :len(seq)] = seq
+                bt = self.table.block_table(
+                    [req.rid for _, req in chunk] +
+                    [None] * (self.slots - len(chunk)), width=qbt)
+                self._prefill_dispatch(
+                    {"tokens": torch.as_tensor(tokens, device=self.device),
+                     "block_table": torch.as_tensor(bt, device=self.device)})
+        self.paused.extend(pausing)
+
+    # ------------------------------------------------------- dispatch
+
+    def _prefill_dispatch(self, batch):
+        logits, _ = paged.paged_prefill(
+            self._prefill, self.pool.paths, self.pool.specs, self.params,
+            {"tokens": batch["tokens"]}, self.pool.leaves,
+            batch["block_table"])
+        return logits, None
+
+    def _decode_dispatch(self, batch):
+        bt = self.table.block_table(
+            [r.rid if r is not None else None for r in self.live])
+        logits, _ = paged.paged_decode(
+            self._decode, self.pool.paths, self.pool.specs, self.params,
+            batch, self.pool.leaves, torch.as_tensor(bt, device=self.device))
+        return logits, None
+
+    # ------------------------------------------------------- lifecycle
+
+    def _on_finish(self, s: int, req: Request) -> None:
+        self.table.release(req.rid)
+        super()._on_finish(s, req)
+
+    def _on_evict(self, req: Request) -> None:
+        # the replay re-admits against FRESH pages; stale ones free now
+        if self.table.holds(req.rid):
+            self.table.release(req.rid)
+        super()._on_evict(req)
+
+    def defrag(self) -> dict[int, int]:
+        """Compact allocated pages onto the lowest ids (see
+        `serve.paged.PageTable.defrag`); safe mid-decode, and the
+        continuation is bitwise the same."""
+        return self.table.defrag()
 
 
 def cuda_devices() -> list[torch.device]:

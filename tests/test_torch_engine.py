@@ -14,6 +14,10 @@ torch.
   submission order do not change a request's tokens; seeds and rids
   give distinct streams; and the sampler draws the categorical of the
   logits.
+* The encoder-decoder admission (reduced whisper-medium, vocab 64): one
+  decode per prompt token into a copy of the cache, one merge each; its
+  greedy tokens equal the reference `Engine`'s, and a live slot's cache
+  rows are untouched by another slot's admission.
 * The admission boundary and the cache merge: `PromptTooLong`,
   `EngineStalled`, the bucket capped at max_len, one prefill per bucket,
   and the slot axis taken from the schema (with num_layers == slots a
@@ -289,3 +293,56 @@ def test_engine_defaults_to_the_card(setup):
         Engine(model, params, slots=2, max_len=16)
     with pytest.raises(RuntimeError, match="cuda"):
         Engine(model, params, slots=2, max_len=16, device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder: token-at-a-time admission
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def encdec():
+    jcfg = dataclasses.replace(j_reduced(j_get_config("whisper-medium")),
+                               vocab_size=64)
+    jm = j_build_model(jcfg)
+    jp = j_init_model_params(jm, seed=3)
+    cfg = dataclasses.replace(reduced(get_config("whisper-medium")),
+                              vocab_size=64)
+    model = build_model(cfg, device="cpu")
+    params = params_from_numpy(model, jax.tree.map(np.asarray, jp),
+                               device="cpu")
+    return model, params, (jm, jp, JEngine.compile_model(jm))
+
+
+@pytest.mark.parametrize("slots", [1, 2, 3])
+def test_encdec_greedy_tokens_equal_the_reference_engine(encdec, slots):
+    jm, jp, compiled = encdec[2]
+    ref = JEngine(jm, jp, slots=slots, max_len=64, compiled=compiled)
+    for rid in PROMPTS:
+        ref.add_request(JRequest(rid, list(PROMPTS[rid]), max_new=5))
+    want = {r.rid: tuple(r.out) for r in ref.run_to_completion(500)}
+    assert _serve(encdec, list(PROMPTS), slots=slots,
+                  temperature=0.0) == want
+
+
+def test_encdec_admission_leaves_live_slots_untouched(encdec):
+    """Admitting a request into slot 1 runs one full-slot decode per
+    prompt token; slot 0, decoding meanwhile, keeps every cache row
+    bitwise, and the tokens are the reference's for the same schedule."""
+    eng = _engine(encdec, slots=2)
+    eng.add_request(Request(0, [3, 1, 4, 1], max_new=6))
+    eng.step()
+    eng.step()
+    before0 = _snapshot(eng, 0)
+    eng.add_request(Request(1, [5, 9, 2], max_new=3))
+    eng._admit()
+    assert eng.lens[1] == 3 and eng.live[1].rid == 1
+    for a, b in zip(before0, _snapshot(eng, 0)):
+        assert torch.equal(a, b)
+    done = {r.rid: r.out for r in eng.run_to_completion()}
+    jm, jp, compiled = encdec[2]
+    ref = JEngine(jm, jp, slots=2, max_len=64, compiled=compiled)
+    ref.add_request(JRequest(0, [3, 1, 4, 1], max_new=6))
+    ref.step()
+    ref.step()
+    ref.add_request(JRequest(1, [5, 9, 2], max_new=3))
+    assert done == {r.rid: r.out for r in ref.run_to_completion()}

@@ -1,6 +1,6 @@
-"""The port's dense LM stack (`repro_torch.configs`, `models/layers.py`,
-`models/attention.py`, `models/transformer.py`, `models/api.py`) against
-the JAX package's, on the CPU.
+"""The port's LM stack, dense and encoder-decoder (`repro_torch.configs`,
+`models/layers.py`, `models/attention.py`, `models/transformer.py`,
+`models/api.py`), against the JAX package's, on the CPU.
 
 Inputs are drawn from a numpy seed; the parameters are the JAX package's
 `init_model_params`, carried into the port by `params_from_numpy`, with
@@ -81,7 +81,8 @@ def test_every_reference_config_is_registered_alike():
 
 
 @pytest.mark.parametrize("name", ["qwen1.5-0.5b", "h2o-danube-3-4b",
-                                  "starcoder2-7b", "deepseek-coder-33b"])
+                                  "starcoder2-7b", "deepseek-coder-33b",
+                                  "whisper-medium"])
 def test_full_width_schema_matches_the_reference(name):
     """Every parameter leaf of a dense config at its published widths has
     the reference's path, shape and axes (schemas only: nothing is
@@ -101,8 +102,7 @@ def test_full_width_schema_matches_the_reference(name):
 
 
 @pytest.mark.parametrize("name", ["deepseek-moe-16b", "rwkv6-7b",
-                                  "zamba2-7b", "whisper-medium",
-                                  "qwen2-vl-2b"])
+                                  "zamba2-7b", "qwen2-vl-2b"])
 def test_build_model_refuses_families_outside_the_slice(name):
     cfg = reduced(get_config(name))
     with pytest.raises(NotImplementedError, match="slice"):
@@ -351,3 +351,136 @@ def test_model_decode_matches_forward(pair):
             "tokens": torch.as_tensor(tokens[:, S + t:S + t + 1]),
             "cache_len": S + t}, cache)
         torch.testing.assert_close(got[:, 0], full[:, S + t], **LOGIT_TOL)
+
+
+# ---------------------------------------------------------------------------
+# The encoder-decoder family: reduced whisper-medium
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seq_len,d,dtype", [
+    (1, 64, "float32"), (37, 64, "float32"), (8192, 1024, "float32"),
+    (1500, 1024, "bfloat16"), (16, 30, "float32")])
+def test_sinusoidal_positions(seq_len, d, dtype):
+    """Bitwise the reference's table (float64 numpy, cast once)."""
+    want = np.asarray(j_layers.sinusoidal_positions(
+        seq_len, d, getattr(jnp, dtype)).astype(jnp.float32))
+    got = L.sinusoidal_positions(seq_len, d, getattr(torch, dtype))
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+@pytest.fixture(scope="module")
+def whisper():
+    """(JAX model, params, port model, the same params, tokens, frames)
+    for reduced whisper-medium (2 + 2 layers, enc_ctx 16), the params
+    redrawn where the reference initialises constants."""
+    jm = j_build_model(j_reduced(j_get_config("whisper-medium")))
+    rng = np.random.default_rng(13)
+    tree = _randomize(jax.tree.map(np.asarray, j_init_model_params(jm, 2)),
+                      rng)
+    jp = jax.tree.map(jnp.asarray, tree)
+    tm = build_model(reduced(get_config("whisper-medium")), device="cpu")
+    tp = params_from_numpy(tm, tree, device="cpu")
+    cfg = tm.cfg
+    tokens = rng.integers(0, cfg.vocab_size, (B, 12 + N_DECODE))
+    frames = rng.normal(0, 0.5, (B, cfg.enc_ctx, cfg.d_model)).astype(
+        np.float32)
+    return jm, jp, tm, tp, tokens, frames
+
+
+def test_whisper_plan_and_cache_schema(whisper):
+    jm, _, tm, _, _, _ = whisper
+    assert [(s.pattern, s.repeats) for s in tm.plan] == \
+        [(s.pattern, s.repeats) for s in jm.plan] == \
+        [((("attn", "cross", "mlp"),), 2)]
+    mine = dict(L.tree_items(tm.cache_schema(3, 40)))
+    ref = {tuple(k.key for k in path): p for path, p in
+           jax.tree_util.tree_flatten_with_path(
+               jm.cache_schema(3, 40),
+               is_leaf=lambda x: isinstance(x, j_layers.P))[0]}
+    assert mine.keys() == ref.keys()
+    for k, p in mine.items():
+        assert (p.shape, p.axes) == (ref[k].shape, ref[k].axes), k
+    assert mine[("seg0", "l0_cross", "ek")].shape == (2, 3, 16, 4, 16)
+
+
+def test_cross_attention_block(whisper, rng):
+    """`attention_block` with ``cross_kv``: unmasked attention of x's
+    queries over encoder K/V of another length (enc_ctx 16, 5 chunks of
+    the reduced config's 32 at 150 frames)."""
+    jm, jp, tm, tp, _, _ = whisper
+    p = jax.tree.map(np.asarray, jp["stack"]["seg0"]["l0_cross"]["attn"])
+    p = {k: v[0] for k, v in p.items()}
+    x = rng.normal(size=(2, 5, 64)).astype(np.float32)
+    k = rng.normal(size=(2, 150, 4, 16)).astype(np.float32)
+    v = rng.normal(size=(2, 150, 4, 16)).astype(np.float32)
+    want, _ = j_att.attention_block(
+        jax.tree.map(jnp.asarray, p), jnp.asarray(x), cfg=jm.cfg,
+        positions=None, cross_kv=(jnp.asarray(k), jnp.asarray(v)))
+    got, none = att.attention_block(
+        {n: _t(a) for n, a in p.items()}, _t(x), cfg=tm.cfg, positions=None,
+        cross_kv=(_t(k), _t(v)))
+    assert none is None
+    _close(got, want, FN_TOL)
+
+
+def test_whisper_forward(whisper):
+    jm, jp, tm, tp, tokens, frames = whisper
+    batch = {"tokens": tokens[:, :12], "frames": frames}
+    want, _ = jax.jit(jm.forward)(jp, {k: jnp.asarray(v)
+                                       for k, v in batch.items()})
+    got, aux = tm.forward(tp, {k: torch.as_tensor(v)
+                               for k, v in batch.items()})
+    assert float(aux) == 0.0
+    _close(got, want, LOGIT_TOL)
+
+
+def test_whisper_prefill_then_decode(whisper):
+    """Prefill (the encoder, then the encoder K/V stored in the cache),
+    then decode with a per-row cache_len that reads them back: every
+    step's logits and the whole cache against the reference's."""
+    jm, jp, tm, tp, tokens, frames = whisper
+    jc = j_init_cache(jm, B, 32)
+    tc = init_cache(tm, B, 32, device="cpu")
+    first = {"tokens": tokens[:, :12], "frames": frames}
+    want, jc = jax.jit(jm.prefill)(jp, {k: jnp.asarray(v)
+                                        for k, v in first.items()}, jc)
+    got, tc = tm.prefill(tp, {k: torch.as_tensor(v)
+                              for k, v in first.items()}, tc)
+    _close(got, want, LOGIT_TOL)
+    assert tc["seg0"]["l0_cross"]["ek"][1].abs().sum() > 0
+    jdec = jax.jit(jm.decode)
+    for t in range(N_DECODE):
+        cl = np.array([12 + t, 9 + t], np.int32)
+        tok = tokens[:, 12 + t:13 + t]
+        want, jc = jdec(jp, {"tokens": jnp.asarray(tok, jnp.int32),
+                             "cache_len": jnp.asarray(cl)}, jc)
+        got, tc = tm.decode(tp, {"tokens": torch.as_tensor(tok),
+                                 "cache_len": torch.as_tensor(cl)}, tc)
+        _close(got, want, LOGIT_TOL)
+    for (_, a), (_, b) in zip(L.tree_items(tc), L.tree_items(
+            jax.tree.map(np.asarray, jc))):
+        _close(a, b, FN_TOL)
+
+
+def test_whisper_decode_with_enc_out_override(whisper, rng):
+    """Decode without a cache reads the encoder output from the batch's
+    ``enc_out`` (the reference's override), positions at cache_len."""
+    jm, jp, tm, tp, tokens, _ = whisper
+    enc = rng.normal(size=(B, 10, 64)).astype(np.float32)
+    batch = {"tokens": tokens[:, :1], "cache_len": np.array([0, 5]),
+             "enc_out": enc}
+    want, _ = jax.jit(jm.decode)(jp, {k: jnp.asarray(v)
+                                      for k, v in batch.items()}, None)
+    got, cache = tm.decode(tp, {k: torch.as_tensor(v)
+                                for k, v in batch.items()}, None)
+    assert cache is None
+    _close(got, want, LOGIT_TOL)
+
+
+def test_whisper_prefill_refuses_another_frame_count(whisper):
+    _, _, tm, tp, tokens, frames = whisper
+    cache = init_cache(tm, B, 32, device="cpu")
+    with pytest.raises(ValueError, match="enc_ctx"):
+        tm.prefill(tp, {"tokens": torch.as_tensor(tokens[:, :4]),
+                        "frames": torch.as_tensor(frames[:, :9])}, cache)

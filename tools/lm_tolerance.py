@@ -1,18 +1,31 @@
 #!/usr/bin/env python3
-"""What `chip_smoke.py`'s `LM_TOL` has to separate, read on the CPU at
-qwen1.5-0.5b's layer widths with the depth and the vocabulary cut.
+"""What `chip_smoke.py`'s `LM_TOL` and `WHISPER_TOL` have to separate,
+read on the CPU at the models' layer widths with the depth and the
+vocabulary cut.
 
     PYTHONPATH=src python3 tools/lm_tolerance.py [--layers 4 8 12] \
         [--vocab 32768]
+    PYTHONPATH=src python3 tools/lm_tolerance.py --arch whisper-medium \
+        [--layers 2 4] [--vocab 32768]
 
-For each depth: 4 prompts of 64-300 tokens are prefilled and then decoded
-8 steps teacher-forced in bfloat16; each step's logits are held against
-`model.forward` over the extended sequences (relative L2 error, as phase
-L2 reads it), and so are the logits of the same decode with its rope
-angle one position late (what phase L3's check must flag). It also
-prints bfloat16 against float32 compute of the forward, the whole
-rounding error of the compute dtype. Random weights from seed 0. A few
-seconds a depth; nothing here runs on a card.
+qwen1.5-0.5b, for each depth: 4 prompts of 64-300 tokens are prefilled
+and then decoded 8 steps teacher-forced in bfloat16; each step's logits
+are held against `model.forward` over the extended sequences (relative
+L2 error, as phase L2 reads it), and so are the logits of the same
+decode with its rope angle one position late (what phase L3's check
+must flag). It also prints bfloat16 against float32 compute of the
+forward, the whole rounding error of the compute dtype.
+
+whisper-medium, for each depth (that many encoder and decoder layers):
+one 8-token decoder prompt over the encoder output of 1,500 frames from
+a seed (phase P3's card-against-CPU input) is prefilled and decoded 4
+steps teacher-forced; each step's logits against `model.forward`, the
+same decode with its sinusoidal position one late, the same decode with
+the encoder K/V of the cache zeroed (a prefill that stored none), and
+bfloat16 against float32 compute of the forward.
+
+Random weights from seed 0. A few seconds a depth; nothing here runs on
+a card.
 """
 from __future__ import annotations
 
@@ -31,14 +44,20 @@ def rel_err(got, want) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, nargs="+", default=[4, 8, 12])
+    ap.add_argument("--arch", default="qwen1.5-0.5b",
+                    choices=["qwen1.5-0.5b", "whisper-medium"])
+    ap.add_argument("--layers", type=int, nargs="+", default=None)
     ap.add_argument("--vocab", type=int, default=32768)
     args = ap.parse_args(argv)
+    sys.path.insert(0, str(ROOT / "src"))
+    if args.arch == "whisper-medium":
+        for n_layers in args.layers or [2, 4]:
+            whisper_readings(n_layers, args.vocab)
+        return 0
 
     import numpy as np
     import torch
 
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.models import (build_model, cast_params, init_cache,
                                     init_model_params)
@@ -46,7 +65,7 @@ def main(argv=None) -> int:
     from repro_torch.models.layers import tree_map
 
     right = att.apply_rope
-    for n_layers in args.layers:
+    for n_layers in args.layers or [4, 8, 12]:
         cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
                                   num_layers=n_layers, vocab_size=args.vocab)
         model = build_model(cfg, device="cpu")
@@ -89,6 +108,68 @@ def main(argv=None) -> int:
               f"{min(wrong):.5f}-{max(wrong):.5f}; bfloat16 vs float32 "
               f"forward {min(dtype_err):.5f}-{max(dtype_err):.5f}")
     return 0
+
+
+WHISPER_PROMPT, WHISPER_STEPS, WHISPER_FRAMES = 8, 4, 1500
+
+
+def whisper_readings(n_layers: int, vocab: int) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import (build_model, cast_params, init_cache,
+                                    init_model_params)
+    from repro_torch.models import api
+    from repro_torch.models.layers import tree_map
+
+    cfg = dataclasses.replace(get_config("whisper-medium"),
+                              num_layers=n_layers, encoder_layers=n_layers,
+                              vocab_size=vocab)
+    model = build_model(cfg, device="cpu")
+    params = cast_params(model, init_model_params(model, 0, device="cpu"))
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(
+        1, vocab, (1, WHISPER_PROMPT + WHISPER_STEPS)))
+    frames = torch.as_tensor(rng.normal(
+        0, 1, (1, WHISPER_FRAMES, cfg.d_model)).astype(np.float32))
+    table = api.L.sinusoidal_positions
+    with torch.no_grad():
+        full, _ = model.forward(params, {"tokens": toks, "frames": frames})
+        cache = init_cache(model, 1, 64, device="cpu")
+        _, cache = model.prefill(params, {
+            "tokens": toks[:, :WHISPER_PROMPT], "frames": frames}, cache)
+        late = tree_map(torch.clone, cache)
+        blind = tree_map(torch.clone, cache)
+        for leaf in ("ek", "ev"):
+            blind["seg0"]["l0_cross"][leaf].zero_()
+        errs, wrong, zero = [], [], []
+        for t in range(WHISPER_STEPS):
+            n = WHISPER_PROMPT + t
+            batch = {"tokens": toks[:, n:n + 1],
+                     "cache_len": torch.as_tensor([n])}
+            want = full[:, n]
+            got, cache = model.decode(params, batch, cache)
+            errs.append(rel_err(got[:, 0], want))
+            api.L.sinusoidal_positions = \
+                lambda s, d, dt, dev: table(s, d, dt, dev)[1:]
+            try:
+                got, late = model.decode(params, batch, late)
+            finally:
+                api.L.sinusoidal_positions = table
+            wrong.append(rel_err(got[:, 0], want))
+            got, blind = model.decode(params, batch, blind)
+            zero.append(rel_err(got[:, 0], want))
+        f32 = build_model(dataclasses.replace(
+            cfg, compute_dtype=torch.float32), device="cpu")
+        full32, _ = f32.forward(params, {"tokens": toks, "frames": frames})
+        dtype_err = rel_err(full, full32)
+    print(f"whisper-medium {n_layers} + {n_layers} layers, vocab {vocab}, "
+          f"{WHISPER_FRAMES} frames (CPU): cache vs forward "
+          f"{min(errs):.5f}-{max(errs):.5f}; sinusoidal position one late "
+          f"{min(wrong):.5f}-{max(wrong):.5f}; encoder K/V zeroed "
+          f"{min(zero):.5f}-{max(zero):.5f}; bfloat16 vs float32 forward "
+          f"{dtype_err:.5f}")
 
 
 if __name__ == "__main__":
