@@ -4,6 +4,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases; needs one CUDA card
     python3 chip_smoke.py --quick    # build + kernels vs plain only
+    python3 chip_smoke.py --phase-m  # phase M alone (no build, no result)
 
 Phases, each printing one line (or a few):
 
@@ -156,6 +157,31 @@ P. paged KV, the supervised engines and the unified front-end, each run
    plain version; ``max_queue=1`` backpressure re-dispatches without a
    second launch; `lend_columns` (1, then 3: one stream re-pins) and
    `return_columns` restore the columns, the streams' outputs bitwise.
+M. the other model families at full width and depth, random weights
+   from seed 0 drawn and cast one leaf at a time (`init_cast_params`),
+   each run with the launch counts set to 0 before and read after (no
+   kernel may launch): deepseek-moe-16b (28 layers, 64 routed + 2
+   shared experts, top-6), rwkv6-7b (32 layers, d_model 4096), zamba2-7b
+   (81 Mamba2 layers, the shared attention block at 13 points) and
+   qwen2-vl-2b (256 patch embeddings, distinct t/h/w position streams).
+   For each: the load's time and peak memory; 4 prompts prefilled and 4
+   teacher-forced decode steps against forward within `M_CACHE_TOL` (MoE
+   at a capacity of E/k, which drops nothing, and at its own capacity
+   the prefill against forward on the same tokens); the first 2-6
+   layers of the same weights on the card against the host CPU within
+   `M_TOL` (MoE with the CPU replaying the card's top-k choices; the
+   share of choices that differ printed); what both checks read from a
+   mis-computation (`family_wrong`: routing one rank down, a recurrent
+   state read transposed, a decode at its sequence index instead of its
+   M-RoPE position; the run fails unless the tolerance flags it); for
+   rwkv and zamba2 a chunked prefill against 100 decode steps in
+   float32 compute; then `Engine(slots=4, max_len=1024)` on phase L's 8
+   requests greedy twice (identical) and at temperature 0.8, MoE also
+   through `PagedEngine(page_size=16)` (pages freed, agreement with
+   dense printed) and rwkv and zamba2 refused by it, typed; one decode
+   step's host wall, busy time and launches beside its bytes bound, and
+   generated tokens/s (qwen2-vl, which no engine serves: one timed
+   decode).
 
 The last two lines are a JSON object of per-kernel numbers and the
 contract line ``{"ok": true, "device": {...}}``. Any failing phase raises,
@@ -171,6 +197,7 @@ port only — never jax, never the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import gc
 import itertools
@@ -2180,12 +2207,13 @@ def lm_path(dev, card: str, cfg=None) -> dict:
 
 
 def decode_times(eng, walls, admits, cfg, weight_bytes, layer_params, model,
-                 card, tag="L5", busy_call=None) -> dict:
+                 card, tag="L5", busy_call=None, work=None) -> dict:
     """Decode ms per engine step of ``eng``'s run: CUDA-event span of each
     decode dispatch and host wall of each step without admission (medians
     of the warm steps, the first two left out), the card's busy time and
     launches of one decode (``busy_call``, default the model's decode on
-    the engine's cache), and the bound of the median step."""
+    the engine's cache), and the bound of the median step (``work(n_rows,
+    contexts)`` gives its bytes and operations; default `decode_work`)."""
     import numpy as np
     import torch
 
@@ -2198,8 +2226,9 @@ def decode_times(eng, walls, admits, cfg, weight_bytes, layer_params, model,
     mid = warm[len(warm) // 2]
     _, lens, live = steps[mid]
     contexts = [int(n) for n, a in zip(lens, live) if a]
-    nbytes, ops = decode_work(cfg, weight_bytes, layer_params, eng.slots,
-                              contexts)
+    nbytes, ops = (work(eng.slots, contexts) if work is not None else
+                   decode_work(cfg, weight_bytes, layer_params, eng.slots,
+                               contexts))
     bms, by = bound_ms(nbytes, ops, PEAK_BF16)
     batch = eng.last_batch
     busy, launches = device_busy(busy_call or (
@@ -2814,11 +2843,590 @@ def phase_p(dev, card: str, bio_app, lm_cfg=None, whisper_cfg=None) -> dict:
             "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
+# phase M: the other model families at full width and depth (random
+# weights)
+M_ARCHS = ("deepseek-moe-16b", "rwkv6-7b", "zamba2-7b", "qwen2-vl-2b")
+M_PARAM_SEED, M_DATA_SEED = 0, 11
+# the depth of the card-against-CPU check: deepseek's dense first layer
+# and one MoE layer; zamba2's first pattern (five Mamba2 layers, then one
+# with the shared attention block)
+M_CPU_LAYERS = {"deepseek-moe-16b": 2, "rwkv6-7b": 2, "zamba2-7b": 6,
+                "qwen2-vl-2b": 2}
+M_BATCH, M_PROMPT, M_FORCED = 4, 128, 4     # the cache check
+M_CPU_PROMPT, M_CPU_STEPS = 64, 4
+M_CONTINUE = 100                 # chunked prefill vs token-by-token decode
+M_TEXT = 64                      # qwen2-vl: text tokens after the image
+# Relative L2 error of one step's logits (`rel_err`), per family: M_TOL
+# for the card against the CPU at M_CPU_LAYERS (MoE with the CPU routed
+# as the card), M_CACHE_TOL for cache against forward at full depth.
+# `tools/lm_tolerance.py --arch <name>` on an H100 machine's host CPU:
+# bfloat16 against float32 forward 0.020 / 0.037 for deepseek at 2 / 4
+# layers (4.8% / 8.1% of its top-6 choices flipped), rwkv 0.010 / 0.018
+# / 0.083 at 2 / 4 / 8, zamba2 0.020 / 0.029 at 6 / 12; the
+# mis-computations 0.15-1.15. Deep random bfloat16 stacks amplify
+# rounding (rwkv: 8x from 2 to 8 layers) and MoE routes discretely: on
+# the card at 28 layers deepseek's cache against forward read
+# 0.017-0.057 and routing one rank down 0.43; unreplayed, 2 layers card
+# against CPU read up to 0.077 with 3.7% of the choices flipped.
+M_TOL = {name: LM_TOL for name in M_ARCHS}
+M_CACHE_TOL = {"deepseek-moe-16b": 0.1, "rwkv6-7b": 0.1, "zamba2-7b": 0.1,
+               "qwen2-vl-2b": LM_TOL}
+
+
+class Patched:
+    """Context manager: ``module.name`` is ``make(original)`` inside, the
+    original again on exit."""
+
+    def __init__(self, module, name: str, make):
+        self.module, self.name, self.make = module, name, make
+
+    def __enter__(self):
+        self.right = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.make(self.right))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.right)
+
+
+def family_wrong(name: str) -> tuple:
+    """(what it is, a context manager) of the mis-computation that phase
+    M's card-against-CPU check must flag for ``name``: each token routed
+    to its experts of ranks 2..k+1 (MoE), a decode step reading the
+    recurrent state with its last two axes swapped (rwkv's WKV state K
+    and V, zamba2's SSD state P and N: a layout fault), and a decode
+    whose M-RoPE positions are its sequence index (cache_len)
+    instead of the caller's text position (qwen2-vl). (RWKV's token-shift
+    mixes and LoRA start at zero, so a random model cannot show a
+    token-shift fault.)"""
+    from repro_torch.models import api, mamba, moe, rwkv
+
+    if name.startswith(("deepseek-moe", "llama4")):
+        def shifted(right):
+            def top_k(p, k):
+                v, i = right(p, k + 1)
+                return v[..., 1:], i[..., 1:]
+            return top_k
+        return "routing one rank down", Patched(moe, "top_k", shifted)
+    if name.startswith("rwkv"):
+        return "a decode reading the WKV state transposed", Patched(
+            rwkv, "wkv6_step", lambda right: lambda r, k, v, lw, u, s: right(
+                r, k, v, lw, u, s.transpose(-1, -2)))
+    if name.startswith("zamba"):
+        def transposed(right):
+            def block(params, x, state, cfg, *, mode):
+                if mode == "decode":
+                    state = dict(state, s=state["s"].transpose(-1, -2))
+                return right(params, x, state, cfg, mode=mode)
+            return block
+        return "a decode reading the SSD state transposed", Patched(
+            mamba, "mamba_block", transposed)
+
+    def sequential(right):
+        def positions(batch, cfg, *, mode):
+            pos = right(batch, cfg, mode=mode)
+            if mode == "decode":
+                pos = batch["cache_len"].reshape(-1, 1, 1).expand_as(pos)
+            return pos
+        return positions
+    return "a decode at its sequence index, not its M-RoPE position", \
+        Patched(api, "_positions", sequential)
+
+
+class TopK:
+    """Context manager keeping every MoE routing choice (each
+    `models.moe.top_k` call's indices, on the CPU) in ``calls``; given
+    ``replay`` (another run's ``calls``), each call routes to those
+    experts instead, with this run's own probabilities as the gates."""
+
+    def __init__(self, replay=None):
+        self.calls, self.replay = [], replay
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        def record(right):
+            def top_k(p, k):
+                v, i = right(p, k)
+                if self.replay is not None:
+                    i = self.replay[len(self.calls)].to(p.device)
+                    v = p.gather(-1, i)
+                self.calls.append(i.cpu())
+                return v, i
+            return top_k
+        self.patch = Patched(moe, "top_k", record).__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.patch.__exit__()
+
+
+def cut_params(params, cfg, n_layers: int) -> tuple:
+    """(``cfg`` cut to ``n_layers``, ``params`` with each segment's first
+    layers as views, as the cut config's plan takes them)."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import tree_map
+
+    cut = dataclasses.replace(cfg, num_layers=n_layers)
+    out = dict(params)
+    out["stack"] = {f"seg{i}": tree_map(lambda t, n=seg.repeats: t[:n],
+                                        params["stack"][f"seg{i}"])
+                    for i, seg in enumerate(tfm.stack_plan(cut))}
+    return cut, out
+
+
+def family_positions(cfg, lo: int, hi: int, B: int, dev):
+    """qwen2-vl's (B, hi - lo, 3) positions of sequence indices [lo, hi):
+    the first vlm_patches positions are one square image (t = 0, h = row,
+    w = column), the text after it at t = h = w, counting on from the
+    image's side."""
+    import numpy as np
+    import torch
+
+    n = cfg.vlm_patches
+    side = int(round(n ** 0.5))
+    i = np.arange(lo, hi)
+    img = i < n
+    text = i - n + side
+    pos = np.stack([np.where(img, 0, text), np.where(img, i // side, text),
+                    np.where(img, i % side, text)], -1)
+    return torch.as_tensor(np.broadcast_to(pos[None], (B, hi - lo, 3))
+                           .copy(), device=dev)
+
+
+def family_batch(cfg, tokens, dev):
+    """``tokens`` (B, S) as a batch of ``cfg``'s model; for qwen2-vl also
+    patch embeddings from a seed and `family_positions`."""
+    import numpy as np
+    import torch
+
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    if cfg.vlm_patches:
+        B, S = tokens.shape
+        rng = np.random.default_rng(M_DATA_SEED + 5)
+        batch["patch_emb"] = torch.as_tensor(rng.normal(
+            0, 0.02, (B, cfg.vlm_patches, cfg.d_model)).astype(np.float32),
+            device=dev)
+        batch["positions"] = family_positions(cfg, 0, S, B, dev)
+    return batch
+
+
+def decode_step_batch(cfg, tok, t: int, dev):
+    """One teacher-forced decode batch: tokens ``tok`` (B, 1) at position
+    t (with qwen2-vl's (B, 1, 3) positions)."""
+    import torch
+
+    B = tok.shape[0]
+    batch = {"tokens": torch.as_tensor(tok, device=dev),
+             "cache_len": torch.full((B,), t, device=dev)}
+    if cfg.vlm_patches:
+        batch["positions"] = family_positions(cfg, t, t + 1, B, dev)
+    return batch
+
+
+def family_work(model, cparams, n_rows: int, contexts, max_len: int) -> \
+        tuple:
+    """(bytes, operations) one decode step over ``n_rows`` slots must move
+    and do: every weight once (of an untied embedding only the ``n_rows``
+    rows looked up; MoE's dense dispatch reads every expert), each live
+    slot's K/V rows up to its position once and the new rows once, every
+    recurrent state leaf read and written once, the float32 logits
+    written once; 2 operations a weight a row, attention's 4 dh a live
+    pair a head an attention layer."""
+    from repro_torch.models.layers import tree_items
+
+    cfg = model.cfg
+    nbytes = ops = 0
+    for path, t in tree_items(cparams):
+        if path[0] == "embed" and not cfg.tie_embeddings:
+            nbytes += n_rows * cfg.d_model * t.element_size()
+            continue
+        nbytes += t.numel() * t.element_size()
+        if t.dim() >= 2:
+            ops += 2 * t.numel() * n_rows
+    live = int(sum(contexts))
+    for path, p in tree_items(model.cache_schema(n_rows, max_len)):
+        size = math.prod(p.shape) * p.dtype.itemsize
+        if "seq" in p.axes:
+            nbytes += size // (n_rows * p.shape[p.axes.index("seq")]) * (
+                live + n_rows)
+            if path[-1] == "k":
+                ops += 4 * cfg.hd * cfg.num_heads * live * p.shape[0]
+        else:
+            nbytes += 2 * size
+    return nbytes + n_rows * cfg.vocab_size * 4, ops
+
+
+def family_cache_check(name, model, params, dev, card: str) -> dict:
+    """Prefill M_BATCH prompts of M_PROMPT tokens (one length: recurrent
+    state cannot be padded; qwen2-vl's image first), then M_FORCED
+    teacher-forced decode steps, each step's logits against
+    `model.forward` over the extended sequences, within M_CACHE_TOL; the
+    same decodes under `family_wrong`'s mis-computation must read above
+    it. MoE runs the decodes at a capacity factor of E / k, which drops
+    no token (otherwise the grouping of the tokens decides which are
+    dropped), and, at its own capacity, the prefill's last position
+    against forward over the same tokens (the same groups)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import build_model, init_cache
+
+    cfg = model.cfg
+    rng = np.random.default_rng(M_DATA_SEED)
+    n = M_PROMPT + (cfg.vlm_patches or 0)
+    toks = rng.integers(1, cfg.vocab_size, (M_BATCH, n + M_FORCED))
+    first = family_batch(cfg, toks[:, :n], dev)
+    out = {}
+    mdl = model
+    what, wrong = family_wrong(name)
+    with torch.no_grad():
+        if cfg.moe is not None:
+            full, aux = model.forward(params, first)
+            last, _ = model.prefill(params, first, init_cache(
+                model, M_BATCH, LM_MAX_LEN, device=dev))
+            out.update(prefill_vs_forward=rel_err(last[:, 0], full[:, -1]),
+                       aux=float(aux))
+            del full
+            m = cfg.moe
+            mdl = build_model(dataclasses.replace(cfg, moe=dataclasses.replace(
+                m, capacity_factor=m.num_experts / m.top_k)), device=dev)
+        full, _ = mdl.forward(params, family_batch(cfg, toks, dev))
+        for tag in ("right", "wrong"):
+            with (wrong if tag == "wrong" else contextlib.nullcontext()):
+                cache = init_cache(mdl, M_BATCH, LM_MAX_LEN, device=dev)
+                last, cache = mdl.prefill(params, first, cache)
+                errs = [rel_err(last[:, 0], full[:, n - 1])]
+                for t in range(M_FORCED):
+                    got, cache = mdl.decode(params, decode_step_batch(
+                        cfg, toks[:, n + t:n + t + 1], n + t, dev), cache)
+                    errs.append(rel_err(got[:, 0], full[:, n + t]))
+            out["cache_vs_forward" if tag == "right" else "wrong"] = errs
+            del cache
+        del full
+    errs, bad = out["cache_vs_forward"], out["wrong"][1:]
+    tol = M_CACHE_TOL[name]
+    print(f"{name} cache vs forward: {M_BATCH} prompts of {n} tokens, "
+          f"prefill then {M_FORCED} teacher-forced decode steps"
+          + (" at capacity factor E/k (no drops)" if cfg.moe else "")
+          + f": relative error {min(errs):.5f}-{max(errs):.5f} (tol {tol});"
+          f" {what} reads {min(bad):.5f}-{max(bad):.5f} on the decode steps"
+          + (f"; at its own capacity the prefill's last position vs forward "
+             f"{out['prefill_vs_forward']:.5f}, aux loss {out['aux']:.5f}"
+             if cfg.moe else "") + f" [{card}]")
+    if max(errs + [out.get("prefill_vs_forward", 0.0)]) > tol:
+        raise AssertionError(f"phase M {name}: cache vs forward "
+                             f"{max(errs):.5f} > {tol}")
+    if min(bad) <= tol:
+        raise AssertionError(f"phase M {name}: the tolerance {tol} does not "
+                             f"flag {what} ({min(bad):.5f})")
+    return out
+
+
+def family_vs_cpu(name, cfg, params, dev, card: str) -> dict:
+    """The same seed's first M_CPU_LAYERS layers at full width on the
+    card and on the host CPU: one prompt prefilled and M_CPU_STEPS
+    teacher-forced decode steps, each step's logits within M_TOL; and
+    what the check reads from `family_wrong`'s mis-computation on the
+    card (the run fails unless the tolerance flags its decode steps).
+    MoE routes discretely: a near-tie that rounds apart sends a token to
+    another expert. So for MoE the CPU also replays the card's top-k
+    choices (its own probabilities as the gates), the run held to M_TOL
+    is the card against that replay, and the share of choices that
+    differ and the error without the replay are printed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import build_model, init_cache
+    from repro_torch.models.layers import tree_map
+
+    cut, cparams = cut_params(params, cfg, M_CPU_LAYERS[name])
+    cpu_params = tree_map(lambda t: t.cpu(), cparams)
+    rng = np.random.default_rng(M_DATA_SEED + 1)
+    n = M_CPU_PROMPT + (cut.vlm_patches or 0)
+    toks = rng.integers(1, cut.vocab_size, (1, n + M_CPU_STEPS))
+    what, wrong = family_wrong(name)
+    runs = [("cpu", "cpu", cpu_params), ("card", dev, cparams),
+            ("wrong", dev, cparams)]
+    if cfg.moe is not None:
+        runs.append(("replay", "cpu", cpu_params))
+    outs, routes = {}, {}
+    with torch.no_grad():
+        for tag, d, p in runs:
+            m = build_model(cut, device=d)
+            with TopK(routes["card"] if tag == "replay" else None) as rec, \
+                    (wrong if tag == "wrong" else contextlib.nullcontext()):
+                c = init_cache(m, 1, LM_MAX_LEN, device=d)
+                lg, c = m.prefill(p, family_batch(cut, toks[:, :n], d), c)
+                seq = [lg[:, 0].cpu()]
+                for t in range(M_CPU_STEPS):
+                    lg, c = m.decode(p, decode_step_batch(
+                        cut, toks[:, n + t:n + t + 1], n + t, d), c)
+                    seq.append(lg[:, 0].cpu())
+            outs[tag], routes[tag] = seq, rec.calls
+    ref = outs["replay" if cfg.moe is not None else "cpu"]
+    card_err = [rel_err(a, b) for a, b in zip(outs["card"], ref)]
+    wrong_err = [rel_err(a, b) for a, b in zip(outs["wrong"], outs["cpu"])]
+    res = {"layers": cut.num_layers, "card_vs_cpu": card_err,
+           "wrong": wrong_err}
+    flips = ""
+    if cfg.moe is not None:
+        a = torch.cat([r.reshape(-1) for r in routes["card"]])
+        b = torch.cat([r.reshape(-1) for r in routes["cpu"]])
+        res["topk_differ"] = float((a != b).float().mean())
+        res["card_vs_cpu_own_routing"] = [
+            rel_err(x, y) for x, y in zip(outs["card"], outs["cpu"])]
+        flips = (f" with the CPU routed as the card; {res['topk_differ']:.2%}"
+                 f" of {a.numel()} top-{cfg.moe.top_k} choices differ, and "
+                 f"each routed its own way the runs read "
+                 f"{min(res['card_vs_cpu_own_routing']):.5f}-"
+                 f"{max(res['card_vs_cpu_own_routing']):.5f}")
+    tol = M_TOL[name]
+    print(f"{name} card vs CPU: {cut.num_layers} layers, one {n}-token "
+          f"prompt, prefill + {M_CPU_STEPS} teacher-forced steps; relative "
+          f"error {min(card_err):.5f}-{max(card_err):.5f} (tol {tol})"
+          f"{flips}; {what} reads {min(wrong_err[1:]):.5f}-"
+          f"{max(wrong_err[1:]):.5f} on the decode steps [{card}]")
+    if max(card_err) > tol:
+        raise AssertionError(f"phase M {name}: card vs CPU "
+                             f"{max(card_err):.5f} > {tol}")
+    if min(wrong_err[1:]) <= tol:
+        raise AssertionError(f"phase M {name}: the tolerance {tol} does not "
+                             f"flag {what} ({min(wrong_err[1:]):.5f})")
+    return res
+
+
+def family_continue(name, model, params, dev, card: str) -> dict:
+    """rwkv and zamba2: one M_CONTINUE-token prompt prefilled in chunks
+    against the same prompt fed token by token through decode (the
+    reference's `test_wkv6_decode_continues_scan`, at full width and
+    depth), the last position's logits within M_TOL. It runs in float32
+    compute on the same (bfloat16-valued) weights, as the reference's
+    test runs in float32: in bfloat16 the 1-row products of 100 decodes
+    round apart from the 100-row ones of the prefill, and 32 random
+    layers amplify that to ~0.1 (the whole rounding error of the dtype;
+    `M_TOL`'s note), which would hide what this check is for."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import build_model, init_cache
+
+    f32 = build_model(dataclasses.replace(model.cfg,
+                                          compute_dtype=torch.float32),
+                      device=dev)
+    rng = np.random.default_rng(M_DATA_SEED + 2)
+    toks = torch.as_tensor(rng.integers(1, model.cfg.vocab_size,
+                                        (1, M_CONTINUE)), device=dev)
+    with torch.no_grad():
+        want, _ = f32.prefill(params, {"tokens": toks}, init_cache(
+            f32, 1, LM_MAX_LEN, device=dev))
+        c = init_cache(f32, 1, LM_MAX_LEN, device=dev)
+        for t in range(M_CONTINUE):
+            got, c = f32.decode(params, {
+                "tokens": toks[:, t:t + 1],
+                "cache_len": torch.tensor([t], device=dev)}, c)
+    err = rel_err(got[:, 0], want[:, 0])
+    print(f"{name} one {M_CONTINUE}-token prompt, chunked prefill vs "
+          f"{M_CONTINUE} decode steps in float32 compute: relative error "
+          f"{err:.6f} (tol {M_TOL[name]}) [{card}]")
+    if err > M_TOL[name]:
+        raise AssertionError(f"phase M {name}: chunked prefill vs decode "
+                             f"{err:.5f} > {M_TOL[name]}")
+    return {"prefill_vs_decode_f32": err}
+
+
+def family_serving(name, model, params, dev, card: str) -> dict:
+    """`Engine(slots=4, max_len=1024)` on phase L's 8 requests (in this
+    vocabulary), greedy twice (the second timed) and at temperature 0.8
+    once: every request finishes, the greedy repeat identical, the
+    sampled tokens not the greedy ones; MoE also through
+    `PagedEngine(page_size=16)` (every page freed; its token agreement
+    with dense printed: the paged prefill's chunks group the tokens
+    otherwise, so other tokens overflow capacity), rwkv and zamba2
+    refused by it, typed. One decode step's times beside its bound, and
+    the generated tokens/s."""
+    import torch
+
+    from repro_torch.serve.engine import Engine, PagedEngine
+    from repro_torch.serve.errors import PagedCacheUnsupported
+
+    cfg = model.cfg
+    reqs = lm_prompts(LM_REQUESTS, *LM_SERVE_PROMPT, cfg.vocab_size,
+                      LM_DATA_SEED + 2)
+    tag = f"phase M {name}"
+    with torch.no_grad():
+        greedy, _, _, _, e2e = serve_run(Engine, model, params, reqs,
+                                         slots=LM_SLOTS, dev=dev, tag=tag)
+        timed, teng, walls, admits, _ = serve_run(
+            make_timed_engine(), model, params, reqs, slots=LM_SLOTS,
+            dev=dev, tag=tag)
+        samp = serve_run(Engine, model, params, reqs, slots=LM_SLOTS,
+                         dev=dev, temperature=LM_TEMPERATURE, tag=tag)[0]
+    if greedy != timed:
+        raise AssertionError(f"{tag}: repeated greedy runs differ")
+    if samp == greedy:
+        raise AssertionError(f"{tag}: temperature 0.8 gave the greedy tokens")
+    res = {"e2e_tok_s": LM_REQUESTS * LM_MAX_NEW / e2e,
+           "tokens": {str(k): v for k, v in greedy.items()}}
+    if cfg.moe is not None:
+        with torch.no_grad():
+            pout, peng, _, _, _ = serve_run(
+                PagedEngine, model, params, reqs, slots=LM_SLOTS, dev=dev,
+                tag=tag, page_size=PAGE_SIZE)
+        if peng.pool.n_free != peng.pool.capacity:
+            raise AssertionError(f"{tag}: pages leaked")
+        res["paged_agreement"] = token_agreement(pout, greedy)
+        paged = (f"; PagedEngine(page_size={PAGE_SIZE}): every request "
+                 f"finished, every page freed, token agreement with dense "
+                 f"{res['paged_agreement']:.3f}")
+    else:
+        try:
+            PagedEngine(model, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                        device=dev, page_size=PAGE_SIZE)
+        except PagedCacheUnsupported:
+            paged = "; PagedEngine refuses it (PagedCacheUnsupported)"
+        else:
+            raise AssertionError(f"{tag}: PagedEngine took recurrent state")
+    print(f"{name} server: Engine(slots={LM_SLOTS}, max_len={LM_MAX_LEN}) "
+          f"served {LM_REQUESTS} requests of {min(map(len, reqs))}-"
+          f"{max(map(len, reqs))} prompt tokens, max_new {LM_MAX_NEW}, "
+          f"greedy twice and at temperature {LM_TEMPERATURE}: every "
+          f"request finished, the greedy repeat identical{paged}; "
+          f"{res['e2e_tok_s']:.1f} generated tokens/s end to end [{card}]")
+    res["decode"] = decode_times(
+        teng, walls, admits, cfg, None, None, model, card, tag=name,
+        work=lambda n_rows, contexts: family_work(
+            model, teng.params, n_rows, contexts, LM_MAX_LEN))
+    return res
+
+
+def family_decode_alone(name, model, params, dev, card: str) -> dict:
+    """qwen2-vl, which no engine serves (the reference's `Engine` passes
+    no positions): one decode at M_BATCH rows after a prefill of the
+    image and M_TEXT text tokens; host wall (median of 10 calls), the
+    card's busy time and launches, the bound."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import init_cache
+
+    cfg = model.cfg
+    rng = np.random.default_rng(M_DATA_SEED + 3)
+    n = cfg.vlm_patches + M_TEXT
+    toks = rng.integers(1, cfg.vocab_size, (M_BATCH, n + 1))
+    with torch.no_grad():
+        _, cache = model.prefill(params, family_batch(cfg, toks[:, :n], dev),
+                                 init_cache(model, M_BATCH, LM_MAX_LEN,
+                                            device=dev))
+        batch = decode_step_batch(cfg, toks[:, n:], n, dev)
+        walls = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model.decode(params, batch, cache)[0].argmax(-1).cpu()
+            walls.append((time.perf_counter() - t) * 1e3)
+        busy, launches = device_busy(lambda: model.decode(params, batch,
+                                                          cache))
+    host = statistics.median(walls)
+    nbytes, ops = family_work(model, params, M_BATCH, [n] * M_BATCH,
+                              LM_MAX_LEN)
+    bms, by = bound_ms(nbytes, ops, PEAK_BF16)
+    print(f"{name} decode at {M_BATCH} rows after {n} tokens: {host:.3f} ms "
+          f"host wall (median of 10); the card busy {busy:.3f} ms over "
+          f"{launches} launches (profiler), idle {1 - busy / host:.1%}; "
+          f"bound {bms:.4f} ms ({by}: {nbytes / 1e9:.3f} GB) [{card}]")
+    return {"host_ms": host, "device_busy_ms": busy, "launches": launches,
+            "idle_share": 1 - busy / host, "bound_ms": bms, "bound_by": by,
+            "bytes": nbytes}
+
+
+def family_path(name, dev, card: str, cfg=None) -> dict:
+    """One family at its full width and depth on the card (``cfg`` cuts
+    it for a rehearsal): the leaf-at-a-time load, the cache check, card
+    against CPU, then serving (rwkv and zamba2 also the chunked prefill
+    against decode; qwen2-vl one timed decode)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, init_cast_params
+    from repro_torch.models.layers import param_count, tree_items
+
+    cfg = cfg or get_config(name)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = init_cast_params(model, M_PARAM_SEED, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n_params = param_count(model.schema)
+    resident = sum(t.numel() * t.element_size() for _, t in tree_items(params))
+    res = {"params": n_params, "resident_gb": resident / 1e9,
+           "load_s": load_s,
+           "load_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(f"{name}: {n_params:,} parameters ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}), drawn from seed "
+          f"{M_PARAM_SEED} and cast one leaf at a time in {load_s:.1f} s: "
+          f"{resident / 1e9:.3f} GB resident; "
+          + memory_line("load peak") + f" [{card}]")
+    res["cache"] = family_cache_check(name, model, params, dev, card)
+    res["cpu"] = family_vs_cpu(name, cfg, params, dev, card)
+    if cfg.vlm_patches:
+        res["decode"] = family_decode_alone(name, model, params, dev, card)
+    else:
+        if cfg.ssm is not None:
+            res["continue"] = family_continue(name, model, params, dev,
+                                              card)
+        res["serve"] = family_serving(name, model, params, dev, card)
+    res["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{name}: " + memory_line("peak"))
+    return res
+
+
+def phase_m(dev, card: str, cfgs=None) -> dict:
+    """Phase M: deepseek-moe-16b, rwkv6-7b, zamba2-7b and qwen2-vl-2b at
+    full width and depth (``cfgs`` {name: config} cuts them for a
+    rehearsal), each with the launch counts set to 0 just before and read
+    just after: no kernel of the port may launch (these paths reach no
+    Pallas kernel in the reference). Each model is freed before the
+    next."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    out = {}
+    for name in M_ARCHS:
+        res, launches = counted(lambda: family_path(
+            name, dev, card, (cfgs or {}).get(name)))
+        if any(n for entries in launches.values() for n in entries.values()):
+            raise AssertionError(f"phase M {name} launched a kernel: "
+                                 f"{launches}")
+        out[name] = res
+        gc.collect()
+        torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"phase M: {secs:.1f} s; no kernel of the port launched "
+          f"(llama4-maverick, ~400B parameters, fits on no one card and is "
+          f"held to the reference on the CPU only)")
+    out["seconds"] = secs
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="phases 1, 2 and A1 only (build + kernels vs "
                          "plain)")
+    ap.add_argument("--phase-m", action="store_true",
+                    help="the card's name and phase M only (no build, no "
+                         "result lines)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2862,6 +3470,14 @@ def main(argv=None) -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(card)
+    if args.phase_m:
+        dev = torch.device("cuda", 0)
+        report["phase_m"] = phase_m(dev, card)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_m.json").write_text(
+            json.dumps(report, indent=1, default=str))
+        return 0
     declare_rope_wrong_slot()
     t0 = time.perf_counter()
     builds = _cuda.build_all()
@@ -3425,6 +4041,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # ---- phase P: paged KV, the supervised engines, the front-end
     report["phase_p"] = phase_p(dev, card, app)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- phase M: the other model families at full width
+    report["phase_m"] = phase_m(dev, card)
     for k in kernels:
         if k["name"] == "asr_graph[stream]":
             k["launches_phase_p"] = report["phase_p"]["frontend"][

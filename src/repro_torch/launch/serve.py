@@ -4,8 +4,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --reduced --device cpu --requests 6 --max-new 16
 
-Random weights from ``--seed``; prompts of 2-7 tokens drawn from the same
-seed. Runs on the card by default (``--device cuda``) and prints the
+Random weights from ``--seed``, drawn and cast one leaf at a time
+(`init_cast_params`, so deepseek-moe-16b loads on one 80 GB card);
+prompts of 2-7 tokens drawn from the same seed. qwen2-vl-2b needs
+M-RoPE positions in every call, which the engine does not pass (nor
+does the reference's). Runs on the card by default (``--device cuda``) and prints the
 generated tokens per second of wall time on the named device.
 """
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.device import resolve_device
-from repro_torch.models import build_model, init_model_params
+from repro_torch.models import build_model, init_cast_params
 from repro_torch.serve.engine import Engine, Request
 
 
@@ -46,7 +49,7 @@ def main(argv=None):
     if args.reduced:
         cfg = reduced(cfg)
     model = build_model(cfg, device=dev)
-    params = init_model_params(model, args.seed, device=dev)
+    params = init_cast_params(model, args.seed, device=dev)
     eng = Engine(model, params, slots=args.slots, max_len=args.max_len,
                  temperature=args.temperature, seed=args.seed, device=dev)
     rng = np.random.default_rng(args.seed)

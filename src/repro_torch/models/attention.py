@@ -1,8 +1,8 @@
 """Attention for the port's models: GQA/MHA with the kv-major padded head
-layout, RoPE, sliding windows, the blockwise (online-softmax) train and
-prefill path, the cached decode paths (linear and ring) and the O(S^2)
-oracle (`reference_attention`) that the flash-attention kernel is held
-to. The JAX package's `models/attention.py`, in PyTorch.
+layout, RoPE and M-RoPE, sliding windows, the blockwise (online-softmax)
+train and prefill path, the cached decode paths (linear and ring) and
+the O(S^2) oracle (`reference_attention`) that the flash-attention
+kernel is held to. The JAX package's `models/attention.py`, in PyTorch.
 
 Like the reference, the LM path calls no hand-written kernel: RoPE is
 applied here in plain PyTorch and attention runs through
@@ -89,19 +89,37 @@ def _inv_freq_table(dh: int, theta: float, device: torch.device):
                            device=device)
 
 
-def apply_rope(x, positions, *, theta, style="neox"):
-    """x: (B, S, H, dh); positions: (B, S) integers. ``neox`` rotates the
-    two halves of each head; ``none`` returns x. The angles and the
-    rotation are float32; the result is cast back to x's dtype. (The
-    reference's ``mrope`` comes with its vision-language slice.)"""
+def _mrope_segments(dh: int, sections) -> np.ndarray:
+    """The position stream (0 = t, 1 = h, 2 = w) of each rotary
+    frequency index."""
+    n = dh // 2
+    total = sum(sections)
+    counts = [int(round(n * s / total)) for s in sections]
+    counts[0] = n - sum(counts[1:])
+    return np.repeat(np.arange(len(sections)), counts)
+
+
+def apply_rope(x, positions, *, theta, style="neox", sections=(2, 1, 1)):
+    """x: (B, S, H, dh); positions: (B, S) integers, or (B, S, 3) for
+    ``mrope``, whose rotary frequencies are split between the t, h and w
+    position streams in the ratio ``sections``. ``neox`` and ``mrope``
+    rotate the two halves of each head; ``none`` returns x. The angles
+    and the rotation are float32; the result is cast back to x's
+    dtype."""
     if style == "none":
         return x
-    if style != "neox":
-        raise NotImplementedError(
-            f"rope_style {style!r}: mrope comes with the qwen2-vl slice")
     dh = x.shape[-1]
     inv = _inv_freq_table(dh, float(theta), x.device)
-    ang = positions.float()[..., None] * inv               # (B, S, dh/2)
+    if style == "mrope":
+        seg = torch.as_tensor(_mrope_segments(dh, sections),
+                              device=x.device)
+        # (B, S, dh/2): each frequency's position, from its stream
+        pos = positions.float()[..., seg]
+        ang = pos * inv
+    elif style == "neox":
+        ang = positions.float()[..., None] * inv           # (B, S, dh/2)
+    else:
+        raise ValueError(f"rope_style {style!r}")
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
@@ -371,9 +389,9 @@ def attention_block(params, x, *, cfg, positions, causal=True, cross_kv=None,
     q, k, v = qkv_project(params, x, cfg)
     if cfg.rope_style != "none":
         q = apply_rope(q, positions, theta=cfg.rope_theta,
-                       style=cfg.rope_style)
+                       style=cfg.rope_style, sections=cfg.mrope_sections)
         k = apply_rope(k, positions, theta=cfg.rope_theta,
-                       style=cfg.rope_style)
+                       style=cfg.rope_style, sections=cfg.mrope_sections)
 
     if cache is not None and x.shape[1] == 1:  # decode
         k_cache, v_cache = cache

@@ -24,8 +24,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["P", "fanin_std", "stack_schema", "tree_map", "tree_items",
-           "tree_from_items", "init_params", "param_count", "norm_schema",
-           "apply_norm", "embed_schema", "embed", "unembed",
+           "tree_from_items", "init_leaf", "init_params", "param_count",
+           "norm_schema", "apply_norm", "embed_schema", "embed", "unembed",
            "linear_head_schema", "linear_head", "mlp_schema", "apply_mlp",
            "sinusoidal_positions"]
 
@@ -88,7 +88,8 @@ def stack_schema(n: int, schema):
                                 p.dtype), schema)
 
 
-def _init_leaf(p: P, param_dtype, gen: torch.Generator, device):
+def init_leaf(p: P, param_dtype, gen: torch.Generator, device):
+    """One leaf of `init_params`, the next draw from ``gen``."""
     dtype = p.dtype or param_dtype
     if p.std == "ones":
         return torch.ones(p.shape, dtype=dtype, device=device)
@@ -101,7 +102,7 @@ def _init_leaf(p: P, param_dtype, gen: torch.Generator, device):
         return torch.zeros(p.shape, dtype=dtype, device=device)
     x = torch.randn(p.shape, generator=gen, device=device,
                     dtype=torch.float32)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)   # in place: one float32 copy at a time
 
 
 def init_params(gen: torch.Generator, schema, param_dtype=torch.float32):
@@ -109,7 +110,7 @@ def init_params(gen: torch.Generator, schema, param_dtype=torch.float32):
     drawing the leaves in sorted key order from ``gen``. The per-leaf
     rules are the reference's; the draws are torch's, not JAX's."""
     dev = gen.device
-    return tree_map(lambda p: _init_leaf(p, param_dtype, gen, dev), schema)
+    return tree_map(lambda p: init_leaf(p, param_dtype, gen, dev), schema)
 
 
 def param_count(schema) -> int:

@@ -18,6 +18,12 @@ torch.
   decode per prompt token into a copy of the cache, one merge each; its
   greedy tokens equal the reference `Engine`'s, and a live slot's cache
   rows are untouched by another slot's admission.
+* The other families (reduced deepseek-moe-16b, rwkv6 and zamba2, vocab
+  64, seed 3): greedy tokens equal the reference `Engine`'s at slots 1
+  and 4; MoE prompts pad to their bucket, recurrent ones bucket by exact
+  length; the merge copies K/V and state along the batch axis. A reused
+  slot's recurrent prefill starts from the state its last request left,
+  in both packages.
 * The admission boundary and the cache merge: `PromptTooLong`,
   `EngineStalled`, the bucket capped at max_len, one prefill per bucket,
   and the slot axis taken from the schema (with num_layers == slots a
@@ -346,3 +352,67 @@ def test_encdec_admission_leaves_live_slots_untouched(encdec):
     ref.step()
     ref.add_request(JRequest(1, [5, 9, 2], max_new=3))
     assert done == {r.rid: r.out for r in ref.run_to_completion()}
+
+
+# ---------------------------------------------------------------------------
+# The other families: MoE (padded buckets), RWKV-6 and the Mamba2 hybrid
+# (recurrent state, exact-length buckets)
+# ---------------------------------------------------------------------------
+
+ENGINE_FAMILIES = ["deepseek-moe-16b", "rwkv6-7b", "zamba2-7b"]
+
+
+@pytest.fixture(scope="module", params=ENGINE_FAMILIES)
+def family(request):
+    """(port model, params, (JAX model, params, compiled pair)) of a
+    reduced config of ``name`` with vocab 64, the JAX package's
+    parameters of seed 3 carried across."""
+    name = request.param
+    jcfg = dataclasses.replace(j_reduced(j_get_config(name)), vocab_size=64)
+    jm = j_build_model(jcfg)
+    jp = j_init_model_params(jm, seed=3)
+    cfg = dataclasses.replace(reduced(get_config(name)), vocab_size=64)
+    model = build_model(cfg, device="cpu")
+    params = params_from_numpy(model, jax.tree.map(np.asarray, jp),
+                               device="cpu")
+    return model, params, (jm, jp, JEngine.compile_model(jm))
+
+
+@pytest.mark.parametrize("slots", [1, 4])
+def test_family_greedy_tokens_equal_the_reference_engine(family, slots):
+    """Six requests through slots 1 and 4: a slot is reused, so a
+    recurrent prefill starts from the state its slot's last request left
+    (the reference's prefill reads the engine cache as its initial
+    state, and so does the port's)."""
+    jm, jp, compiled = family[2]
+    ref = JEngine(jm, jp, slots=slots, max_len=64, compiled=compiled)
+    for rid in PROMPTS:
+        ref.add_request(JRequest(rid, list(PROMPTS[rid]), max_new=5))
+    want = {r.rid: tuple(r.out) for r in ref.run_to_completion(500)}
+    assert _serve(family, list(PROMPTS), slots=slots,
+                  temperature=0.0) == want
+
+
+def test_family_buckets_and_merge(family):
+    """MoE pads prompts to their power-of-two bucket; recurrent state
+    buckets by exact length. Admission copies the admitted slots' rows of
+    every cache leaf (K/V and state) along the schema's batch axis and
+    leaves a decoding slot's rows bitwise."""
+    model, params, _ = family
+    eng = _engine(family, slots=3)
+    widths = []
+    real = eng._prefill_dispatch
+    eng._prefill_dispatch = lambda batch: (
+        widths.append(batch["tokens"].shape[1]), real(batch))[1]
+    eng.add_request(Request(0, [3, 1, 4, 1, 5], max_new=6))
+    eng.step()
+    before0 = _snapshot(eng, 0)
+    eng.add_request(Request(1, [5, 9, 2], max_new=3))
+    eng.add_request(Request(2, [6, 5, 3], max_new=3))
+    eng._admit()
+    for a, b in zip(before0, _snapshot(eng, 0)):
+        assert torch.equal(a, b)
+    recurrent = model.cfg.ssm is not None
+    assert eng._pad_ok() is not recurrent
+    assert widths == ([5, 3] if recurrent else [8, 4]), widths
+    eng.run_to_completion()

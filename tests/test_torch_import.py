@@ -47,7 +47,8 @@ def test_port_has_sources():
                  "configs/qwen1_5_0_5b.py", "models/layers.py",
                  "models/transformer.py", "models/api.py",
                  "serve/engine.py", "launch/serve.py", "serve/paged.py",
-                 "serve/engine_fault.py", "serve/frontend.py"):
+                 "serve/engine_fault.py", "serve/frontend.py",
+                 "models/moe.py", "models/rwkv.py", "models/mamba.py"):
         assert need in names
     for src in ("pipeline/csrc/biosignal_graph.cu",
                 "pipeline/csrc/asr_graph.cu", "fir/csrc/fir.cu",

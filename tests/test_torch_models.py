@@ -1,5 +1,6 @@
-"""The port's LM stack, dense and encoder-decoder (`repro_torch.configs`,
-`models/layers.py`, `models/attention.py`, `models/transformer.py`,
+"""The port's LM stack, every family (`repro_torch.configs`,
+`models/layers.py`, `models/attention.py`, `models/moe.py`,
+`models/rwkv.py`, `models/mamba.py`, `models/transformer.py`,
 `models/api.py`), against the JAX package's, on the CPU.
 
 Inputs are drawn from a numpy seed; the parameters are the JAX package's
@@ -28,7 +29,8 @@ from repro.models import init_cache as j_init_cache
 from repro.models import init_model_params as j_init_model_params
 from repro.models import layers as j_layers
 from repro_torch.configs import ASSIGNED, get_config, list_configs, reduced
-from repro_torch.models import (build_model, init_cache, init_model_params,
+from repro_torch.models import (build_model, cast_params, init_cache,
+                                init_cast_params, init_model_params,
                                 params_from_numpy)
 from repro_torch.models import attention as att
 from repro_torch.models import layers as L
@@ -80,13 +82,11 @@ def test_every_reference_config_is_registered_alike():
             dataclasses.asdict(j_reduced(j_get_config(name)))["d_model"]
 
 
-@pytest.mark.parametrize("name", ["qwen1.5-0.5b", "h2o-danube-3-4b",
-                                  "starcoder2-7b", "deepseek-coder-33b",
-                                  "whisper-medium"])
+@pytest.mark.parametrize("name", ASSIGNED)
 def test_full_width_schema_matches_the_reference(name):
-    """Every parameter leaf of a dense config at its published widths has
-    the reference's path, shape and axes (schemas only: nothing is
-    allocated)."""
+    """Every parameter leaf of every config at its published widths has
+    the reference's path, shape, axes and init rule, and the stack plan
+    is the reference's (schemas only: nothing is allocated)."""
     mine = dict(L.tree_items(build_model(get_config(name),
                                          device="cpu").schema))
     ref = j_build_model(j_get_config(name)).schema
@@ -99,14 +99,10 @@ def test_full_width_schema_matches_the_reference(name):
                                             ref[k].std), k
     assert L.param_count(build_model(get_config(name), device="cpu").schema) \
         == j_layers.param_count(j_build_model(j_get_config(name)).schema)
-
-
-@pytest.mark.parametrize("name", ["deepseek-moe-16b", "rwkv6-7b",
-                                  "zamba2-7b", "qwen2-vl-2b"])
-def test_build_model_refuses_families_outside_the_slice(name):
-    cfg = reduced(get_config(name))
-    with pytest.raises(NotImplementedError, match="slice"):
-        build_model(cfg, device="cpu")
+    assert [(s.pattern, s.repeats) for s in
+            build_model(get_config(name), device="cpu").plan] == \
+        [(s.pattern, s.repeats) for s in
+         j_build_model(j_get_config(name)).plan]
 
 
 def test_entries_default_to_the_card():
@@ -202,6 +198,29 @@ def test_apply_rope_neox(rng):
     _close(got, want, FN_TOL)
     assert att.apply_rope(_t(x), _t(pos), theta=1e6, style="none") \
         .equal(_t(x))
+
+
+@pytest.mark.parametrize("dh,sections", [(64, (2, 1, 1)), (128, (2, 1, 1)),
+                                         (30, (1, 1, 1)), (64, (16, 24, 24))])
+def test_apply_rope_mrope(dh, sections, rng):
+    """M-RoPE with distinct t/h/w position streams (B, S, 3): the
+    frequencies split between the streams as the reference's
+    `_mrope_segments`."""
+    x = rng.normal(0, 1, (2, 17, 3, dh)).astype(np.float32)
+    pos = rng.integers(0, 3000, (2, 17, 3)).astype(np.int32)
+    np.testing.assert_array_equal(att._mrope_segments(dh, sections),
+                                  j_att._mrope_segments(dh, sections))
+    want = j_att.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta=1e6,
+                            style="mrope", sections=sections)
+    got = att.apply_rope(_t(x), _t(pos), theta=1e6, style="mrope",
+                         sections=sections)
+    _close(got, want, FN_TOL)
+    # equal streams are the neox rotation of that stream
+    same = np.repeat(pos[..., :1], 3, axis=-1)
+    torch.testing.assert_close(
+        att.apply_rope(_t(x), _t(same), theta=1e6, style="mrope",
+                       sections=sections),
+        att.apply_rope(_t(x), _t(same[..., 0]), theta=1e6, style="neox"))
 
 
 BLOCKWISE = [(c, w, ch) for c in (True, False) for w in (None, 24)
@@ -484,3 +503,160 @@ def test_whisper_prefill_refuses_another_frame_count(whisper):
     with pytest.raises(ValueError, match="enc_ctx"):
         tm.prefill(tp, {"tokens": torch.as_tensor(tokens[:, :4]),
                         "frames": torch.as_tensor(frames[:, :9])}, cache)
+
+
+# ---------------------------------------------------------------------------
+# The other families: MoE, RWKV-6, the Mamba2 hybrid, M-RoPE
+# ---------------------------------------------------------------------------
+
+FAMILIES = ["deepseek-moe-16b", "llama4-maverick-400b-a17b", "rwkv6-7b",
+            "zamba2-7b", "qwen2-vl-2b"]
+
+
+def _family_batch(cfg, tokens, rng):
+    """The batch of ``tokens`` (B, S): for qwen2-vl also patch embeddings
+    over the first vlm_patches positions and (B, S, 3) positions whose
+    t/h/w streams differ (an image's rows and columns, then text)."""
+    batch = {"tokens": tokens}
+    if cfg.vlm_patches:
+        Bn, Sn = tokens.shape
+        n = cfg.vlm_patches
+        t = np.arange(Sn)
+        h = np.where(t < n, t // 2, t)
+        w = np.where(t < n, t % 2 + 3, t)
+        batch["positions"] = np.broadcast_to(
+            np.stack([t, h, w], -1)[None], (Bn, Sn, 3)).astype(np.int32)
+        batch["patch_emb"] = rng.normal(0, 0.5, (Bn, n, cfg.d_model)) \
+            .astype(np.float32)
+    return batch
+
+
+def _slice(batch, lo, hi, cfg):
+    out = {"tokens": batch["tokens"][:, lo:hi]}
+    if "positions" in batch:
+        out["positions"] = batch["positions"][:, lo:hi]
+    if "patch_emb" in batch and lo == 0:
+        out["patch_emb"] = batch["patch_emb"]
+    return out
+
+
+@pytest.fixture(scope="module", params=FAMILIES)
+def family(request):
+    """(name, JAX model, its params, port model, the same params, batch)
+    for a reduced config of each family, the params redrawn where the
+    reference initialises constants."""
+    name = request.param
+    jm = j_build_model(j_reduced(j_get_config(name)))
+    rng = np.random.default_rng(17)
+    tree = _randomize(jax.tree.map(np.asarray, j_init_model_params(jm, 2)),
+                      rng)
+    jp = jax.tree.map(jnp.asarray, tree)
+    tm = build_model(reduced(get_config(name)), device="cpu")
+    tp = params_from_numpy(tm, tree, device="cpu")
+    tokens = rng.integers(0, tm.cfg.vocab_size, (B, S + N_DECODE))
+    return name, jm, jp, tm, tp, _family_batch(tm.cfg, tokens, rng)
+
+
+def _j(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _tt(batch):
+    return {k: torch.as_tensor(np.array(v)) for k, v in batch.items()}
+
+
+def test_family_plan_schema_and_param_count(family):
+    name, jm, _, tm, _, _ = family
+    assert [(s.pattern, s.repeats) for s in tm.plan] == \
+        [(s.pattern, s.repeats) for s in jm.plan]
+    assert L.param_count(tm.schema) == j_layers.param_count(jm.schema)
+    mine = dict(L.tree_items(tm.cache_schema(3, 40)))
+    ref = {tuple(k.key for k in path): p for path, p in
+           jax.tree_util.tree_flatten_with_path(
+               jm.cache_schema(3, 40),
+               is_leaf=lambda x: isinstance(x, j_layers.P))[0]}
+    assert mine.keys() == ref.keys()
+    for k, p in mine.items():
+        assert (p.shape, p.axes) == (ref[k].shape, ref[k].axes), k
+        assert str(p.dtype or torch.float32).split(".")[-1] == \
+            np.dtype(ref[k].dtype or jnp.float32).name, k
+
+
+def test_family_forward(family):
+    """Logits and the MoE aux loss against the reference's forward."""
+    name, jm, jp, tm, tp, batch = family
+    first = _slice(batch, 0, S, tm.cfg)
+    want, jaux = jax.jit(jm.forward)(jp, _j(first))
+    got, aux = tm.forward(tp, _tt(first))
+    _close(got, want, LOGIT_TOL)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5, atol=0)
+    assert (float(aux) > 0) == (tm.cfg.moe is not None)
+
+
+def test_family_prefill_then_decode(family):
+    """Prefill S tokens, then N_DECODE teacher-forced decode steps with a
+    per-row cache_len: every step's logits and the whole cache (K/V and
+    recurrent state) against the reference's."""
+    name, jm, jp, tm, tp, batch = family
+    jc = j_init_cache(jm, B, S + 8)
+    tc = init_cache(tm, B, S + 8, device="cpu")
+    first = _slice(batch, 0, S, tm.cfg)
+    want, jc = jax.jit(jm.prefill)(jp, _j(first), jc)
+    snapshot = L.tree_map(torch.clone, tc)
+    got, tc2 = tm.prefill(tp, _tt(first), tc)
+    _close(got, want, LOGIT_TOL)
+    for (_, a), (_, b) in zip(L.tree_items(tc), L.tree_items(snapshot)):
+        assert torch.equal(a, b), "prefill wrote into the caller's cache"
+    tc = tc2
+    jdec = jax.jit(jm.decode)
+    for t in range(N_DECODE):
+        step = _slice(batch, S + t, S + t + 1, tm.cfg)
+        step["cache_len"] = np.array([S + t, S + t], np.int32)
+        want, jc = jdec(jp, _j(step), jc)
+        got, tc = tm.decode(tp, _tt(step), tc)
+        assert got.shape == (B, 1, tm.cfg.vocab_size)
+        _close(got, want, LOGIT_TOL)
+    for (path, a), (_, b) in zip(L.tree_items(tc), L.tree_items(
+            jax.tree.map(np.asarray, jc))):
+        _close(a, b, LOGIT_TOL)
+
+
+def test_family_decode_matches_forward(family):
+    """Within the port: prefill + teacher-forced decode equals forward over
+    the extended sequence (MoE at a capacity that drops nothing, so that
+    the grouping of tokens cannot change who is dropped)."""
+    name, jm, jp, tm, tp, batch = family
+    if tm.cfg.moe is not None:
+        tm = build_model(dataclasses.replace(tm.cfg, moe=dataclasses.replace(
+            tm.cfg.moe, capacity_factor=8.0)), device="cpu")
+    cache = init_cache(tm, B, S + 8, device="cpu")
+    last, cache = tm.prefill(tp, _tt(_slice(batch, 0, S, tm.cfg)), cache)
+    full, _ = tm.forward(tp, _tt(_slice(batch, 0, S + N_DECODE, tm.cfg)))
+    torch.testing.assert_close(last[:, 0], full[:, S - 1], **LOGIT_TOL)
+    for t in range(N_DECODE):
+        step = _slice(batch, S + t, S + t + 1, tm.cfg)
+        step["cache_len"] = S + t
+        got, cache = tm.decode(tp, _tt(step), cache)
+        torch.testing.assert_close(got[:, 0], full[:, S + t], **LOGIT_TOL)
+
+
+def test_family_loader_is_init_then_cast(family):
+    """`init_cast_params` (one leaf at a time) is bitwise
+    ``cast_params(init_model_params(...))`` in bfloat16 compute, and the
+    leaves it leaves in float32 are the ones the reference reads in
+    float32: norms, the embedding and head, the MoE router and RWKV's and
+    Mamba2's decay, bonus and group-norm parameters."""
+    name, _, _, tm, _, _ = family
+    m = build_model(dataclasses.replace(tm.cfg, compute_dtype=torch.bfloat16),
+                    device="cpu")
+    want = cast_params(m, init_model_params(m, 5, device="cpu"))
+    got = init_cast_params(m, 5, device="cpu")
+    kept = set()
+    for (path, a), (p2, b) in zip(L.tree_items(got), L.tree_items(want)):
+        assert path == p2 and a.dtype == b.dtype and torch.equal(a, b), path
+        if a.dtype == torch.float32:
+            kept.add(path[-1] if path[-2] not in ("embed", "head")
+                     else path[-2])
+    float32 = {"scale", "bias", "embed", "head", "router", "w0", "wA", "wB",
+               "u", "gn_scale", "gn_bias", "A_log", "D", "dt_bias"}
+    assert kept <= float32, kept - float32

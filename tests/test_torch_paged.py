@@ -12,14 +12,15 @@ its invariants torch against torch.
 * `PagedEngine`'s greedy tokens equal the reference `PagedEngine`'s at
   page sizes 4, 8 and 16 (reduced qwen1.5-0.5b, vocab 64, the JAX
   package's parameters of seed 3 carried by `params_from_numpy`, float32
-  on both sides), and on the ring cache of reduced h2o-danube.
+  on both sides), on the ring cache of reduced h2o-danube, and on
+  reduced deepseek-moe-16b (page sizes 4-16, 2 and 4 lanes). Reduced
+  rwkv6 and zamba2 are refused typed by both packages.
 * Sampling cannot reuse the reference's keys, so paged against dense at
   temperature 0.8, oversubscription, submission order and defrag
   mid-decode are pinned torch against torch, as the reference pins them
   JAX against JAX (`tests/test_paged.py`).
 """
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
@@ -403,12 +404,42 @@ def test_encoder_decoder_rejected_typed():
         PagedEngine(model, params, slots=2, max_len=MAX_LEN, device="cpu")
 
 
-def test_recurrent_state_rejected_typed():
-    """rwkv is not ported; `leaf_specs` refuses its config before it
-    reads any cache schema (the model's other attributes are absent)."""
-    model = types.SimpleNamespace(cfg=reduced(get_config("rwkv6-7b")))
+@pytest.mark.parametrize("name", ["rwkv6-7b", "zamba2-7b"])
+def test_recurrent_state_rejected_typed(name):
+    """Recurrent state (rwkv; zamba2's Mamba2 layers beside its paged-able
+    shared-attention K/V) has no sequence axis to page: the port's
+    `PagedEngine` refuses the real model at construction, typed, as the
+    reference's does."""
+    model, params, (jm, jp, compiled) = _pair(name)
+    with pytest.raises(PagedCacheUnsupported, match="recurrent"):
+        PagedEngine(model, params, slots=2, max_len=MAX_LEN, device="cpu")
     with pytest.raises(PagedCacheUnsupported, match="recurrent"):
         leaf_specs(model, MAX_LEN)
+    from repro.serve.errors import PagedCacheUnsupported as JUnsupported
+    with pytest.raises(JUnsupported, match="recurrent"):
+        JPagedEngine(jm, jp, slots=2, max_len=MAX_LEN, compiled=compiled)
+
+
+@pytest.fixture(scope="module")
+def moe_setup():
+    return _pair("deepseek-moe-16b")
+
+
+@pytest.mark.parametrize("page_size,slots", [(4, 2), (16, 2), (8, 4)])
+def test_moe_greedy_tokens_equal_the_reference_paged_engine(
+        moe_setup, page_size, slots):
+    """Reduced deepseek-moe-16b (a dense first layer, then MoE with 2
+    shared experts): the paged prefill's chunks of lanes, pad rows
+    included, route through the same capacity groups as the reference's,
+    so the greedy tokens, the peak admission and the freed pool are the
+    reference `PagedEngine`'s."""
+    want, jeng = _serve_ref(moe_setup, JPagedEngine, slots=slots,
+                            page_size=page_size)
+    got, eng = _serve(moe_setup, PagedEngine, 0.0, slots=slots,
+                      page_size=page_size)
+    assert got == want
+    assert eng.peak_admitted == jeng.peak_admitted
+    assert eng.pool.n_free == eng.pool.capacity
 
 
 def test_paged_engine_defaults_to_the_card(setup):

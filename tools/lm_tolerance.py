@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""What `chip_smoke.py`'s `LM_TOL` and `WHISPER_TOL` have to separate,
-read on the CPU at the models' layer widths with the depth and the
-vocabulary cut.
+"""What `chip_smoke.py`'s `LM_TOL`, `WHISPER_TOL` and `M_TOL` have to
+separate, read on the CPU at the models' layer widths with the depth and
+the vocabulary cut.
 
     PYTHONPATH=src python3 tools/lm_tolerance.py [--layers 4 8 12] \
         [--vocab 32768]
     PYTHONPATH=src python3 tools/lm_tolerance.py --arch whisper-medium \
         [--layers 2 4] [--vocab 32768]
+    PYTHONPATH=src python3 tools/lm_tolerance.py --arch deepseek-moe-16b \
+        [--layers 2 4] [--vocab 32768]     # also rwkv6-7b, zamba2-7b
 
 qwen1.5-0.5b, for each depth: 4 prompts of 64-300 tokens are prefilled
 and then decoded 8 steps teacher-forced in bfloat16; each step's logits
@@ -24,8 +26,17 @@ same decode with its sinusoidal position one late, the same decode with
 the encoder K/V of the cache zeroed (a prefill that stored none), and
 bfloat16 against float32 compute of the forward.
 
-Random weights from seed 0. A few seconds a depth; nothing here runs on
-a card.
+deepseek-moe-16b, rwkv6-7b and zamba2-7b (phase M), for each depth
+(zamba2: a multiple of 6 includes its shared attention block): 2
+prompts of 96 tokens are prefilled and decoded 4 steps teacher-forced in
+bfloat16 (MoE at a capacity factor of E/k, which drops nothing), each
+step's logits against `model.forward`; the same decodes under phase M's
+mis-computation (`chip_smoke.family_wrong`); bfloat16 against float32
+compute of the forward and, for MoE, the share of top-k choices that
+differ between the two.
+
+Random weights from seed 0 (the families' drawn and cast one leaf at a
+time). Seconds to a minute a depth; nothing here runs on a card.
 """
 from __future__ import annotations
 
@@ -45,7 +56,7 @@ def rel_err(got, want) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen1.5-0.5b",
-                    choices=["qwen1.5-0.5b", "whisper-medium"])
+                    choices=["qwen1.5-0.5b", "whisper-medium", *FAMILIES])
     ap.add_argument("--layers", type=int, nargs="+", default=None)
     ap.add_argument("--vocab", type=int, default=32768)
     args = ap.parse_args(argv)
@@ -53,6 +64,10 @@ def main(argv=None) -> int:
     if args.arch == "whisper-medium":
         for n_layers in args.layers or [2, 4]:
             whisper_readings(n_layers, args.vocab)
+        return 0
+    if args.arch in FAMILIES:
+        for n_layers in args.layers or FAMILIES[args.arch]:
+            family_readings(args.arch, n_layers, args.vocab)
         return 0
 
     import numpy as np
@@ -111,6 +126,65 @@ def main(argv=None) -> int:
 
 
 WHISPER_PROMPT, WHISPER_STEPS, WHISPER_FRAMES = 8, 4, 1500
+# phase M's families and their default depths
+FAMILIES = {"deepseek-moe-16b": [2, 4], "rwkv6-7b": [2, 4, 8],
+            "zamba2-7b": [6, 12]}
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_STEPS = 2, 96, 4
+
+
+def family_readings(arch: str, n_layers: int, vocab: int) -> None:
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, init_cache, init_cast_params
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=n_layers,
+                              vocab_size=vocab)
+    model = build_model(cfg, device="cpu")
+    params = init_cast_params(model, 0, device="cpu")
+    if cfg.moe is not None:   # decodes at a capacity that drops nothing
+        m = cfg.moe
+        model = build_model(dataclasses.replace(cfg, moe=dataclasses.replace(
+            m, capacity_factor=m.num_experts / m.top_k)), device="cpu")
+    rng = np.random.default_rng(1)
+    n = FAMILY_PROMPT
+    toks = rng.integers(1, vocab, (FAMILY_BATCH, n + FAMILY_STEPS))
+    what, wrong = cs.family_wrong(arch)
+    with torch.no_grad():
+        with cs.TopK() as bf16_routes:
+            full, _ = model.forward(params, {"tokens": torch.as_tensor(toks)})
+        runs = {}
+        for tag in ("right", "wrong"):
+            with (wrong if tag == "wrong" else cs.contextlib.nullcontext()):
+                cache = init_cache(model, FAMILY_BATCH, 256, device="cpu")
+                _, cache = model.prefill(params, {"tokens": torch.as_tensor(
+                    toks[:, :n])}, cache)
+                errs = []
+                for t in range(FAMILY_STEPS):
+                    got, cache = model.decode(params, cs.decode_step_batch(
+                        cfg, toks[:, n + t:n + t + 1], n + t, "cpu"), cache)
+                    errs.append(rel_err(got[:, 0], full[:, n + t]))
+            runs[tag] = errs
+        f32 = build_model(dataclasses.replace(
+            model.cfg, compute_dtype=torch.float32), device="cpu")
+        with cs.TopK() as f32_routes:
+            full32, _ = f32.forward(params, {"tokens": torch.as_tensor(toks)})
+        dtype_err = rel_err(full, full32)
+    flips = ""
+    if cfg.moe is not None:
+        a = torch.cat([r.reshape(-1) for r in bf16_routes.calls])
+        b = torch.cat([r.reshape(-1) for r in f32_routes.calls])
+        flips = (f"; top-{cfg.moe.top_k} choices differing bfloat16 vs "
+                 f"float32 {float((a != b).float().mean()):.2%} of "
+                 f"{a.numel()}")
+    print(f"{arch} {n_layers} layers, vocab {vocab} (CPU): cache vs forward "
+          f"{min(runs['right']):.5f}-{max(runs['right']):.5f}; {what} "
+          f"{min(runs['wrong']):.5f}-{max(runs['wrong']):.5f}; bfloat16 vs "
+          f"float32 forward {dtype_err:.5f}{flips}", flush=True)
+
 
 
 def whisper_readings(n_layers: int, vocab: int) -> None:
