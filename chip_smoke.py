@@ -5,6 +5,7 @@ NVIDIA GPU.
     python3 chip_smoke.py            # all phases; needs one CUDA card
     python3 chip_smoke.py --quick    # build + kernels vs plain only
     python3 chip_smoke.py --phase-m  # phase M alone (no build, no result)
+    python3 chip_smoke.py --phase-t  # phase T alone (no build, no result)
 
 Phases, each printing one line (or a few):
 
@@ -182,6 +183,24 @@ M. the other model families at full width and depth, random weights
    step's host wall, busy time and launches beside its bytes bound, and
    generated tokens/s (qwen2-vl, which no engine serves: one timed
    decode).
+T. training, each part run with the launch counts set to 0 before and
+   read after (no kernel may launch). T1 qwen1.5-0.5b at full width and
+   depth, float32 weights from seed 0, bfloat16 compute, `launch/
+   train.py`'s defaults (batch 8 x 256 synthetic tokens, lr 3e-3, fp32 m
+   and v): the first 2 layers' loss and gradient tree on the card
+   against the host CPU within `TRAIN_TOL` (the run fails unless it
+   flags the head's use of the tied embedding detached); one
+   `adamw_update` on identical gradients, card against CPU, within
+   `ADAM_TOL` (and flagging the bias correction dropped); two 6-step
+   runs from seed 0 bitwise equal; 3 steps, an async checkpoint, the
+   loop's resume from it and 3 more steps bitwise the uninterrupted run;
+   the step's host wall, busy time, launches, idle share, tokens/s and
+   peak memory beside its bound (printed, not gated). T2
+   deepseek-moe-16b at its published width, 4 layers (the dense one and
+   3 MoE), bfloat16 m and qint8 v: 2 layers card against CPU within
+   `TRAIN_TOL` with the CPU replaying the card's routing, 3 steps on 2 x
+   512 tokens (the aux loss positive and finite), m and v through a
+   checkpoint bitwise, the peak memory beside the reckoned state.
 
 The last two lines are a JSON object of per-kernel numbers and the
 contract line ``{"ok": true, "device": {...}}``. Any failing phase raises,
@@ -3419,6 +3438,457 @@ def phase_m(dev, card: str, cfgs=None) -> dict:
     return out
 
 
+# phase T: training at full width (no kernel: the reference's training
+# path reaches no Pallas kernel and has no custom_vjp)
+T_ARCH, T2_ARCH = "qwen1.5-0.5b", "deepseek-moe-16b"
+T_PARAM_SEED, T_DATA_SEED = 0, 0
+# launch/train.py's defaults: batch 8 of 256 tokens, lr 3e-3, 100 steps
+# (warmup max(10, steps / 20), the cosine to step 100), fp32 m and v
+T_BATCH, T_SEQ, T_LR, T_SCHEDULE = 8, 256, 3e-3, 100
+T_RUN, T_RESUME_AT = 6, 3        # determinism: 6 steps; resume after 3
+T_CPU_LAYERS, T_CPU_BATCH = 2, (2, 128)
+T2_LAYERS, T2_BATCH, T2_RUN = 4, (2, 512), 3   # deepseek: dense + 3 MoE
+T2_CPU_LAYERS, T2_CPU_BATCH = 2, (1, 256)
+# Relative L2 error of the loss and of the whole gradient tree, card
+# against the host CPU, both in bfloat16 compute. `tools/
+# train_tolerance.py` on an H100 machine's host CPU: bfloat16 against
+# float32 compute (the whole rounding error of the dtype) 0.0165 / 0.0202
+# for qwen at 2 / 4 layers, 0.0173 for deepseek at 2 (its float32 pass on
+# the bfloat16 routing; 7.2% of the top-6 choices flip unreplayed); the
+# head's use of the tied embedding detached 0.185-0.202. On the card the
+# check read 0.0102 (qwen) and 0.0110 (deepseek). 0.05 sits 2.5x above
+# the dtype's whole error and 4x under the mis-computation.
+TRAIN_TOL = 0.05
+# the update of `adamw_update` on identical float32 gradients, card
+# against CPU: elementwise float32 in both, another reduction order for
+# the global norm only (read 5.7e-8 on the card; the bias correction
+# dropped 0.63)
+ADAM_TOL = 1e-6
+
+
+def t_opt(**kw):
+    """`launch/train.py`'s optimizer settings at ``T_SCHEDULE`` steps."""
+    from repro_torch.train import optim
+
+    return optim.OptConfig(lr=T_LR, warmup_steps=max(10, T_SCHEDULE // 20),
+                           total_steps=T_SCHEDULE, **kw)
+
+
+def t_batch(vocab: int, rows: int, seq: int, step: int = 0) -> dict:
+    """The synthetic loader's batch ``step`` (numpy, on the host)."""
+    from repro_torch.data.pipeline import DataConfig, ShardedLoader
+
+    return ShardedLoader(DataConfig(vocab_size=vocab, seq_len=seq,
+                                    global_batch=rows,
+                                    seed=T_DATA_SEED)).batch(step)
+
+
+def batch_tree(batch: dict) -> dict:
+    import torch
+
+    return {k: (v.shape, torch.int32) for k, v in batch.items()}
+
+
+def tree_rel_err(got: list, want: list) -> float:
+    """One relative L2 error over two lists of tensors (float64 sums)."""
+    num = sum(float((a.double() - b.double()).square().sum())
+              for a, b in zip(got, want))
+    den = sum(float(b.double().square().sum()) for b in want)
+    return math.sqrt(num / den)
+
+
+def loss_and_grads(model, params, batch: dict, dev) -> tuple:
+    """(loss, the gradient leaves on the host in float32) of
+    ``model.loss`` at ``params`` (a tree on ``dev``; left unchanged)."""
+    import torch
+
+    from repro_torch.models.layers import tree_from_items, tree_items
+
+    items = [(path, t.detach().requires_grad_())
+             for path, t in tree_items(params)]
+    tree = tree_from_items(items)
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    loss, metrics = model.loss(tree, tb)
+    grads = torch.autograd.grad(loss, [t for _, t in items])
+    return float(loss.detach()), float(metrics["aux"]), [g.float().cpu()
+                                                 for g in grads]
+
+
+def head_detached():
+    """The mis-computation (c1): the head's use of the tied embedding
+    detached, so the embedding's gradient keeps the lookup's part only."""
+    from repro_torch.models import layers
+
+    return Patched(layers, "unembed", lambda right: lambda p, x: right(
+        {"embedding": p["embedding"].detach()}, x))
+
+
+def no_bias_correction():
+    """The mis-computation (c2): Adam's moments used without their bias
+    correction."""
+    from repro_torch.train import optim
+
+    return Patched(optim, "_update_leaf", lambda right: lambda *a: right(
+        *a[:6], 1.0, 1.0, a[8]))
+
+
+def train_vs_cpu(tag, cfg, params, dev, card: str, n_layers: int,
+                 rows_seq: tuple, wrong=None) -> dict:
+    """The first ``n_layers`` layers of ``params`` at full width: one
+    batch's loss and gradient tree on the card against the host CPU (the
+    same float32 weights), relative L2 within TRAIN_TOL; for MoE the CPU
+    replays the card's top-k choices and the share of choices that
+    differ without the replay is printed; ``wrong`` (what, a context
+    manager) is a mis-computation the check must flag on the card."""
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_map
+
+    cut, views = cut_params(params, cfg, n_layers)
+    card_p = tree_map(lambda t: t.detach().clone(), views)
+    cpu_p = tree_map(lambda t: t.detach().cpu(), views)
+    batch = t_batch(cut.vocab_size, *rows_seq)
+    moe = cut.moe is not None
+    m_card, m_cpu = build_model(cut, device=dev), build_model(cut, device="cpu")
+    with TopK() as rec:
+        loss, aux, grads = loss_and_grads(m_card, card_p, batch, dev)
+    with TopK(rec.calls if moe else None):
+        cpu_loss, cpu_aux, cpu_grads = loss_and_grads(m_cpu, cpu_p, batch,
+                                                      "cpu")
+    res = {"layers": n_layers, "loss": loss, "cpu_loss": cpu_loss,
+           "loss_rel": abs(loss - cpu_loss) / abs(cpu_loss),
+           "grad_rel": tree_rel_err(grads, cpu_grads)}
+    flips = ""
+    if moe:
+        with torch.no_grad(), TopK() as own:
+            m_cpu.loss(cpu_p, {k: torch.as_tensor(v)
+                               for k, v in batch.items()})
+        # the forward's choices (remat routes again in the backward pass)
+        a = torch.cat([r.reshape(-1) for r in rec.calls[:len(own.calls)]])
+        b = torch.cat([r.reshape(-1) for r in own.calls])
+        res.update(aux=aux, cpu_aux=cpu_aux,
+                   topk_differ=float((a != b).float().mean()))
+        flips = (f"; the CPU replays the card's routing: "
+                 f"{res['topk_differ']:.2%} of {a.numel()} top-"
+                 f"{cut.moe.top_k} choices differ on its own; aux "
+                 f"{aux:.6f} / {cpu_aux:.6f}")
+    if wrong is not None:
+        what, ctx = wrong
+        with ctx:
+            _, _, bad = loss_and_grads(m_card, card_p, batch, dev)
+        res["wrong"] = tree_rel_err(bad, cpu_grads)
+        flips += f"; {what} reads {res['wrong']:.5f}"
+    del card_p
+    print(f"{tag} card vs CPU: {n_layers} layers at full width, one "
+          f"{rows_seq[0]} x {rows_seq[1]} batch: loss {loss:.6f} / "
+          f"{cpu_loss:.6f} (relative {res['loss_rel']:.2e}), gradient "
+          f"tree relative L2 {res['grad_rel']:.5f} (tol {TRAIN_TOL})"
+          f"{flips} [{card}]")
+    if max(res["loss_rel"], res["grad_rel"]) > TRAIN_TOL:
+        raise AssertionError(f"phase {tag}: card vs CPU {res} > {TRAIN_TOL}")
+    if wrong is not None and res["wrong"] <= TRAIN_TOL:
+        raise AssertionError(f"phase {tag}: TRAIN_TOL {TRAIN_TOL} does not "
+                             f"flag {wrong[0]} ({res['wrong']:.5f})")
+    return res, cut, cpu_p, cpu_grads
+
+
+def adam_vs_cpu(cut, cpu_p, cpu_grads, dev, card: str) -> dict:
+    """`adamw_update` on identical gradients (the CPU's of
+    `train_vs_cpu`), one step on the card and on the CPU from the same
+    parameters: the update's relative L2 within ADAM_TOL; and what the
+    check reads from the update without its bias correction (the run
+    fails unless ADAM_TOL flags it)."""
+    from repro_torch.models.layers import tree_from_items, tree_items
+    from repro_torch.train import optim
+
+    oc = t_opt()
+    paths = [p for p, _ in tree_items(cpu_p)]
+    g_tree = tree_from_items(zip(paths, cpu_grads))
+
+    def update(device, wrong=False):
+        p = tree_from_items((path, t.to(device).clone())
+                            for path, t in tree_items(cpu_p))
+        g = tree_from_items((path, t.to(device)) for path, t in
+                            tree_items(g_tree))
+        with (no_bias_correction() if wrong else contextlib.nullcontext()):
+            optim.adamw_update(g, optim.init_opt_state(p, oc), p, oc)
+        return [(new.cpu() - old) for (_, new), (_, old) in
+                zip(tree_items(p), tree_items(cpu_p))]
+
+    want = update("cpu")
+    got = update(dev)
+    bad = update(dev, wrong=True)
+    res = {"update_rel": tree_rel_err(got, want),
+           "wrong": tree_rel_err(bad, want)}
+    print(f"T1 adamw_update on identical gradients ({len(paths)} leaves), "
+          f"card vs CPU: update relative L2 {res['update_rel']:.2e} (tol "
+          f"{ADAM_TOL}); the bias correction dropped reads "
+          f"{res['wrong']:.5f} [{card}]")
+    if res["update_rel"] > ADAM_TOL:
+        raise AssertionError(f"phase T1: adamw_update card vs CPU "
+                             f"{res['update_rel']} > {ADAM_TOL}")
+    if res["wrong"] <= ADAM_TOL:
+        raise AssertionError("phase T1: ADAM_TOL does not flag the dropped "
+                             "bias correction")
+    return res
+
+
+def same_tree(a, b) -> bool:
+    import torch
+
+    from repro_torch.models.layers import tree_items
+
+    return all(x.dtype == y.dtype and torch.equal(x.detach(), y.detach())
+               for (_, x), (_, y) in zip(tree_items(a), tree_items(b)))
+
+
+def train_work(model, n_tokens: int, seq: int, rows: int) -> dict:
+    """The least time of one train step on this card, worked out from the
+    shapes (TF32 off): the float32 head's three products (forward and two
+    backward) at 67 TFLOP/s, the bfloat16 body's 6 operations a weight a
+    token and attention's 3 x 4 dh a live pair a head at 989 TFLOP/s,
+    and AdamW's 7 float32 reads and writes a parameter (p, g, m, v read;
+    p, m, v written) at 3.35 TB/s; their sum, each part run after the
+    other."""
+    from repro_torch.models.layers import param_count
+
+    cfg = model.cfg
+    n_params = param_count(model.schema)
+    body = n_params - cfg.vocab_size * cfg.d_model * (
+        1 if cfg.tie_embeddings else 2)
+    head_ops = 3 * 2 * n_tokens * cfg.d_model * cfg.vocab_size
+    pairs = rows * seq * (seq + 1) // 2
+    attn_ops = 3 * 4 * cfg.hd * cfg.num_heads * pairs * cfg.num_layers
+    body_ops = 6 * body * n_tokens + attn_ops
+    opt_bytes = 7 * 4 * n_params
+    parts = {"head_ms": head_ops / PEAK_FP32 * 1e3,
+             "body_ms": body_ops / PEAK_BF16 * 1e3,
+             "adamw_ms": opt_bytes / PEAK_BYTES * 1e3}
+    return {**parts, "bound_ms": sum(parts.values()), "params": n_params,
+            "head_tflop": head_ops / 1e12, "body_tflop": body_ops / 1e12,
+            "adamw_gb": opt_bytes / 1e9}
+
+
+def t_run(model, oc, dev, state, n: int, rows: int = T_BATCH,
+          seq: int = T_SEQ, ckpt_dir=None, every: int = 0):
+    """``launch/train.py``'s loop on the synthetic loader: n steps of
+    rows x seq tokens, every step logged."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.loop import LoopConfig, train
+    from repro_torch.train.step import make_train_step
+
+    cfg = model.cfg
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                    global_batch=rows, seed=T_DATA_SEED)
+    bundle = make_train_step(model, oc, batch_tree(t_batch(
+        cfg.vocab_size, rows, seq)), device=dev)
+    lc = LoopConfig(n_steps=n, ckpt_every=every, ckpt_dir=ckpt_dir or "",
+                    log_every=1, async_ckpt=True)
+    return train(model, bundle, dc, lc, state, device=dev, log=None)
+
+
+def phase_t1(dev, card: str, cfg=None) -> dict:
+    """T1: qwen1.5-0.5b at full width and depth (``cfg`` cuts it for a
+    rehearsal), float32 weights from seed 0, bfloat16 compute,
+    `launch/train.py`'s defaults: (a) card vs CPU at T_CPU_LAYERS layers
+    with the head detached as the mis-computation, (b) `adamw_update` on
+    identical gradients with the bias correction dropped as the
+    mis-computation, (d) two T_RUN-step runs from seed 0 bitwise equal,
+    and a run checkpointed (async) after T_RESUME_AT steps and resumed by
+    the loop from the checkpoint bitwise the uninterrupted one, (e) the
+    step's host wall, busy time, launches, idle share, tokens/s and peak
+    memory beside its bound."""
+    import statistics
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train.step import init_state, make_train_step
+
+    cfg = cfg or get_config(T_ARCH)
+    oc = t_opt()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev)
+    res = {}
+    state_a = init_state(model, oc, T_PARAM_SEED, device=dev)
+    res["cpu"], cut, cpu_p, cpu_grads = train_vs_cpu(
+        "T1", cfg, state_a["params"], dev, card, T_CPU_LAYERS, T_CPU_BATCH,
+        wrong=("the head's use of the tied embedding detached",
+               head_detached()))
+    res["adam"] = adam_vs_cpu(cut, cpu_p, cpu_grads, dev, card)
+    del cpu_p, cpu_grads
+    gc.collect()
+
+    state_a, hist_a = t_run(model, oc, dev, state_a, T_RUN)
+    state_b, hist_b = t_run(model, oc, dev, init_state(
+        model, oc, T_PARAM_SEED, device=dev), T_RUN)
+    losses = [h["loss"] for h in hist_a]
+    same = losses == [h["loss"] for h in hist_b] and same_tree(
+        state_a["params"], state_b["params"])
+    with tempfile.TemporaryDirectory(prefix="phase_t_") as d:
+        t0 = time.perf_counter()
+        t_run(model, oc, dev, init_state(model, oc, T_PARAM_SEED,
+                                          device=dev),
+               T_RESUME_AT, ckpt_dir=d, every=T_RESUME_AT)
+        save_s = time.perf_counter() - t0
+        if ckpt.latest_step(d) != T_RESUME_AT:
+            raise AssertionError("phase T1: no checkpoint written")
+        t0 = time.perf_counter()
+        # the loop resumes from the latest step; a period past the run's
+        # end writes no second checkpoint
+        state_c, hist_c = t_run(model, oc, dev, None, T_RUN, ckpt_dir=d,
+                                 every=T_RUN + 1)
+        resume_s = time.perf_counter() - t0
+    resumed = [h["step"] for h in hist_c] == list(
+        range(T_RESUME_AT + 1, T_RUN + 1)) and \
+        [h["loss"] for h in hist_c] == losses[T_RESUME_AT:] and \
+        same_tree(state_c, state_a)
+    res.update(losses=losses, repeat_equal=same, resume_equal=resumed,
+               save_s=save_s, resume_s=resume_s)
+    print(f"T1 {cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}: losses of {T_RUN} steps from seed "
+          f"{T_PARAM_SEED} " + ", ".join(f"{x:.5f}" for x in losses)
+          + f"; a second run bitwise equal: {same}; {T_RESUME_AT} steps, an "
+          f"async checkpoint, a resume by the loop and {T_RUN - T_RESUME_AT}"
+          f" more steps bitwise the uninterrupted run (losses and every "
+          f"leaf of the state): {resumed} ({save_s:.1f} s to step "
+          f"{T_RESUME_AT} with the checkpoint written, {resume_s:.1f} s to "
+          f"restore and finish) [{card}]")
+    if not same:
+        raise AssertionError(f"phase T1: two same-seed runs differ: "
+                             f"{losses} / {[h['loss'] for h in hist_b]}")
+    if not resumed:
+        raise AssertionError(f"phase T1: the resumed run differs: "
+                             f"{[(h['step'], h['loss']) for h in hist_c]}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"phase T1: the loss did not fall: {losses}")
+    del state_c
+    gc.collect()
+
+    # (e) readings: not gated
+    host = statistics.median(h["time_s"] * 1e3 for h in hist_a[1:])
+    batch = t_batch(cfg.vocab_size, T_BATCH, T_SEQ, T_RUN)
+    step = make_train_step(model, oc, batch_tree(batch), device=dev).step_fn
+    busy, launches = device_busy(lambda: step(state_b, batch))
+    work = train_work(model, T_BATCH * T_SEQ, T_SEQ, T_BATCH)
+    res["time"] = {"host_ms": host, "device_busy_ms": busy,
+                   "launches": launches, "idle_share": 1 - busy / host,
+                   "tokens_s": T_BATCH * T_SEQ / host * 1e3,
+                   "max_memory_gib": torch.cuda.max_memory_allocated()
+                   / 2**30, **work}
+    print(f"T1 step at batch {T_BATCH} x {T_SEQ}: {host:.2f} ms host wall "
+          f"(median of steps 2-{T_RUN}); the card busy {busy:.2f} ms over "
+          f"{launches} launches (profiler), idle {1 - busy / host:.1%}; "
+          f"{res['time']['tokens_s']:,.0f} tokens/s; bound "
+          f"{work['bound_ms']:.2f} ms (float32 head {work['head_tflop']:.3f}"
+          f" TFLOP {work['head_ms']:.2f} ms + bfloat16 body "
+          f"{work['body_tflop']:.3f} TFLOP {work['body_ms']:.2f} ms + AdamW "
+          f"{work['adamw_gb']:.2f} GB {work['adamw_ms']:.2f} ms; "
+          f"{work['params']:,} parameters), {work['bound_ms'] / host:.1%} "
+          f"of the host wall; " + memory_line("peak") + f" [{card}]")
+    return res
+
+
+def phase_t2(dev, card: str, cfg=None) -> dict:
+    """T2: deepseek-moe-16b at its published width, the depth cut to
+    T2_LAYERS (the dense first layer and three MoE layers; ``cfg`` cuts
+    it further for a rehearsal), with the reduced-memory optimizer state
+    (bfloat16 m, qint8 v): card vs CPU at T2_CPU_LAYERS layers, the CPU
+    replaying the card's routing; T2_RUN steps on a T2_BATCH batch (the
+    aux loss positive and finite); the optimizer state through a
+    checkpoint and back bitwise; the peak memory beside the reckoning."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_items
+    from repro_torch.train.step import init_state
+
+    cfg = cfg or dataclasses.replace(get_config(T2_ARCH),
+                                     num_layers=T2_LAYERS)
+    oc = t_opt(m_dtype=torch.bfloat16, v_dtype="qint8")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev)
+    state = init_state(model, oc, T_PARAM_SEED, device=dev)
+    res = {}
+    res["cpu"] = train_vs_cpu("T2", cfg, state["params"], dev, card,
+                              T2_CPU_LAYERS, T2_CPU_BATCH)[0]
+    gc.collect()
+    rows, seq = T2_BATCH
+    t0 = time.perf_counter()
+    state, hist = t_run(model, oc, dev, state, T2_RUN, rows, seq)
+    run_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in tree_items(state["params"]))
+    state_gb = {k: sum(t.numel() * t.element_size() for _, t in
+                       tree_items(state["opt"][k])) / 1e9 for k in ("m", "v")}
+    reckoned = (2 * n_params * 4) / 1e9 + sum(state_gb.values())
+    with tempfile.TemporaryDirectory(prefix="phase_t2_") as d:
+        t0 = time.perf_counter()
+        ckpt.save({"opt": state["opt"]}, T2_RUN, d)
+        back = ckpt.restore(d, T2_RUN, {"opt": state["opt"]}, device=dev)
+        ckpt_s = time.perf_counter() - t0
+    kept = same_tree(back["opt"], state["opt"]) and all(
+        a.dtype == b.dtype for (_, a), (_, b) in
+        zip(tree_items(back["opt"]), tree_items(state["opt"])))
+    del back
+    losses = [h["loss"] for h in hist]
+    auxes = [h["aux"] for h in hist]
+    res.update(losses=losses, aux=auxes, run_s=run_s, ckpt_s=ckpt_s,
+               ckpt_bitwise=kept, params=n_params, state_gb=state_gb,
+               reckoned_gb=reckoned,
+               max_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"T2 {cfg.num_layers} layers (d_model {cfg.d_model}, "
+          f"{cfg.moe.num_experts} routed experts top-{cfg.moe.top_k}, "
+          f"{cfg.moe.num_shared} shared), {n_params:,} parameters, bfloat16 m"
+          f" ({state_gb['m']:.2f} GB) and qint8 v ({state_gb['v']:.2f} GB): "
+          f"{T2_RUN} steps at {rows} x {seq} in {run_s:.1f} s, losses "
+          + ", ".join(f"{x:.5f}" for x in losses) + ", aux "
+          + ", ".join(f"{x:.6f}" for x in auxes)
+          + f"; m and v through a checkpoint and back bitwise: {kept} "
+          f"({ckpt_s:.1f} s); reckoned state {reckoned:.2f} GB (float32 "
+          f"parameters and gradients, m, v), " + memory_line("peak")
+          + f" [{card}]")
+    if not all(math.isfinite(x) for x in losses + auxes) or \
+            min(auxes) <= 0:
+        raise AssertionError(f"phase T2: losses {losses}, aux {auxes}")
+    if not kept:
+        raise AssertionError("phase T2: the optimizer state did not survive "
+                             "a checkpoint bitwise")
+    return res
+
+
+def phase_t(dev, card: str, cfgs=None) -> dict:
+    """Phase T: training, T1 and T2 (``cfgs`` {"T1": ..., "T2": ...} cut
+    them for a rehearsal), each with the launch counts set to 0 just
+    before and read just after: no kernel of the port may launch (the
+    reference's training path reaches no Pallas kernel)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    out = {}
+    for tag, fn in (("T1", phase_t1), ("T2", phase_t2)):
+        res, launches = counted(lambda: fn(dev, card, (cfgs or {}).get(tag)))
+        if any(n for entries in launches.values() for n in entries.values()):
+            raise AssertionError(f"phase {tag} launched a kernel: "
+                                 f"{launches}")
+        out[tag] = res
+        gc.collect()
+        torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"phase T: {secs:.1f} s; no kernel of the port launched")
+    out["seconds"] = secs
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -3426,6 +3896,9 @@ def main(argv=None) -> int:
                          "plain)")
     ap.add_argument("--phase-m", action="store_true",
                     help="the card's name and phase M only (no build, no "
+                         "result lines)")
+    ap.add_argument("--phase-t", action="store_true",
+                    help="the card's name and phase T only (no build, no "
                          "result lines)")
     args = ap.parse_args(argv)
 
@@ -3470,12 +3943,14 @@ def main(argv=None) -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(card)
-    if args.phase_m:
+    if args.phase_m or args.phase_t:
         dev = torch.device("cuda", 0)
-        report["phase_m"] = phase_m(dev, card)
+        tag = "m" if args.phase_m else "t"
+        report[f"phase_{tag}"] = (phase_m if args.phase_m else phase_t)(
+            dev, card)
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
-        (out_dir / "chip_smoke_m.json").write_text(
+        (out_dir / f"chip_smoke_{tag}.json").write_text(
             json.dumps(report, indent=1, default=str))
         return 0
     declare_rope_wrong_slot()
@@ -4045,6 +4520,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # ---- phase M: the other model families at full width
     report["phase_m"] = phase_m(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- phase T: training at full width
+    report["phase_t"] = phase_t(dev, card)
     for k in kernels:
         if k["name"] == "asr_graph[stream]":
             k["launches_phase_p"] = report["phase_p"]["frontend"][

@@ -1,2 +1,2 @@
 """Command-line entry points of the port (`serve`: batched LM decode with
-the continuous-batching engine)."""
+the continuous-batching engine; `train`: the training loop)."""

@@ -20,11 +20,15 @@ cache; decode reads them from there), and decode takes an optional
 was (recurrent layers start from the state that cache holds); ``decode``
 writes each row's new K/V and state into the given cache in place and
 returns it. ``forward`` returns (logits, the MoE layers' summed aux
-loss).
+loss); ``loss`` takes a batch with ``labels`` (B, S) as well (-1 masks a
+position) and returns (ce + aux, {"loss", "ce", "aux"}), differentiable
+in the parameters (the tied embedding's gradient sums the lookup's part
+and the head's).
 
 Parameters are float32 (``cfg.param_dtype``) and compute runs in
 ``cfg.compute_dtype``; the reference casts each weight at each product,
-and `cast_params` casts those weights once, the same bits.
+and `cast_params` casts those weights once, the same bits (for serving:
+training keeps the float32 leaves and casts at each product).
 `init_cast_params` draws and casts one leaf at a time, for models whose
 float32 tree does not fit beside its cast copy.
 """
@@ -53,6 +57,7 @@ class Model:
     prefill: Callable      # (params, batch, cache) -> (last logits, new cache)
     decode: Callable       # (params, batch, cache) -> (logits, cache)
     cache_schema: Callable  # (batch_size, max_len) -> schema tree
+    loss: Callable         # (params, batch) -> (total, metrics)
 
 
 # the decode position table's rows (the reference's)
@@ -63,7 +68,10 @@ def _embed_tokens(params, batch, cfg, *, mode):
     tokens = batch["tokens"]
     x = L.embed(params["embed"], tokens).to(cfg.compute_dtype)
     if cfg.vlm_patches and mode != "decode" and "patch_emb" in batch:
-        x[:, :cfg.vlm_patches] = batch["patch_emb"].to(x.dtype)
+        # a new tensor, not a write into the lookup: training
+        # differentiates through it
+        x = torch.cat([batch["patch_emb"].to(x.dtype),
+                       x[:, cfg.vlm_patches:]], dim=1)
     if cfg.is_encdec:  # whisper decoder: absolute sinusoidal positions
         if mode == "decode":
             # the new token's position is cache_len (scalar or per slot)
@@ -172,8 +180,16 @@ def build_model(cfg, *, device="cuda") -> Model:
     def cache_schema_fn(batch_size: int, max_len: int):
         return tfm.cache_schema(cfg, plan, batch_size, max_len)
 
+    def loss(params, batch):
+        logits, aux = forward(params, batch)
+        ce = L.cross_entropy_loss(logits, batch["labels"])
+        total = ce + aux
+        return total, {"loss": total.detach(), "ce": ce.detach(),
+                       "aux": aux.detach()}
+
     return Model(cfg=cfg, schema=schema, plan=plan, forward=forward,
-                 prefill=prefill, decode=decode, cache_schema=cache_schema_fn)
+                 prefill=prefill, decode=decode, cache_schema=cache_schema_fn,
+                 loss=loss)
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,7 @@ __all__ = ["P", "fanin_std", "stack_schema", "tree_map", "tree_items",
            "tree_from_items", "init_leaf", "init_params", "param_count",
            "norm_schema", "apply_norm", "embed_schema", "embed", "unembed",
            "linear_head_schema", "linear_head", "mlp_schema", "apply_mlp",
-           "sinusoidal_positions"]
+           "sinusoidal_positions", "cross_entropy_loss"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,3 +223,17 @@ def sinusoidal_positions(seq_len: int, d: int, dtype=torch.float32,
     ang = pos * inv
     out = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
     return torch.as_tensor(out).to(device=device, dtype=dtype)
+
+
+def cross_entropy_loss(logits, labels, *, z_loss: float = 0.0):
+    """Mean next-token cross entropy in float32; ``labels == -1`` are
+    masked out; ``z_loss`` adds z_loss * logsumexp^2 per token."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * torch.square(lse)
+    mask = (labels >= 0).float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

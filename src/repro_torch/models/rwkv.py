@@ -122,7 +122,10 @@ def wkv6_chunked(r, k, v, lw, u, s0, chunk: int):
     for c in range(nc):
         rb, kb, vb, wb = rc[:, c], kc[:, c], vc[:, c], wc[:, c]
         ce = torch.cumsum(wb, dim=1)                       # inclusive
-        ec = ce - wb                                       # exclusive
+        # exclusive, summed as ce is (not ce - wb): ec_{j+1} is ce_j
+        # itself, so the adjacent pair's exponent is exactly 0 however
+        # large the decays (ce - wb rounds at ulp(ce))
+        ec = torch.cumsum(F.pad(wb, (0, 0, 0, 0, 1, 0))[:, :L], dim=1)
         # intra-chunk: A[t,j] = sum_d r_t k_j exp(ec_t - ce_j), j < t
         expo = ec[:, :, None] - ce[:, None]                # (B,L,L,H,K) <= 0
         E = torch.exp(torch.where(mask[None, :, :, None, None], expo,

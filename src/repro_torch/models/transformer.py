@@ -18,14 +18,18 @@ The shared attention block's weights live outside the stacks
 (``params["shared_attn"]``, passed in `Ctx.shared`), so every
 application reads one copy; each application has its own KV cache.
 Where the reference scans the layer axis with ``lax.scan``
-(remat-wrapped for training), the port loops over it.
+(remat-wrapped for training), the port loops over it, each repeat under
+`torch.utils.checkpoint` in training.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as att
 from repro_torch.models import layers as L
@@ -288,6 +292,38 @@ def _layers(tree, n: int) -> list:
     return [L.tree_map(lambda t: t[i], parts) for i in range(n)]
 
 
+def _repeat(pattern, layer_params, layer_cache, x, ctx):
+    """One repeat of a segment's pattern: (x, its MoE aux loss or None)."""
+    total = None
+    for li, layer in enumerate(pattern):
+        for kind in layer:
+            key = f"l{li}_{kind}"
+            x, aux = _apply_sublayer(kind, layer_params.get(key), x,
+                                     layer_cache.get(key), ctx)
+            if aux is not None:
+                total = aux if total is None else total + aux
+    return x, total
+
+
+# the reference's `dots_with_no_batch_dims_saveable`: keep the outputs of
+# the 2-D matrix products (activations times weights), recompute the rest
+_SAVED_PRODUCTS = [torch.ops.aten.mm.default]
+
+
+def _remat(cfg):
+    """The keyword arguments of `torch.utils.checkpoint.checkpoint` for
+    ``cfg.remat`` (``full``: save nothing in a repeat; ``dots``: save the
+    2-D products), or None for ``none``."""
+    if cfg.remat == "none":
+        return None
+    if cfg.remat == "full":
+        return {"use_reentrant": False}
+    if cfg.remat == "dots":
+        return {"use_reentrant": False, "context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _SAVED_PRODUCTS)}
+    raise ValueError(f"remat {cfg.remat!r}")
+
+
 def apply_stack(stack_params, x, plan, ctx, cache=None):
     """Run all segments. Returns (x, cache, the summed MoE aux loss).
 
@@ -296,20 +332,26 @@ def apply_stack(stack_params, x, plan, ctx, cache=None):
     recurrent layers start from the state the cache held), so the
     caller's cache is left as it was; decode writes each row's new K/V
     and state into ``cache`` in place and returns it. Without a cache
-    (train) returns (x, None, aux)."""
+    (train) returns (x, None, aux). In train mode with gradients on,
+    each repeat runs under `torch.utils.checkpoint` by ``cfg.remat``, as
+    the reference wraps each scanned repeat in ``jax.checkpoint``: its
+    backward recomputes what the policy did not save."""
     if cache is not None and ctx.mode == "prefill":
         cache = L.tree_map(torch.clone, cache)
+    remat = _remat(ctx.cfg) if ctx.mode == "train" and \
+        torch.is_grad_enabled() else None
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, seg in enumerate(plan):
         seg_params = _layers(stack_params[f"seg{i}"], seg.repeats)
         seg_cache = _layers(cache[f"seg{i}"], seg.repeats) \
             if cache is not None else [{}] * seg.repeats
         for layer_params, layer_cache in zip(seg_params, seg_cache):
-            for li, layer in enumerate(seg.pattern):
-                for kind in layer:
-                    key = f"l{li}_{kind}"
-                    x, aux = _apply_sublayer(kind, layer_params.get(key), x,
-                                             layer_cache.get(key), ctx)
-                    if aux is not None:
-                        total_aux = total_aux + aux
+            if remat is None:
+                x, aux = _repeat(seg.pattern, layer_params, layer_cache, x,
+                                 ctx)
+            else:
+                x, aux = checkpoint(_repeat, seg.pattern, layer_params,
+                                    layer_cache, x, ctx, **remat)
+            if aux is not None:
+                total_aux = total_aux + aux
     return x, cache, total_aux

@@ -48,7 +48,10 @@ def test_port_has_sources():
                  "models/transformer.py", "models/api.py",
                  "serve/engine.py", "launch/serve.py", "serve/paged.py",
                  "serve/engine_fault.py", "serve/frontend.py",
-                 "models/moe.py", "models/rwkv.py", "models/mamba.py"):
+                 "models/moe.py", "models/rwkv.py", "models/mamba.py",
+                 "data/pipeline.py", "train/optim.py", "train/compress.py",
+                 "train/step.py", "train/loop.py", "checkpoint/ckpt.py",
+                 "launch/train.py"):
         assert need in names
     for src in ("pipeline/csrc/biosignal_graph.cu",
                 "pipeline/csrc/asr_graph.cu", "fir/csrc/fir.cu",

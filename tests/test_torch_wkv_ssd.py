@@ -78,6 +78,33 @@ def test_wkv6_chunked_stable_any_decay(seed, decay_scale):
     _close(got, [s.numpy() for s in scan], dict(atol=1e-3, rtol=1e-3))
 
 
+def _wkv6_scan_f64(r, k, v, lw, u, s0):
+    """The per-token recurrence in float64 numpy: the exact output."""
+    r, k, v, lw, u, s = (np.asarray(a, np.float64)
+                         for a in (r, k, v, lw, u, s0))
+    outs = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        outs.append(np.einsum("bhk,bhkv->bhv", r[:, t],
+                              s + u[None, :, :, None] * kv))
+        s = np.exp(lw[:, t])[..., None] * s + kv
+    return np.stack(outs, 1)
+
+
+def test_wkv6_chunked_adjacent_pair_exact_under_large_decay():
+    """Decays scaled 30x put the chunk's cumulative log-decay near -400,
+    where ce - w rounds at ~3e-5: the pair (j + 1, j), whose exponent is
+    exactly 0, then reads e^(+-3e-5). The exclusive cumsum summed
+    directly keeps it 0: on this example the port sits 8e-6 from the
+    float64 scan (max |o| ~20) where ce - w put it at 4.6e-4 and the
+    reference sits at 1.6e-4; held to 2e-6 x max |o|."""
+    args = _wkv_inputs(np.random.default_rng(1), decay_scale=30.0)
+    want = _wkv6_scan_f64(*args)
+    got, _ = rwkv.wkv6_chunked(*(torch.from_numpy(a) for a in args), 8)
+    err = np.abs(got.numpy().astype(np.float64) - want).max()
+    assert err <= 2e-6 * np.abs(want).max(), err
+
+
 def test_wkv6_decode_continues_scan(rng):
     r, k, v, lw, u, s0 = (torch.from_numpy(a)
                           for a in _wkv_inputs(rng, S=9))
