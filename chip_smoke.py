@@ -6,6 +6,7 @@ NVIDIA GPU.
     python3 chip_smoke.py --quick    # build + kernels vs plain only
     python3 chip_smoke.py --phase-m  # phase M alone (no build, no result)
     python3 chip_smoke.py --phase-t  # phase T alone (no build, no result)
+    python3 chip_smoke.py --phase-u  # phases U and E alone (no result)
 
 Phases, each printing one line (or a few):
 
@@ -201,6 +202,27 @@ T. training, each part run with the launch counts set to 0 before and
    `TRAIN_TOL` with the CPU replaying the card's routing, 3 steps on 2 x
    512 tokens (the aux loss positive and finite), m and v through a
    checkpoint bitwise, the peak memory beside the reckoned state.
+
+U. autotuning on the card (`core/autotune.py`) at the main path's
+   shapes, each search from an empty cache with the launch counts set to
+   0 just before and read just after: the biosignal day as
+   `BiosignalStream` at batch_windows 8 and 512, kernel- and
+   host-framed, and as one `graph_pipeline_stream` call; the ASR hour at
+   batch_windows 32 and in one call; `ResidentStream` on the day at B=8
+   with ``ResidentConfig(autotune=True)`` (the ring depth); the FIR and
+   the FFT at `pipeline_staged`'s shapes. For each key: the candidates'
+   times (CUDA events; one clock a search, device time alone or host gaps
+   in, the ring depth always the latter) with the spread of their reps,
+   the default's, the winner and the search's host cost; every tuned
+   output bitwise its untuned run, the launches the untuned run's plus
+   the search's;
+E. the paper's application end to end, `launch.biosignal_app.run` on
+   the card (window 2048, hop 512, autotune on): its readings printed;
+   stream against staged <= 1e-3 and the 4-column delta <= 1e-4 (the
+   example's bounds), the SVM fit against the same fit on the CPU within
+   `E_FIT_RTOL`, the holdout classes equal, the simulator's cycles and
+   class equal to a run with the CPU's fit, and the biosignal graph
+   kernel launched (stream and frames entries).
 
 The last two lines are a JSON object of per-kernel numbers and the
 contract line ``{"ok": true, "device": {...}}``. Any failing phase raises,
@@ -3889,6 +3911,244 @@ def phase_t(dev, card: str, cfgs=None) -> dict:
     return out
 
 
+# phase U: autotuning on the card
+U_REPS = 3                       # `core.autotune`'s timed reps a candidate
+
+
+def search_launches(cands: list, per_call) -> int:
+    """Launches of one search over ``cands``: a warm call, one sizing
+    call and `U_REPS` timed calls each, ``per_call(c)`` launches a call."""
+    return sum((2 + U_REPS) * per_call(c) for c in cands)
+
+
+def tuned_case(tag: str, key0: str, default: int, plain, tuned,
+               launches_of, kernel: str, entry: str, per_call,
+               card: str, search_call=None) -> dict:
+    """Run ``plain()`` and, from an empty cache, ``tuned()`` (each with
+    the launch counts set to 0 just before), require the outputs bitwise
+    equal and the tuned run's launches the untuned run's (at the winner)
+    plus its search's; print the candidates' times with their spread, the
+    default's, the winner and the search's host cost."""
+    import torch
+
+    from repro_torch.core import autotune
+
+    want, got0 = counted(plain)
+    autotune.clear_cache()
+    out, got1 = counted(tuned)
+    if isinstance(want, torch.Tensor):
+        want, out = (want,), (out,)
+    if isinstance(want, tuple):
+        want, out = dict(enumerate(want)), dict(enumerate(out))
+    for k in want:
+        if not torch.equal(out[k], want[k]):
+            raise AssertionError(f"phase U {tag}: tuned {k} differs from "
+                                 f"the untuned run")
+    log = autotune.search_log()
+    keys = [k for k in log if k[0] == key0]
+    if len(keys) != 1:
+        raise AssertionError(f"phase U {tag}: searches {list(log)}")
+    rec = log[keys[0]]
+    if rec["clock"] != "cuda":
+        raise AssertionError(f"phase U {tag}: timed on {rec['clock']}")
+    base = launches_of(got0)
+    # the tuned run launches at the winner where the untuned one did at
+    # the default (the same count but for the resident loop's depth)
+    expect = base - per_call(default) + per_call(rec["winner"]) + \
+        search_launches(rec["candidates"], search_call or per_call)
+    if launches_of(got1) != expect or got1[kernel][entry] < 1:
+        raise AssertionError(f"phase U {tag}: {launches_of(got1)} launches, "
+                             f"expected {base} + the search's = {expect}")
+    times = dict(zip(rec["candidates"], rec["ms"]))
+    if default not in times:
+        raise AssertionError(f"phase U {tag}: default {default} not among "
+                             f"{rec['candidates']}")
+    res = {"key": list(keys[0]), "candidates": rec["candidates"],
+           "ms": rec["ms"], "spread": rec["spread"], "default": default,
+           "default_ms": times[default], "winner": rec["winner"],
+           "winner_ms": times[rec["winner"]],
+           "host_gaps": rec["host_gaps"],
+           "search_ms": rec["search_ms"], "launches_untuned": base,
+           "launches_tuned": launches_of(got1)}
+    print(f"phase U {tag}: " + ", ".join(
+        f"{c} {ms:.4f} ms (+{100 * sp:.0f}%)" for c, ms, sp in
+        zip(rec["candidates"], rec["ms"], rec["spread"]))
+        + f"; default {default} {times[default]:.4f} ms, winner "
+        f"{rec['winner']} {times[rec['winner']]:.4f} ms "
+        f"({times[default] / times[rec['winner']]:.3f}x the default; "
+        f"{'host gaps in' if rec['host_gaps'] else 'device time alone'}), "
+        f"search {rec['search_ms']:.1f} ms of host; tuned == untuned "
+        f"bitwise, {base} -> {launches_of(got1)} {kernel} launches [{card}]")
+    return res
+
+
+def phase_u(dev, card: str, app, asr_app, sig, audio) -> dict:
+    """Phase U: `core.autotune` on the card at the main path's shapes.
+    The biosignal day as `BiosignalStream` at batch_windows 8 and 512,
+    kernel- and host-framed, and as one `graph_pipeline_stream` call; the
+    ASR hour at batch_windows 32 and in one call; `ResidentStream` on the
+    day at B=8 with ``ResidentConfig(autotune=True)``; the FIR and the
+    FFT at `pipeline_staged`'s shapes. Each tuned output bitwise its
+    untuned run, each search timed with CUDA events."""
+    from repro_torch.core.autotune import candidate_ring_depths
+    from repro_torch.kernels.fft.kernel import default_block_rows as fft_rb
+    from repro_torch.kernels.fft.ops import fft
+    from repro_torch.kernels.fir.kernel import default_block_rows as fir_rb
+    from repro_torch.kernels.fir.ops import fir
+    from repro_torch.kernels.pipeline.asr import ASR_BLOCK_FRAMES
+    from repro_torch.kernels.pipeline.graph import stream_frame_count
+    from repro_torch.kernels.pipeline.kernel import BIOSIGNAL_BLOCK_FRAMES
+    from repro_torch.kernels.pipeline.ops import graph_pipeline_stream
+    from repro_torch.serve.resident import (DEFAULT_RING_DEPTH,
+                                            ResidentConfig, ResidentStream)
+    from repro_torch.serve.stream import (BiosignalStream, StreamConfig,
+                                          frame_signal)
+
+    t_start = time.perf_counter()
+    feat = ("features", "margin", "class")
+    n = stream_frame_count(sig.shape[0], WINDOW, HOP)
+    bio = lambda e: lambda got: got["biosignal_graph"][e]   # noqa: E731
+    one = lambda c: 1                                       # noqa: E731
+    out = {}
+    for B in (8, 512):
+        for framing, entry, key0 in (("kernel", "stream",
+                                      "biosignal_pipeline_stream"),
+                                     ("host", "frames", "biosignal_pipeline")):
+            cfg = StreamConfig(window=WINDOW, hop=HOP, batch_windows=B,
+                               framing=framing, outputs=feat)
+            tcfg = StreamConfig(window=WINDOW, hop=HOP, batch_windows=B,
+                                framing=framing, outputs=feat, autotune=True)
+            out[f"day B={B} {framing}"] = tuned_case(
+                f"day B={B} {framing}-framed", key0, BIOSIGNAL_BLOCK_FRAMES,
+                lambda: BiosignalStream(app, cfg).process(sig),
+                lambda: BiosignalStream(app, tcfg).process(sig),
+                bio(entry), "biosignal_graph", entry, one, card)
+    out["day one call"] = tuned_case(
+        "day in one call", "biosignal_pipeline_stream",
+        BIOSIGNAL_BLOCK_FRAMES,
+        lambda: graph_pipeline_stream("biosignal", app, sig, window=WINDOW,
+                                      hop=HOP, outputs=feat),
+        lambda: graph_pipeline_stream("biosignal", app, sig, window=WINDOW,
+                                      hop=HOP, outputs=feat, autotune=True),
+        bio("stream"), "biosignal_graph", "stream", one, card)
+    W, H, mel = ASR_WINDOW, ASR_HOP, ("logmel",)
+    acfg = dict(window=W, hop=H, batch_windows=32, graph="asr", outputs=mel)
+    asr = lambda got: got["asr_graph"]["stream"]            # noqa: E731
+    out["hour B=32"] = tuned_case(
+        "ASR hour B=32", "asr_pipeline_stream", ASR_BLOCK_FRAMES,
+        lambda: BiosignalStream(asr_app, StreamConfig(**acfg)).process(audio),
+        lambda: BiosignalStream(asr_app, StreamConfig(
+            autotune=True, **acfg)).process(audio),
+        asr, "asr_graph", "stream", one, card)
+    out["hour one call"] = tuned_case(
+        "ASR hour in one call", "asr_pipeline_stream", ASR_BLOCK_FRAMES,
+        lambda: graph_pipeline_stream("asr", asr_app, audio, window=W,
+                                      hop=H, outputs=mel),
+        lambda: graph_pipeline_stream("asr", asr_app, audio, window=W,
+                                      hop=H, outputs=mel, autotune=True),
+        asr, "asr_graph", "stream", one, card)
+    rcfg = StreamConfig(window=WINDOW, hop=HOP, batch_windows=8,
+                        outputs=feat)
+    n_batches = -(-n // 8)
+    rs_plain = ResidentStream(app, rcfg, ResidentConfig(drain_interval=4))
+    rs_tuned = ResidentStream(app, rcfg, ResidentConfig(drain_interval=4,
+                                                        autotune=True))
+    out["resident B=8"] = tuned_case(
+        "resident day B=8 ring depth", "resident_ring", DEFAULT_RING_DEPTH,
+        lambda: rs_plain.process(sig), lambda: rs_tuned.process(sig),
+        bio("ring"), "biosignal_graph", "ring",
+        lambda rd: -(-n_batches // rd), card,
+        # the search runs on zeros of (n_batches * 8 + 7) frames, the
+        # reference's length formula: one batch more than the signal's
+        search_call=lambda rd: -(-(n_batches + 1) // rd))
+    if rs_tuned.last_drains[-1] != n:
+        raise AssertionError(f"tuned resident drained "
+                             f"{rs_tuned.last_drains[-1]} != {n}")
+    if out["resident B=8"]["candidates"] != candidate_ring_depths(n_batches):
+        raise AssertionError("resident candidates")
+    day_frames = frame_signal(sig, WINDOW, HOP)
+    seg = day_frames[:, :FFT].contiguous()
+    zr, zi = seg[:, 0::2].contiguous(), seg[:, 1::2].contiguous()
+    out["fir staged"] = tuned_case(
+        f"FIR pipeline_staged ({n} x {WINDOW}, 11 taps)", "fir",
+        fir_rb(WINDOW), lambda: fir(day_frames, app.fir_taps),
+        lambda: fir(day_frames, app.fir_taps, autotune=True),
+        lambda got: got["fir"]["rows"], "fir", "rows", one, card)
+    out["fft staged"] = tuned_case(
+        f"FFT pipeline_staged ({n} x {FFT // 2})", "fft", fft_rb(FFT // 2),
+        lambda: fft(zr, zi), lambda: fft(zr, zi, autotune=True),
+        lambda got: got["fft"]["rows"], "fft", "rows", one, card)
+    del day_frames, seg, zr, zi
+    secs = time.perf_counter() - t_start
+    print(f"phase U: {secs:.1f} s; {len(out)} searches on the card, every "
+          f"tuned output bitwise its untuned run")
+    out["seconds"] = secs
+    return out
+
+
+# what phase E holds the card's SVM fit to against the CPU's: the 12x12
+# float32 normal matrix has a condition number of ~8e8, and the port's
+# and the reference's CPU fits part by up to 5e-3 of max |w| (the same
+# bound as tests/test_torch_core.py's SVM_FIT_RTOL)
+E_FIT_RTOL = 1e-2
+
+
+def phase_e(dev, card: str) -> dict:
+    """Phase E: the paper's application end to end on the card
+    (`launch.biosignal_app.run`), its readings printed and checked: the
+    example's margin bounds, the fit against the same fit on the CPU,
+    the holdout classes, the simulator's cycles and predicted class
+    against a run with the CPU's fit, and the biosignal graph kernel's
+    launches. The simulator's program does not depend on the weights'
+    values, so its cycles show only that it is deterministic; its class
+    (the sign of the margin from ``w`` and ``b``) is what checks the
+    card's fit."""
+    from repro_torch.launch import biosignal_app as bapp
+
+    t0 = time.perf_counter()
+    r, got = counted(lambda: bapp.run(dev))
+    for line in bapp.report(r):
+        print(f"phase E {line} [{card}]")
+    if not r["staged_err"] <= bapp.STAGED_TOL or \
+            not r["column_err"] <= bapp.COLUMN_TOL:
+        raise AssertionError(f"phase E margins: staged {r['staged_err']}, "
+                             f"4 columns {r['column_err']}")
+    cpu = bapp.fit_svm("cpu")
+    w_err = float((r["w"].cpu() - cpu["w"]).abs().max())
+    b_err = float((r["b"].cpu() - cpu["b"]).abs().max())
+    w_lim = E_FIT_RTOL * float(cpu["w"].abs().max())
+    b_lim = E_FIT_RTOL * float(cpu["b"].abs().max())
+    if w_err > w_lim or b_err > b_lim:
+        raise AssertionError(f"phase E fit: |w| {w_err} > {w_lim} or |b| "
+                             f"{b_err} > {b_lim}")
+    if not bool((r["holdout_pred"].cpu() == cpu["pred"]).all()):
+        raise AssertionError("phase E holdout classes differ from the CPU")
+    sim_cpu = bapp.archsim_window(cpu["signal"][0].numpy() * 0.5,
+                                  cpu["w"].numpy(), cpu["b"].numpy())
+    if sim_cpu["cycles"] != r["archsim"]["cycles"] or \
+            sim_cpu["prediction"] != r["archsim"]["prediction"]:
+        raise AssertionError(
+            f"phase E simulator: cycles {r['archsim']['cycles']}, class "
+            f"{r['archsim']['prediction']} against {sim_cpu['cycles']}, "
+            f"{sim_cpu['prediction']} with the CPU's fit")
+    launches = {e: got["biosignal_graph"][e] for e in ("stream", "frames")}
+    if not launches["stream"] or not launches["frames"]:
+        raise AssertionError(f"phase E launches {got}")
+    secs = time.perf_counter() - t0
+    print(f"phase E: {secs:.1f} s; fit vs the CPU max |w| {w_err:.3e}, "
+          f"|b| {b_err:.3e} (limits {w_lim:.3e}, {b_lim:.3e}), holdout "
+          f"classes equal, the simulator's cycles and class equal with "
+          f"the CPU's fit; biosignal_graph "
+          f"launches {launches}")
+    return {"seconds": secs, "windows": r["windows"],
+            "windows_per_s": r["windows_per_s"],
+            "host_windows_per_s": r["host_windows_per_s"],
+            "column_err": r["column_err"], "staged_err": r["staged_err"],
+            "accuracy": r["accuracy"], "w_err": w_err, "b_err": b_err,
+            "archsim": r["archsim"], "autotune": r["autotune"],
+            "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -3900,6 +4160,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phase-t", action="store_true",
                     help="the card's name and phase T only (no build, no "
                          "result lines)")
+    ap.add_argument("--phase-u", action="store_true",
+                    help="the card's name and phases U and E only (kernels "
+                         "built at first use, no result lines)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3951,6 +4214,18 @@ def main(argv=None) -> int:
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / f"chip_smoke_{tag}.json").write_text(
+            json.dumps(report, indent=1, default=str))
+        return 0
+    if args.phase_u:
+        dev = torch.device("cuda", 0)
+        report["phase_u"] = phase_u(
+            dev, card, make_app(device=dev), make_asr_frontend(device=dev),
+            synthetic_respiration(1, DAY_SAMPLES, seed=0, device=dev)[0][0],
+            synthetic_audio(HOUR_SAMPLES, seed=0, device=dev))
+        report["phase_e"] = phase_e(dev, card)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_u.json").write_text(
             json.dumps(report, indent=1, default=str))
         return 0
     declare_rope_wrong_slot()
@@ -4524,6 +4799,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # ---- phase T: training at full width
     report["phase_t"] = phase_t(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- phase U: autotuning on the card at the main path's shapes
+    report["phase_u"] = phase_u(dev, card, app, asr_app, sig, audio)
+    # ---- phase E: the paper's application end to end
+    report["phase_e"] = phase_e(dev, card)
     for k in kernels:
         if k["name"] == "asr_graph[stream]":
             k["launches_phase_p"] = report["phase_p"]["frontend"][

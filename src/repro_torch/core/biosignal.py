@@ -15,6 +15,8 @@ semantics the fused kernel (`kernels/pipeline/`) is held to.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch import nn
@@ -112,6 +114,59 @@ def _masked_intervals(mask: torch.Tensor):
     return mean, med, rms
 
 
+@functools.lru_cache(maxsize=None)
+def oddeven_tables(n: int) -> tuple:
+    """Stage tables of Batcher's odd-even merge sort for a power-of-two
+    length `n`: (lo, hi, ks) numpy arrays of shape (n_stages, n) x2 and
+    (n_stages, 1). Stage s compare-exchanges the disjoint pairs
+    (t, t + ks[s]): a slot with lo[s, t] keeps min(x[t], x[t+k]), a slot
+    with hi[s, t] keeps max(x[t], x[t-k]). Classic Batcher pairing — t in
+    the upper-k half of its 2k-group (offset by k%p), both endpoints in
+    the same 2p-block."""
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"oddeven_tables needs a power-of-two n, got {n}")
+    t = np.arange(n)
+    los, his, ks = [], [], []
+    p = 1
+    while p < n:
+        k = p
+        while k >= 1:
+            lo = (((t - (k % p)) % (2 * k)) < k) & (t + k < n) & \
+                ((t // (2 * p)) == ((t + k) // (2 * p)))
+            los.append(lo)
+            his.append(np.roll(lo, k))   # lo slots >= n-k are False: no wrap
+            ks.append(k)
+            k //= 2
+        p *= 2
+    if not los:                          # n == 1: the empty network
+        return (np.zeros((0, n), bool), np.zeros((0, n), bool),
+                np.zeros((0, 1), np.int32))
+    return (np.stack(los), np.stack(his),
+            np.asarray(ks, np.int32).reshape(-1, 1))
+
+
+def network_sort(x: torch.Tensor, tables=None) -> torch.Tensor:
+    """Ascending sort along the last (power-of-two) axis via Batcher's
+    odd-even merge network: O(log^2 n) stages of shift + select driven by
+    the `oddeven_tables` stage masks (``tables``: those masks, as numpy
+    arrays or tensors). Compares and selects only, so it returns exactly
+    the values ``x.sort`` does; the median above keeps ``.sort``."""
+    n = x.shape[-1]
+    if n & (n - 1):
+        raise ValueError(f"network_sort needs a power-of-two length: {n}")
+    lo_t, hi_t, k_t = tables if tables is not None else oddeven_tables(n)
+    lo_t, hi_t = (torch.as_tensor(np.asarray(a), device=x.device)
+                  for a in (lo_t, hi_t))
+    y = x
+    for s in range(lo_t.shape[0]):
+        k = int(k_t[s][0])
+        z = torch.cat([y, y], dim=-1)            # one buffer, two views
+        fwd, bwd = z[..., k:k + n], z[..., n - k:2 * n - k]
+        y = torch.where(lo_t[s], torch.minimum(y, fwd),
+                        torch.where(hi_t[s], torch.maximum(y, bwd), y))
+    return y
+
+
 def interval_time_features(is_max: torch.Tensor, is_min: torch.Tensor
                            ) -> list:
     """The 6 time features: mean/median/RMS of the inspiration and
@@ -153,6 +208,23 @@ def svm_predict(features: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
         margin = margin + features[..., f:f + 1] * w[f]
     margin = margin + b
     return margin, torch.argmax(margin, dim=-1).to(torch.int32)
+
+
+def svm_fit_least_squares(features: torch.Tensor, labels, n_classes: int = 2,
+                          ridge: float = 1e-3):
+    """Tiny ridge-regression 'SVM' fit (tests and the app; the paper runs
+    a pre-trained SVM — the prediction path is what runs on VWR2A).
+    Solved on the features' device in their dtype; returns (w (F, C),
+    b (C,))."""
+    F = features.shape[-1]
+    labels = torch.as_tensor(labels, device=features.device).long()
+    y = torch.nn.functional.one_hot(labels, n_classes).to(features.dtype) \
+        * 2 - 1
+    A = features.T @ features + ridge * torch.eye(
+        F, dtype=features.dtype, device=features.device)
+    w = torch.linalg.solve(A, features.T @ y)
+    b = torch.mean(y - features @ w, dim=0)
+    return w, b
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.shuffle import bit_reverse_indices
+
 
 def _twiddle(n: int, dtype=np.float32):
     """w_n^j = exp(-2*pi*i*j/n), j < n/2, in f64 then cast (precision)."""
@@ -75,6 +77,38 @@ def fft(re: torch.Tensor, im: torch.Tensor | None = None, *,
     return rr, ri
 
 
+def fft_bitrev(re: torch.Tensor, im: torch.Tensor | None = None, *,
+               inverse: bool = False):
+    """The paper's in-place mapping: DIT butterflies on bit-reversed input
+    (the shuffle unit's explicit `bit_reverse` pass), natural-order
+    output. The same transform as `fft`, in another order of operations;
+    archsim and the tests exercise it."""
+    if im is None:
+        im = torch.zeros_like(re)
+    n_total = re.shape[-1]
+    rev = torch.as_tensor(bit_reverse_indices(n_total), device=re.device)
+    re, im = re[..., rev], im[..., rev]            # shuffle-unit bit-reversal
+    lead = re.shape[:-1]
+    n = 2
+    while n <= n_total:
+        rr = re.reshape(*lead, n_total // n, n)
+        ri = im.reshape(*lead, n_total // n, n)
+        ar, ai = rr[..., : n // 2], ri[..., : n // 2]
+        br, bi = rr[..., n // 2:], ri[..., n // 2:]
+        wr_np, wi_np = _twiddle(n, np.float32)
+        wr = torch.as_tensor(wr_np, device=re.device)
+        wi = torch.as_tensor(-wi_np if inverse else wi_np, device=re.device)
+        tbr = br * wr - bi * wi
+        tbi = br * wi + bi * wr
+        re = torch.cat([ar + tbr, ar - tbr], dim=-1).reshape(re.shape)
+        im = torch.cat([ai + tbi, ai - tbi], dim=-1).reshape(im.shape)
+        n *= 2
+    if inverse:
+        re = re / n_total
+        im = im / n_total
+    return re, im
+
+
 def untangle_rfft(Zr, Zi, wr, wi):
     """Untangle the packed N/2 spectrum Z into the length-(N/2 + 1) rfft:
     X[k] = (Z[k]+conj(Z[-k]))/2 - i/2 * e^{-2pi i k/N} (Z[k]-conj(Z[-k])),
@@ -109,3 +143,9 @@ def rfft_packed(x: torch.Tensor):
     wr = torch.as_tensor(np.cos(ang), dtype=x.dtype, device=x.device)
     wi = torch.as_tensor(np.sin(ang), dtype=x.dtype, device=x.device)
     return untangle_rfft(Zr, Zi, wr, wi)
+
+
+def fft_reference(x_complex: torch.Tensor):
+    """Oracle via `torch.fft.fft` (tests only)."""
+    X = torch.fft.fft(x_complex)
+    return X.real, X.imag

@@ -23,11 +23,3 @@ def on_cuda(x) -> bool:
         raise ValueError(f"tensor on unsupported device {x.device}")
     return False
 
-
-def not_in_slice(autotune: bool = False) -> None:
-    """Raise `NotImplementedError` for ``autotune=True``, whose port
-    (`core/autotune.py`) comes in a later slice."""
-    if autotune:
-        raise NotImplementedError(
-            "autotune=True comes with the port of core/autotune.py (timed "
-            "with CUDA events), a later slice")

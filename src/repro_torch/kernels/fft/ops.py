@@ -2,8 +2,10 @@
 
 Both dispatch on the device of their input: a CUDA tensor launches the
 kernel (`kernel.fft_cuda`), a CPU tensor runs its plain version.
-``autotune=True`` comes with the port of `core/autotune.py`, a later
-slice, and raises `NotImplementedError`.
+``autotune=True`` measures the kernel's ``block_rows`` (`core.autotune`,
+key ``("fft", R, N, dtype, inverse)`` as in the reference) among
+candidates within the kernel's 512-thread bound; the block changes the
+speed, never the result.
 """
 from __future__ import annotations
 
@@ -11,8 +13,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.fft import untangle_rfft
-from repro_torch.kernels import not_in_slice, on_cuda
-from repro_torch.kernels.fft.kernel import fft_cuda, fft_plain
+from repro_torch.core.autotune import (candidate_block_rows, dtype_name,
+                                       tuned_block_rows)
+from repro_torch.kernels import on_cuda
+from repro_torch.kernels.fft.kernel import (MAX_THREADS, default_block_rows,
+                                            fft_cuda, fft_plain,
+                                            threads_per_row)
 
 __all__ = ["fft", "rfft"]
 
@@ -25,12 +31,21 @@ def fft(re: torch.Tensor, im: torch.Tensor | None = None, *,
     dtype. ``inverse=True`` divides by N. ``block_rows`` is the rows one
     CUDA block takes (default 128 threads' worth; a block has block_rows x
     max(1, N/16) threads, at most 512); the CPU path ignores it."""
-    not_in_slice(autotune)
     if im is None:
         im = torch.zeros_like(re)
-    if on_cuda(re):
-        return fft_cuda(re, im, inverse=inverse, block_rows=block_rows)
-    return fft_plain(re, im, inverse=inverse)
+
+    def run(rb):
+        if on_cuda(re):
+            return fft_cuda(re, im, inverse=inverse, block_rows=rb)
+        return fft_plain(re, im, inverse=inverse)
+    if autotune and block_rows is None:
+        R, N = re.shape
+        block_rows = tuned_block_rows(
+            "fft", R, (N, dtype_name(re.dtype), inverse), run,
+            candidates=candidate_block_rows(
+                R, default=default_block_rows(N),
+                max_rows=MAX_THREADS // threads_per_row(N)))
+    return run(block_rows)
 
 
 def rfft(x: torch.Tensor) -> tuple:

@@ -22,7 +22,7 @@ import torch
 from repro_torch.core.fir import fir_direct
 from repro_torch.kernels import _cuda
 
-__all__ = ["fir_plain", "fir_cuda", "MAX_TAPS"]
+__all__ = ["fir_plain", "fir_cuda", "default_block_rows", "MAX_TAPS"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_TAPS = 64
@@ -62,6 +62,12 @@ def fir_plain(x: torch.Tensor, taps) -> torch.Tensor:
     return fir_direct(x.float(), taps).to(dtype)
 
 
+def default_block_rows(S: int, seq_block: int = 2048) -> int:
+    """Rows a block filters by default: as many ``min(seq_block, S)``
+    tiles as fill `BLOCK_SAMPLES`."""
+    return max(1, BLOCK_SAMPLES // max(1, min(seq_block, S)))
+
+
 def fir_cuda(x: torch.Tensor, taps, *, seq_block: int = 2048,
              block_rows: int | None = None) -> torch.Tensor:
     """Launch the FIR kernel over the rows of a CUDA (R, S) array. A block
@@ -81,7 +87,7 @@ def fir_cuda(x: torch.Tensor, taps, *, seq_block: int = 2048,
     if R == 0 or S == 0:
         return y
     tile = min(seq_block, S)
-    rows = block_rows or max(1, BLOCK_SAMPLES // tile)
+    rows = block_rows or default_block_rows(S, seq_block)
     k = taps.shape[0]
     _cuda.check_smem("fir", _cuda.library("fir").fir_smem_bytes(tile, k),
                     f"seq_block {tile}")

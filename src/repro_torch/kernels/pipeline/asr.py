@@ -314,8 +314,15 @@ def _asr_kernel(x, operands, *, graph, entry, window, n_frames,
         retired=retired, valid_rows=valid_rows)
 
 
+def asr_block_pool(graph) -> tuple:
+    """(default, largest useful) frames a block of the ASR kernel: a
+    frame takes fft_size / 32 threads and a block at most 512
+    (`asr_graph.cu`'s ``kMaxThreads``); more frames a block only loop."""
+    return ASR_BLOCK_FRAMES, max(1, 512 // max(1, graph.fft_size // 32))
+
+
 register_graph_factory("asr", _asr_factory, default_app=make_asr_frontend,
-                       kernel=_asr_kernel)
+                       kernel=_asr_kernel, block_pool=asr_block_pool)
 
 
 # ---------------------------------------------------------------------------

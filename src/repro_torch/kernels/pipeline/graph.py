@@ -45,7 +45,7 @@ __all__ = ["OutputSpec", "StageGraph", "build_graph", "stages_to_run",
            "graph_ring_call", "graph_frames_plain", "graph_stream_plain",
            "graph_ring_plain", "graph_alloc_outputs", "stream_frame_count",
            "min_stream_block_frames", "resolve_stream_block_frames",
-           "ring_chunk_samples"]
+           "ring_chunk_samples", "block_frames_pool"]
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +282,7 @@ class _Registration:
     factory: Callable            # factory(app) -> (StageGraph, operands)
     default_app: Callable | None  # default_app(device=...) -> app
     kernel: Callable | None      # the graph's CUDA launcher (see _launch)
+    block_pool: Callable | None  # block_pool(graph) -> (default, max)
 
 
 _GRAPHS: dict[str, _Registration] = {}
@@ -289,15 +290,21 @@ _GRAPHS: dict[str, _Registration] = {}
 
 def register_graph_factory(name: str, factory: Callable, *,
                            default_app: Callable | None = None,
-                           kernel: Callable | None = None) -> None:
+                           kernel: Callable | None = None,
+                           block_pool: Callable | None = None) -> None:
     """Register a named graph: ``factory(app) -> (graph, operands)``
     binds an application's tables to the graph's operand list;
     ``default_app(device=...)`` builds the app used when a caller passes
     none; ``kernel`` is the graph's CUDA launcher, called for CUDA
-    tensors with the framing of `_launch`."""
+    tensors with the framing of `_launch`; ``block_pool(graph)`` gives
+    the kernel's (default, largest useful) frames a block, from which
+    `core.autotune` draws its candidates (required with a ``kernel``)."""
     if name in _GRAPHS:
         raise StageGraphError(f"graph {name!r} is already registered")
-    _GRAPHS[name] = _Registration(factory, default_app, kernel)
+    if (kernel is None) != (block_pool is None):
+        raise StageGraphError(f"graph {name!r}: a kernel and its block_pool "
+                              f"come together")
+    _GRAPHS[name] = _Registration(factory, default_app, kernel, block_pool)
 
 
 def _registration(name: str) -> _Registration:
@@ -324,6 +331,16 @@ def default_app(name: str, *, device="cuda"):
     if builder is None:
         raise StageGraphError(f"graph {name!r} registered no default app")
     return builder(device=device)
+
+
+def block_frames_pool(graph: StageGraph) -> tuple:
+    """(default, largest useful or None) frames a CUDA block of the
+    graph's kernel runs — the pool `core.autotune` tunes over."""
+    pool = _registration(graph.name).block_pool
+    if pool is None:
+        raise StageGraphError(f"graph {graph.name!r} registered no kernel "
+                              f"to tune")
+    return pool(graph)
 
 
 def registered_graphs() -> tuple:

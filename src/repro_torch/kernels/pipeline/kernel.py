@@ -188,7 +188,8 @@ def _biosignal_kernel(x, operands, *, graph, entry, window, n_frames,
 
 
 register_graph_factory("biosignal", _biosignal_factory,
-                       default_app=make_app, kernel=_biosignal_kernel)
+                       default_app=make_app, kernel=_biosignal_kernel,
+                       block_pool=lambda g: (BIOSIGNAL_BLOCK_FRAMES, None))
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,9 @@ dispatches, waits for the retire and updates telemetry once per
 Outputs are bit-identical to `BiosignalStream.process` on the same
 device, and the drained deltas sum to the host path's per-batch retire
 total. Capturing the loop in a CUDA graph is later work.
+``ResidentConfig(autotune=True)`` measures the ring depth
+(`core.autotune.tuned_ring_depth`) on a zero signal of the call's shape;
+the search runs no fault hook and leaves ``last_drains`` alone.
 
 Fault hooks, at the reference's points: the whole loop is ONE dispatch,
 so the injector's `on_dispatch` fires once per `process`, before any
@@ -38,6 +41,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.autotune import tuned_ring_depth
 from repro_torch.device import resolve_device
 from repro_torch.kernels.pipeline.graph import (default_app,
                                                 get_graph_factory,
@@ -61,9 +65,12 @@ class ResidentConfig:
 
     ``ring_depth`` — dispatch-sized chunks (ring slots) per sweep; one
     sweep = one ring-kernel launch over `ring_depth * batch_windows`
-    frames (`None`: `DEFAULT_RING_DEPTH`). ``drain_interval`` — sweeps
-    between telemetry counter drains (plus once at end-of-signal).
-    ``autotune`` — measured ring depth, a later slice."""
+    frames (`None`: `DEFAULT_RING_DEPTH`, or a measured winner when
+    ``autotune`` is set: `core.autotune.tuned_ring_depth`, keyed by the
+    (window, hop, batch_windows, outputs, drain_interval, batch count)
+    shape). ``drain_interval`` — sweeps between telemetry counter drains
+    (plus once at end-of-signal). ``autotune`` — measure ring-depth
+    candidates instead of the static default."""
     ring_depth: int | None = None
     drain_interval: int = 1
     autotune: bool = False
@@ -102,10 +109,6 @@ class ResidentStream:
             raise ValueError("resident streams are column-pinned; place "
                              "streams on columns with ColumnScheduler")
         self.rcfg = rcfg or ResidentConfig()
-        if self.rcfg.autotune:
-            raise NotImplementedError(
-                "ResidentConfig(autotune=True) comes with the port of "
-                "core/autotune.py, a later slice")
         if self.rcfg.ring_depth is not None and self.rcfg.ring_depth < 1 \
                 or self.rcfg.drain_interval < 1:
             raise ValueError(f"bad resident config {self.rcfg}")
@@ -130,6 +133,28 @@ class ResidentStream:
         `BiosignalStream.chunk_samples` for the same config)."""
         return ring_chunk_samples(self.cfg.window, self.cfg.hop,
                                   self.cfg.batch_windows)
+
+    def _ring_depth(self, n: int) -> int:
+        """The configured ring depth, else the measured one (over more
+        than one batch), else `DEFAULT_RING_DEPTH`. The search runs the
+        loop on zeros of this call's length, keyed as the reference's
+        (``"resident_ring"`` for the biosignal graph, else
+        ``f"{graph}_resident_ring"``)."""
+        cfg = self.cfg
+        n_batches = -(-n // cfg.batch_windows)
+        if self.rcfg.ring_depth is not None:
+            return self.rcfg.ring_depth
+        if self.rcfg.autotune and n_batches > 1:
+            name = "resident_ring" if cfg.graph == "biosignal" \
+                else f"{cfg.graph}_resident_ring"
+            zeros = torch.zeros(
+                self.chunk_samples + (n_batches * cfg.batch_windows - 1) *
+                cfg.hop, dtype=torch.float32, device=self.device)
+            return tuned_ring_depth(
+                name, cfg.window, cfg.hop, cfg.batch_windows, cfg.outputs,
+                "float32", self.rcfg.drain_interval, n_batches,
+                lambda rd: self._run(zeros, rd))
+        return DEFAULT_RING_DEPTH
 
     def _run(self, sig: torch.Tensor, ring_depth: int):
         """Pad into one device buffer and run the loop of ring launches;
@@ -197,7 +222,7 @@ class ResidentStream:
             self.last_drains = []
             return graph_empty_outputs(self._graph, cfg.window, sig.dtype,
                                        cfg.outputs, self.device)
-        ring_depth = self.rcfg.ring_depth or DEFAULT_RING_DEPTH
+        ring_depth = self._ring_depth(n)
         outs, retired = guarded_dispatch(
             lambda: self._run(sig, ring_depth), injector=self.injector,
             retry=self._retry, column=self.column)

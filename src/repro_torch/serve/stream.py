@@ -29,8 +29,11 @@ windows/s per retire). The device-resident sibling is
 `serve/resident.py` (`ResidentStream`, reachable via
 `BiosignalStream.process_resident`), bit-identical to this path.
 
-Not in this slice: ``autotune=True`` (`core/autotune.py`) raises
-`NotImplementedError`.
+AUTOTUNE: ``autotune=True`` (with ``block_rows`` unset) measures the
+kernel's frames a block at the first dispatch of each shape
+(`core.autotune`, through `kernels.pipeline.ops.tune_stream_block` /
+`tune_frames_block`, under the reference's keys) and reuses the cached
+winner after; the outputs do not change.
 """
 from __future__ import annotations
 
@@ -42,13 +45,14 @@ from typing import Iterator
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import not_in_slice
 from repro_torch.kernels.pipeline.graph import (canonical_graph_outputs,
                                                 default_app,
                                                 get_graph_factory,
                                                 graph_empty_outputs,
                                                 stream_frame_count)
 from repro_torch.kernels.pipeline.kernel import OUTPUTS
+from repro_torch.kernels.pipeline.ops import (tune_frames_block,
+                                              tune_stream_block)
 from repro_torch.kernels.pipeline.shard import (graph_sharded,
                                                 graph_stream_sharded)
 from repro_torch.runtime.fault import Supervisor, TransientDispatchError
@@ -70,7 +74,7 @@ class StreamConfig:
     window: int = 2048          # samples per frame (the processing window)
     hop: int = 512              # frame stride; < window => overlapping frames
     batch_windows: int = 8      # frames per fused-kernel dispatch PER COLUMN
-    autotune: bool = False      # measure the kernel row-block (later slice)
+    autotune: bool = False      # measure the kernel's frames a block (cached)
     block_rows: int | None = None   # frames per CUDA block (default: the
     #                             graph's, BIOSIGNAL_BLOCK_FRAMES or
     #                             ASR_BLOCK_FRAMES)
@@ -118,7 +122,6 @@ def stream_signal(signal, device) -> torch.Tensor:
 
 
 def _check_stream_config(cfg: StreamConfig, fft_size: int) -> None:
-    not_in_slice(cfg.autotune)
     if cfg.n_columns < 1:
         raise ValueError(f"n_columns must be >= 1, got {cfg.n_columns}")
     if cfg.graph != "biosignal" and (cfg.n_columns != 1 or
@@ -381,21 +384,49 @@ class BiosignalStream:
 
     def _dispatch_chunk(self, chunk: torch.Tensor) -> dict:
         """Raw-chunk dispatch: the kernel cuts the frames itself, one
-        launch per column share."""
+        launch per column share. With ``cfg.autotune`` the block is
+        measured after the injector fired (cached per shape)."""
         cfg = self.cfg
-        return self._guarded(lambda: graph_stream_sharded(
-            chunk, self._operands, graph=self._graph, window=cfg.window,
-            hop=cfg.hop, n_columns=cfg.n_columns, weights=cfg.column_weights,
-            block_frames=cfg.block_rows, outputs=cfg.outputs))
+        weights = cfg.column_weights if cfg.n_columns > 1 else None
+
+        def run(rb):
+            return graph_stream_sharded(
+                chunk, self._operands, graph=self._graph, window=cfg.window,
+                hop=cfg.hop, n_columns=cfg.n_columns, weights=weights,
+                block_frames=rb, outputs=cfg.outputs)
+
+        def launch():
+            rb = cfg.block_rows
+            if cfg.autotune and rb is None:
+                rb = tune_stream_block(self._graph, chunk, cfg.window,
+                                       cfg.hop, cfg.outputs, run,
+                                       n_columns=cfg.n_columns,
+                                       weights=weights)
+            return run(rb)
+        return self._guarded(launch)
 
     def _dispatch_frames(self, frames: torch.Tensor) -> dict:
         """Pre-framed dispatch (reference path), one launch per column's
         row block."""
         cfg = self.cfg
-        return self._guarded(lambda: graph_sharded(
-            frames, self._operands, graph=self._graph,
-            n_columns=cfg.n_columns, block_rows=cfg.block_rows,
-            outputs=cfg.outputs))
+
+        def run(rb):
+            return graph_sharded(frames, self._operands, graph=self._graph,
+                                 n_columns=cfg.n_columns, block_rows=rb,
+                                 outputs=cfg.outputs)
+
+        def launch():
+            rb = cfg.block_rows
+            if cfg.autotune and rb is None:
+                # the reference keys the biosignal stream's frames under
+                # its app entry (`biosignal_pipeline`), other graphs under
+                # their graph entry
+                rb = tune_frames_block(
+                    self._graph, frames, cfg.outputs, run,
+                    n_columns=cfg.n_columns,
+                    app_key=self._graph.name == "biosignal")
+            return run(rb)
+        return self._guarded(launch)
 
     def _batches(self, signal) -> Iterator[tuple]:
         """(in-flight output dict, n valid frames, retire event) per

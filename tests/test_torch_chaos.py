@@ -22,8 +22,8 @@ weights (with and without a band), drain, supervision, withdraw/restore
 and stream-opening cases (`tests/test_load_aware.py`,
 `tests/test_stream_sharded.py`, `tests/test_chaos.py`) are fed the same
 telemetry events in both packages and must make the same decisions.
-The reference's benchmark-trajectory and autotune cases have no
-counterpart here.
+The reference's benchmark-trajectory cases have no counterpart here;
+its autotune cases run in `tests/test_torch_autotune.py`.
 """
 import types
 import warnings

@@ -211,3 +211,116 @@ def test_app_from_numpy_round_trip():
     np.testing.assert_allclose(got["margin"].numpy(), want["margin"],
                                rtol=1e-5, atol=1e-4)
     np.testing.assert_array_equal(got["class"].numpy(), want["class"])
+
+
+# ------------------------------------------- sorting network, bit-reversed
+# FFT and the SVM fit (the rest of `core/`)
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 16, 128, 512])
+def test_oddeven_tables_match_reference(n):
+    for got, want in zip(tbio.oddeven_tables(n), jbio.oddeven_tables(n)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_network_sort_matches_np_sort(dtype):
+    """`tests/test_biosignal.py::test_network_sort_matches_np_sort`'s
+    cases: the port's network equals np.sort and the reference's network
+    bitwise, with its own tables and with the reference's passed in."""
+    rng = np.random.default_rng(0)
+    j_sort = jax.jit(jbio.network_sort)
+    for n in (1, 2, 4, 16, 128, 512):
+        x = rng.integers(-1000, 1000, size=(5, n)).astype(dtype)
+        if dtype == np.float32:
+            x = x / np.float32(7)
+        want = np.sort(x, axis=-1)
+        got = tbio.network_sort(torch.as_tensor(x)).numpy()
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, _np(j_sort(jnp.asarray(x))))
+        got2 = tbio.network_sort(torch.as_tensor(x),
+                                 tables=jbio.oddeven_tables(n)).numpy()
+        np.testing.assert_array_equal(got2, want)
+    with pytest.raises(ValueError, match="power-of-two"):
+        tbio.network_sort(torch.zeros(3, 6))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [8, 64, 256, 1024])
+def test_fft_bitrev_matches_reference(n, inverse):
+    """`tests/test_fft.py::test_core_fft_vs_numpy`'s bitrev cases in both
+    packages: the same butterflies in the same order, so the two agree to
+    atol 1e-5 x max |X| (XLA may contract a product and a sum into an
+    FMA), and both within 1e-4 of numpy relative to the largest output."""
+    rng = np.random.default_rng(n)
+    x = (rng.normal(size=(3, n)) + 1j * rng.normal(size=(3, n))).astype(
+        np.complex64)
+    rr, ri = tfft.fft_bitrev(torch.as_tensor(x.real),
+                             torch.as_tensor(x.imag), inverse=inverse)
+    jr, ji = jfft.fft_bitrev(jnp.asarray(x.real), jnp.asarray(x.imag),
+                             inverse=inverse)
+    got = rr.numpy() + 1j * ri.numpy()
+    scale = np.abs(got).max()
+    np.testing.assert_allclose(got, _np(jr) + 1j * _np(ji), rtol=0,
+                               atol=1e-5 * scale)
+    ref = np.fft.ifft(x) if inverse else np.fft.fft(x)
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
+    # the Stockham chain computes the same transform
+    sr, si = tfft.fft(torch.as_tensor(x.real), torch.as_tensor(x.imag),
+                      inverse=inverse)
+    np.testing.assert_allclose(got, sr.numpy() + 1j * si.numpy(), rtol=0,
+                               atol=1e-5 * scale)
+    # the oracle is torch.fft's
+    fr, fi = tfft.fft_reference(torch.as_tensor(x))
+    np.testing.assert_allclose(fr.numpy() + 1j * fi.numpy(), np.fft.fft(x),
+                               rtol=0, atol=1e-4 * np.abs(np.fft.fft(x)).max())
+
+
+def test_fft_bitrev_real_input_defaults_im_to_zero():
+    x = np.random.default_rng(2).normal(size=(2, 32)).astype(np.float32)
+    rr, ri = tfft.fft_bitrev(torch.as_tensor(x))
+    np.testing.assert_allclose(rr.numpy() + 1j * ri.numpy(), np.fft.fft(x),
+                               rtol=0, atol=1e-4 * np.abs(np.fft.fft(x)).max())
+
+
+# The app's fit is a 12x12 float32 solve of a normal matrix whose
+# condition number is ~8e8 (interval features in the hundreds beside log
+# band powers near 1), through LAPACK in two libraries. Each package lands
+# 1.7e-3 (port) and 3.7e-3 (reference) x max |w| from a float64 solve of
+# the same system, and their b within 7.4e-4 x max |b| of it; so each is
+# held to 5e-3 of max |w| and |b| from the float64 fit, the two to 1e-2
+# of each other, and the holdout classes exactly.
+SVM_FIT_RTOL = 1e-2
+SVM_FIT_F64_RTOL = 5e-3
+
+
+@pytest.mark.parametrize("n_classes", [2, 3])
+def test_svm_fit_least_squares_matches_reference(n_classes):
+    """The app's fit: 32 labelled windows' features through both
+    packages' `svm_fit_least_squares`, then `svm_predict` on the other
+    32."""
+    sig, labels = jbio.synthetic_respiration(64, 2048, seed=3)
+    taps = jfir.lowpass_taps(11)
+    feats = _np(jax.jit(lambda s: jbio.extract_features(
+        jfir.fir_direct(s, taps)))(sig))
+    labels = _np(labels) % n_classes
+    jw, jb = jbio.svm_fit_least_squares(jnp.asarray(feats[:32]),
+                                        jnp.asarray(labels[:32]), n_classes)
+    tw, tb = tbio.svm_fit_least_squares(torch.as_tensor(feats[:32]),
+                                        torch.as_tensor(labels[:32]),
+                                        n_classes)
+    assert tw.shape == (12, n_classes) and tb.shape == (n_classes,)
+    assert tw.dtype == tb.dtype == torch.float32
+    w64, b64 = tbio.svm_fit_least_squares(
+        torch.as_tensor(feats[:32]).double(), torch.as_tensor(labels[:32]),
+        n_classes)
+    for got, want, exact in ((tw, jw, w64), (tb, jb, b64)):
+        want, exact = _np(want), exact.numpy()
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=SVM_FIT_RTOL * np.abs(want).max())
+        np.testing.assert_allclose(
+            got.numpy(), exact, rtol=0,
+            atol=SVM_FIT_F64_RTOL * np.abs(exact).max())
+    _, jpred = jbio.svm_predict(jnp.asarray(feats[32:]), jw, jb)
+    _, tpred = tbio.svm_predict(torch.as_tensor(feats[32:]), tw, tb)
+    np.testing.assert_array_equal(tpred.numpy(), _np(jpred))

@@ -42,12 +42,24 @@ from repro.models import build_model as j_build_model
 from repro.models import init_model_params as j_init_model_params
 from repro.serve.engine import Engine as JEngine
 from repro.serve.engine import Request as JRequest
+from repro.sharding import ctx as jctx
 from repro_torch.configs import get_config, reduced
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import build_model, params_from_numpy
 from repro_torch.models.layers import tree_items, tree_map
 from repro_torch.serve.engine import Engine, Request, sample_per_request
 from repro_torch.serve.errors import EngineStalled, PromptTooLong
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_installed_activation_specs():
+    """The reference's train-step factory installs activation sharding
+    specs for the whole process (`repro.sharding.ctx.install`), so a test
+    of another file that built one leaves them set in this worker, and
+    the reference's models then constrain to a mesh no test here entered.
+    Start from none, as a fresh process does."""
+    jctx.install(None)
+
 
 PROMPTS = {0: [3, 1, 4, 1], 1: [5, 9, 2], 2: [6, 5], 3: [8, 9, 7, 9, 3],
            4: [2, 3], 5: [4, 6, 2, 6]}

@@ -29,6 +29,7 @@ from repro.runtime.fault import Supervisor as JSupervisor
 from repro.serve.engine import Engine as JEngine
 from repro.serve.engine import Request as JRequest
 from repro.serve import engine_fault as jft
+from repro.sharding import ctx as jctx
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import build_model, params_from_numpy
 from repro_torch.runtime.fault import (InsufficientHealthyWorkers,
@@ -37,6 +38,17 @@ from repro_torch.serve import engine_fault as ft
 from repro_torch.serve import fault as tfault
 from repro_torch.serve.engine import Engine, Request
 from repro_torch.serve.errors import EngineStalled, QueueFull, RequestExpired
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_installed_activation_specs():
+    """The reference's train-step factory installs activation sharding
+    specs for the whole process (`repro.sharding.ctx.install`), so a test
+    of another file that built one leaves them set in this worker, and
+    the reference's models then constrain to a mesh no test here entered.
+    Start from none, as a fresh process does."""
+    jctx.install(None)
+
 
 SLOTS, MAX_LEN, MAX_NEW = 4, 64, 6
 PROMPTS = {0: [3, 1, 4, 1], 1: [5, 9, 2], 2: [6, 5], 3: [8, 9, 7, 9, 3],

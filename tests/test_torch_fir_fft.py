@@ -125,8 +125,10 @@ def test_fir_refuses_what_it_does_not_take():
         fir_ops.fir(x, np.ones((2, 3), np.float32))
     with pytest.raises(ValueError, match=r"\(R, S\)"):
         fir_ops.fir(torch.zeros(2, 2, 64), [1.0])
-    with pytest.raises(NotImplementedError, match="autotune"):
-        fir_ops.fir(x, [1.0], autotune=True)
+    # autotune is ported: a tuned call equals the untuned one bitwise
+    y = torch.randn(3, 700, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(fir_ops.fir(y, [1.0, 0.5], autotune=True),
+                       fir_ops.fir(y, [1.0, 0.5]))
 
 
 @pytest.mark.parametrize("k", [65, 129])
@@ -239,8 +241,10 @@ def test_fft_refuses_what_it_does_not_take():
         fft_ops.fft(torch.zeros(2, 16, dtype=torch.float64))
     with pytest.raises(ValueError, match="one shape"):
         fft_ops.fft(torch.zeros(2, 16), torch.zeros(3, 16))
-    with pytest.raises(NotImplementedError, match="autotune"):
-        fft_ops.fft(torch.zeros(2, 16), autotune=True)
+    # autotune is ported: a tuned call equals the untuned one bitwise
+    x = torch.randn(3, 16, generator=torch.Generator().manual_seed(0))
+    assert all(torch.equal(a, b) for a, b in zip(
+        fft_ops.fft(x, autotune=True), fft_ops.fft(x)))
 
 
 # ------------------------------------------------- biosignal staged baseline

@@ -29,12 +29,24 @@ from repro.models import init_model_params as j_init_model_params
 from repro.serve import engine as jeng_mod
 from repro.serve import engine_fault as jft
 from repro.serve import frontend as jfe
+from repro.sharding import ctx as jctx
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import build_model, params_from_numpy
 from repro_torch.serve import engine as eng_mod
 from repro_torch.serve import engine_fault as ft
 from repro_torch.serve import errors as err
 from repro_torch.serve import frontend as fe
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_installed_activation_specs():
+    """The reference's train-step factory installs activation sharding
+    specs for the whole process (`repro.sharding.ctx.install`), so a test
+    of another file that built one leaves them set in this worker, and
+    the reference's models then constrain to a mesh no test here entered.
+    Start from none, as a fresh process does."""
+    jctx.install(None)
+
 
 PROMPTS = {0: [3, 1, 4, 1], 1: [5, 9, 2], 2: [6, 5], 3: [8, 9, 7, 9, 3]}
 LOGMEL_TOL = 1e-5

@@ -51,7 +51,12 @@ def test_port_has_sources():
                  "models/moe.py", "models/rwkv.py", "models/mamba.py",
                  "data/pipeline.py", "train/optim.py", "train/compress.py",
                  "train/step.py", "train/loop.py", "checkpoint/ckpt.py",
-                 "launch/train.py"):
+                 "launch/train.py", "core/autotune.py",
+                 "launch/biosignal_app.py", "archsim/__init__.py",
+                 "archsim/isa.py", "archsim/machine.py", "archsim/vector.py",
+                 "archsim/energy.py", "archsim/programs/__init__.py",
+                 "archsim/programs/fir.py", "archsim/programs/fft.py",
+                 "archsim/programs/app.py"):
         assert need in names
     for src in ("pipeline/csrc/biosignal_graph.cu",
                 "pipeline/csrc/asr_graph.cu", "fir/csrc/fir.cu",

@@ -1164,3 +1164,87 @@ def test_fir_and_fft_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="shared memory"):
         fft_cuda(torch.zeros(1, 16384, device=card),
                  torch.zeros(1, 16384, device=card))
+
+
+@pytest.mark.cuda
+def test_launch_knobs_do_not_change_results_on_card(card):
+    """The knobs `core.autotune` measures change the speed, never the
+    bits: the ASR graph's frames a block (up to past the 512 threads a
+    block holds), the FIR's and the FFT's rows a block."""
+    from repro_torch.kernels.fft.kernel import MAX_THREADS, threads_per_row
+    from repro_torch.kernels.pipeline.asr import make_asr_frontend
+
+    app = make_asr_frontend(device=card)
+    graph, operands = get_graph_factory("asr")(app)
+    g = torch.Generator().manual_seed(5)
+    sig = (0.3 * torch.randn(160 * 70 + 512, generator=g)).to(card)
+    runs = [graph_stream_call(sig, operands, graph=graph, window=512,
+                              hop=160, block_frames=b)
+            for b in (1, 2, 4, 8, 16, 32, 40)]
+    for other in runs[1:]:
+        for k in runs[0]:
+            assert torch.equal(other[k], runs[0][k]), k
+    x = torch.randn(37, 3000, generator=g).to(card)
+    taps = lowpass_taps(11)
+    ys = [fir_cuda(x, taps, block_rows=r) for r in (1, 2, 3, 8, 37)]
+    assert all(torch.equal(y, ys[0]) for y in ys[1:])
+    for n in (16, 512, 4096):
+        re = torch.randn(45, n, generator=g).to(card)
+        im = torch.randn(45, n, generator=g).to(card)
+        top = MAX_THREADS // threads_per_row(n)
+        outs = [fft_cuda(re, im, block_rows=r)
+                for r in sorted({1, 2, 3, max(1, top // 2), top})
+                if r <= top]
+        for o in outs[1:]:
+            assert torch.equal(o[0], outs[0][0])
+            assert torch.equal(o[1], outs[0][1])
+
+
+@pytest.mark.cuda
+def test_tuned_calls_equal_untuned_on_card(card):
+    """A tuned stream (raw and host-framed, biosignal and ASR), a tuned
+    resident loop, FIR and FFT each equal the untuned run bitwise, and
+    every search was timed with CUDA events."""
+    from repro_torch.core import autotune
+    from repro_torch.kernels.fft.ops import fft
+    from repro_torch.kernels.fir.ops import fir
+    from repro_torch.kernels.pipeline.asr import make_asr_frontend
+    from repro_torch.serve.resident import ResidentConfig, ResidentStream
+    from repro_torch.serve.stream import BiosignalStream, StreamConfig
+
+    autotune.clear_cache()
+    app = make_app(device=card)
+    sig = synthetic_respiration(1, 60 * 512 + 2048, seed=9, device=card)[0][0]
+    for framing in ("kernel", "host"):
+        cfg = StreamConfig(window=2048, hop=512, batch_windows=8,
+                           framing=framing)
+        want = BiosignalStream(app, cfg).process(sig)
+        got = BiosignalStream(app, StreamConfig(
+            window=2048, hop=512, batch_windows=8, framing=framing,
+            autotune=True)).process(sig)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (framing, k)
+    cfg = StreamConfig(window=2048, hop=512, batch_windows=8)
+    want = ResidentStream(app, cfg).process(sig)
+    got = ResidentStream(app, cfg, ResidentConfig(autotune=True)).process(sig)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    asr = make_asr_frontend(device=card)
+    audio = (0.3 * torch.randn(160 * 90 + 512, generator=torch.Generator()
+                               .manual_seed(1))).to(card)
+    acfg = dict(window=512, hop=160, batch_windows=32, graph="asr")
+    want = BiosignalStream(asr, StreamConfig(**acfg)).process(audio)
+    got = BiosignalStream(asr, StreamConfig(autotune=True, **acfg)).process(
+        audio)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    x = torch.randn(64, 4096, device=card)
+    assert torch.equal(fir(x, lowpass_taps(11), autotune=True),
+                       fir(x, lowpass_taps(11)))
+    re, im = torch.randn(300, 512, device=card), torch.randn(300, 512,
+                                                             device=card)
+    for a, b in zip(fft(re, im, autotune=True), fft(re, im)):
+        assert torch.equal(a, b)
+    log = autotune.search_log()
+    assert log and all(v["clock"] == "cuda" for v in log.values())
+    autotune.clear_cache()

@@ -28,12 +28,24 @@ from repro.models import build_model as j_build_model
 from repro.models import init_cache as j_init_cache
 from repro.models import init_model_params as j_init_model_params
 from repro.models import layers as j_layers
+from repro.sharding import ctx as jctx
 from repro_torch.configs import ASSIGNED, get_config, list_configs, reduced
 from repro_torch.models import (build_model, cast_params, init_cache,
                                 init_cast_params, init_model_params,
                                 params_from_numpy)
 from repro_torch.models import attention as att
 from repro_torch.models import layers as L
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_installed_activation_specs():
+    """The reference's train-step factory installs activation sharding
+    specs for the whole process (`repro.sharding.ctx.install`), so a test
+    of another file that built one leaves them set in this worker, and
+    the reference's models then constrain to a mesh no test here entered.
+    Start from none, as a fresh process does."""
+    jctx.install(None)
+
 
 FN_TOL = dict(atol=2e-5, rtol=2e-5)
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)

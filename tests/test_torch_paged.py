@@ -38,6 +38,7 @@ from repro.serve.engine import PagedEngine as JPagedEngine
 from repro.serve.engine import Request as JRequest
 from repro.serve.paged import PagePool as JPagePool
 from repro.serve.paged import PageTable as JPageTable
+from repro.sharding import ctx as jctx
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import attention as att
 from repro_torch.models import build_model, params_from_numpy
@@ -46,6 +47,17 @@ from repro_torch.serve.engine import Engine, PagedEngine, Request
 from repro_torch.serve.errors import InsufficientPages, PagedCacheUnsupported
 from repro_torch.serve.paged import (SCRATCH_PAGE, PagePool, PageTable,
                                      leaf_specs)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_installed_activation_specs():
+    """The reference's train-step factory installs activation sharding
+    specs for the whole process (`repro.sharding.ctx.install`), so a test
+    of another file that built one leaves them set in this worker, and
+    the reference's models then constrain to a mesh no test here entered.
+    Start from none, as a fresh process does."""
+    jctx.install(None)
+
 
 MAX_LEN, MAX_NEW = 64, 6
 PROMPTS = {0: [3, 1, 4, 1], 1: [5, 9, 2], 2: [6, 5], 3: [8, 9, 7, 9, 3],

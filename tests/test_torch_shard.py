@@ -18,10 +18,10 @@
   `tests/test_torch_stream.py` (filtered atol 1e-6, time features exact,
   band powers rtol/atol 1e-5, margin rtol 1e-5 atol 1e-4).
 
-Reference cases not carried over: the autotune-key cases
-(`test_sharded_autotune_key_carries_device_count`,
-`test_weighted_autotune_key_carries_share_signature`: autotune is not
-ported), the mesh cases (`test_shard_map_path_is_active_on_multidevice`,
+The autotune-key cases (`test_sharded_autotune_key_carries_device_count`,
+`test_weighted_autotune_key_carries_share_signature`) run in both
+packages in `tests/test_torch_autotune.py`. Reference cases not carried
+over: the mesh cases (`test_shard_map_path_is_active_on_multidevice`,
 `test_sharded_d8_subprocess_forced_devices`: the port has no mesh; its
 columns run one after another on one device) and the benchmark
 trajectory and `diff_autotune` cases of `tests/test_load_aware.py`.

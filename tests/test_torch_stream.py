@@ -261,8 +261,12 @@ def test_later_slices_raise_not_implemented(apps):
     _, app = apps
     # the column deal and the fault hooks are ported: what stays refused
     # is what the reference refuses too
-    with pytest.raises(NotImplementedError, match="autotune"):
-        BiosignalStream(app, StreamConfig(autotune=True))
+    # autotune is ported: a tuned stream equals the untuned one bitwise
+    sig = torch.as_tensor(_signal(9, seed=4))
+    cfg = StreamConfig(window=WINDOW, hop=HOP, batch_windows=BW)
+    assert_identical(
+        BiosignalStream(app, dataclasses.replace(cfg, autotune=True))
+        .process(sig), BiosignalStream(app, cfg).process(sig))
     with pytest.raises(ValueError, match="not both"):
         BiosignalStream(app, StreamConfig(n_columns=2), device="cpu")
     with pytest.raises(ValueError, match="column weights"):
@@ -274,8 +278,9 @@ def test_later_slices_raise_not_implemented(apps):
         ResidentStream(app, StreamConfig(n_columns=2))
     with pytest.raises(ValueError, match="column-pinned"):
         BiosignalStream(app, StreamConfig(n_columns=2)).repin("cpu")
-    with pytest.raises(NotImplementedError, match="autotune"):
-        ResidentStream(app, StreamConfig(), ResidentConfig(autotune=True))
+    assert_identical(
+        ResidentStream(app, cfg, ResidentConfig(autotune=True)).process(sig),
+        BiosignalStream(app, cfg).process(sig))
     with pytest.raises(ValueError, match="raw-chunk"):
         ResidentStream(app, StreamConfig(framing="host"))
     with pytest.raises(ValueError, match="hop"):

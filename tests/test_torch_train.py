@@ -35,6 +35,7 @@ from repro.data.pipeline import ShardedLoader as JShardedLoader
 from repro.models import build_model as j_build_model
 from repro.models import init_model_params as j_init_model_params
 from repro.models import layers as j_layers
+from repro.sharding import ctx as jctx
 from repro.train import compress as j_compress
 from repro.train import optim as j_optim
 from repro_torch.configs import ASSIGNED, get_config, reduced
@@ -45,6 +46,17 @@ from repro_torch.models import transformer as tfm
 from repro_torch.train import compress, optim
 from repro_torch.train.step import (abstract_state, init_state,
                                     make_train_step)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_installed_activation_specs():
+    """The reference's train-step factory installs activation sharding
+    specs for the whole process (`repro.sharding.ctx.install`), so a test
+    of another file that built one leaves them set in this worker, and
+    the reference's models then constrain to a mesh no test here entered.
+    Start from none, as a fresh process does."""
+    jctx.install(None)
+
 
 LOSS_TOL = dict(atol=0.0, rtol=1e-5)
 AUX_TOL = dict(atol=1e-9, rtol=1e-4)

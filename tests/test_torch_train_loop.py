@@ -29,6 +29,7 @@ from repro.configs import reduced as j_reduced
 from repro.data.pipeline import DataConfig as JDataConfig
 from repro.models import build_model as j_build_model
 from repro.models import init_model_params as j_init_model_params
+from repro.sharding import ctx as jctx
 from repro.train import loop as j_loop
 from repro.train import optim as j_optim
 from repro.train.step import StepBundle as JStepBundle
@@ -40,6 +41,17 @@ from repro_torch.models import layers as L
 from repro_torch.train import optim
 from repro_torch.train.loop import LoopConfig, train
 from repro_torch.train.step import init_state, make_train_step
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_installed_activation_specs():
+    """The reference's train-step factory installs activation sharding
+    specs for the whole process (`repro.sharding.ctx.install`), so a test
+    of another file that built one leaves them set in this worker, and
+    the reference's models then constrain to a mesh no test here entered.
+    Start from none, as a fresh process does."""
+    jctx.install(None)
+
 
 ROOT = Path(__file__).resolve().parents[1]
 LOSS_TOL = dict(atol=0.0, rtol=1e-5)
