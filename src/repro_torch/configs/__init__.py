@@ -9,6 +9,7 @@ from repro_torch.configs.base import (  # noqa: F401
     SHAPES,
     applicable_shapes,
     get_config,
+    input_specs,
     list_configs,
     reduced,
     register,

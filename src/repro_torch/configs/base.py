@@ -4,9 +4,8 @@ the JAX package's `configs/base.py`).
 Every assigned architecture has one module in this package defining a
 ``CONFIG = ArchConfig(...)`` with the published dimensions, registered
 under its id. The dtypes are torch dtypes: parameters in float32, compute
-in bfloat16 by default, as in the reference. ``input_specs`` (the
-dry-run's abstract inputs) waits for the port of the training and launch
-substrate.
+in bfloat16 by default, as in the reference. ``input_specs`` gives one
+(arch x shape) cell's abstract inputs as "meta" tensors.
 """
 from __future__ import annotations
 
@@ -16,8 +15,8 @@ from typing import Any, Optional
 import torch
 
 __all__ = ["ArchConfig", "MoEConfig", "SSMConfig", "ShapeSpec", "SHAPES",
-           "applicable_shapes", "get_config", "list_configs", "reduced",
-           "register", "smoke_shape"]
+           "applicable_shapes", "get_config", "input_specs", "list_configs",
+           "reduced", "register", "smoke_shape"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,6 +151,42 @@ def applicable_shapes(cfg: ArchConfig) -> list[str]:
     if cfg.subquadratic:
         names.append("long_500k")
     return names
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
+    """Abstract model inputs for one (arch x shape) cell, as tensors on
+    the "meta" device (shapes and dtypes, no storage).
+
+    train  : the full batch with labels;
+    prefill: the full batch, no labels;
+    decode : one new token a sequence and a 0-d ``cache_len`` (the cache
+             is `models.api.abstract_cache`'s).
+    Whisper adds its encoder frames (a fixed ``enc_ctx``), qwen2-vl its
+    patch embeddings and t/h/w positions."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+
+    def f(*s):
+        return torch.empty(s, dtype=torch.int32, device=meta)
+
+    def e(*s):
+        return torch.empty(s, dtype=cfg.compute_dtype, device=meta)
+
+    if shape.kind == "train":
+        batch = {"tokens": f(B, S), "labels": f(B, S)}
+    elif shape.kind == "prefill":
+        batch = {"tokens": f(B, S)}
+    else:
+        batch = {"tokens": f(B, 1), "cache_len": f()}
+    if cfg.is_encdec and shape.kind in ("train", "prefill"):
+        batch["frames"] = e(B, cfg.enc_ctx, cfg.d_model)
+    if cfg.vlm_patches:
+        if shape.kind in ("train", "prefill"):
+            batch["patch_emb"] = e(B, cfg.vlm_patches, cfg.d_model)
+            batch["positions"] = f(B, S, 3)
+        else:
+            batch["positions"] = f(B, 1, 3)
+    return batch
 
 
 def reduced(cfg: ArchConfig) -> ArchConfig:

@@ -65,7 +65,17 @@
 // `filtered` matches it bitwise; the FFT, untangle and mel sums run in
 // another order (and with FMA), so logmel agrees to float32 rounding
 // (ASR_LOGMEL_TOL), not bitwise. No fast-math: log1pf stays IEEE.
+//
+// The signal may be float32, bfloat16 or float16 (the kernel is
+// instantiated per element type, In): a 16-bit sample is widened to
+// float32 at its load (4 samples are 8 bytes in the vector path, which
+// then needs the frame on 8 bytes), as the reference stages it, so every
+// step after the load is the float32 one; `filtered` is stored in the
+// signal's own type, rounded to nearest even, which is the plain version's
+// .to(dtype).
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -84,6 +94,71 @@ constexpr int kInBatch = 4;        // FIR vectors a thread loads at once
 // output selection bits (cuda.py keeps the same values)
 constexpr int kOutFiltered = 1;
 constexpr int kOutLogmel = 2;
+
+// signal element types (cuda.py keeps the same codes)
+constexpr int kFloat32 = 0;
+constexpr int kBFloat16 = 1;
+constexpr int kFloat16 = 2;
+
+// ---- the signal's element type In: loads widen to float32, stores of
+// `filtered` round back to nearest even. ld4/st4 take 4 samples that lie
+// on 4 * sizeof(In) bytes.
+template <class In>
+__device__ __forceinline__ float widen(unsigned short b);
+template <>
+__device__ __forceinline__ float widen<__nv_bfloat16>(unsigned short b) {
+  return __bfloat162float(__ushort_as_bfloat16(b));
+}
+template <>
+__device__ __forceinline__ float widen<__half>(unsigned short b) {
+  return __half2float(__ushort_as_half(b));
+}
+template <class In>
+__device__ __forceinline__ unsigned short narrow(float v);
+template <>
+__device__ __forceinline__ unsigned short narrow<__nv_bfloat16>(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+template <>
+__device__ __forceinline__ unsigned short narrow<__half>(float v) {
+  return __half_as_ushort(__float2half_rn(v));
+}
+template <class In>
+__device__ __forceinline__ float ld1(const In* p) {
+  if constexpr (sizeof(In) == 4) {
+    return __ldg(p);
+  } else {
+    return widen<In>(__ldg(reinterpret_cast<const unsigned short*>(p)));
+  }
+}
+template <class In>
+__device__ __forceinline__ float4 ld4(const In* p) {
+  if constexpr (sizeof(In) == 4) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  } else {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    return make_float4(widen<In>(u.x & 0xffffu), widen<In>(u.x >> 16),
+                       widen<In>(u.y & 0xffffu), widen<In>(u.y >> 16));
+  }
+}
+template <class In>
+__device__ __forceinline__ void st1(In* p, float v) {
+  if constexpr (sizeof(In) == 4) {
+    *p = v;
+  } else {
+    *reinterpret_cast<unsigned short*>(p) = narrow<In>(v);
+  }
+}
+template <class In>
+__device__ __forceinline__ void st4(In* p, const float (&y)[4]) {
+  if constexpr (sizeof(In) == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(y[0], y[1], y[2], y[3]));
+  } else {
+    __stcs(reinterpret_cast<uint2*>(p),
+           make_uint2(narrow<In>(y[0]) | (unsigned(narrow<In>(y[1])) << 16),
+                      narrow<In>(y[2]) | (unsigned(narrow<In>(y[3])) << 16)));
+  }
+}
 
 // ---- the plan of one m = 2^lg, as fft.cu's (kernels/fft/kernel.py's
 // stockham_plan and stockham_table follow it)
@@ -239,7 +314,7 @@ __device__ __forceinline__ void dft(float2 (&x)[R]) {
 }
 
 struct Params {
-  const float* x;
+  const void* x;            // (In) the signal
   long long slot_stride;
   long long frame_stride;
   int n_frames;
@@ -255,7 +330,7 @@ struct Params {
   const float* mel_packed;  // the spans' weights, column after column
   int n_packed;             // their count
   int n_mels;
-  float* out_filtered;      // (rows, window) or null
+  void* out_filtered;       // (rows, window) of In, or null
   float* out_logmel;        // (rows, n_mels) or null
   int* retired;             // frame counter (ring sweeps) or null
   int valid_rows;           // only rows below this count as retired
@@ -278,7 +353,8 @@ __device__ __forceinline__ void fir2(float4 x, float xm1, float tap0,
 }
 // ... or, for any n_taps, every sample (0 from S on) and tap from the
 // read-only cache
-__device__ __forceinline__ void fir_loads(const float* __restrict__ src,
+template <class In>
+__device__ __forceinline__ void fir_loads(const In* __restrict__ src,
                                           int t0, int S, const float* taps,
                                           int n_taps, float (&y)[4]) {
   static_for<4>([&](auto c1) {
@@ -286,7 +362,7 @@ __device__ __forceinline__ void fir_loads(const float* __restrict__ src,
     const int t = t0 + c;
     float acc = 0.f;
     for (int i = 0; i < n_taps; ++i) {
-      const float xv = t - i >= 0 && t < S ? __ldg(src + t - i) : 0.f;
+      const float xv = t - i >= 0 && t < S ? ld1(src + t - i) : 0.f;
       acc = __fadd_rn(acc, __fmul_rn(__ldg(taps + i), xv));
     }
     y[c] = acc;
@@ -316,7 +392,7 @@ __device__ __forceinline__ void untangle_pair(float ar, float ai, float br,
 // block_frames frames; then, when it fits, the span table. Each step
 // issues its global loads together before it uses one, so a frame waits
 // for memory about once a step.
-template <int LG>
+template <int LG, class In>
 __global__ void __launch_bounds__(kMaxThreads)
 asr_graph_kernel(const Params p) {
   constexpr int M = 1 << LG;      // packed points
@@ -371,7 +447,8 @@ asr_graph_kernel(const Params p) {
   __syncthreads();
   const int f_begin = blockIdx.x * p.block_frames;
   const int f_end = min(p.n_frames, f_begin + p.block_frames);
-  const float* const slot = p.x + (long long)blockIdx.y * p.slot_stride;
+  const In* const slot =
+      static_cast<const In*>(p.x) + (long long)blockIdx.y * p.slot_stride;
   const long long slot_row = (long long)blockIdx.y * p.n_frames;
   const int rounds = (f_end - f_begin + G - 1) / G;   // uniform in the block
 
@@ -387,20 +464,22 @@ asr_graph_kernel(const Params p) {
     // the first fft_size, packed into the exchange buffer: z[q] = w[2q] +
     // i w[2q + 1]. Thread i takes vectors v = i + T j.
     if (live) {
-      const float* const src = slot + (long long)f * p.frame_stride;
-      float* const dst = want_f ? p.out_filtered + row * S : nullptr;
-      const bool vec_in = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
-      const bool vec_out = (reinterpret_cast<uintptr_t>(dst) & 15) == 0;
-      // the common case, a pre-emphasis (2 taps) with the frame, Hann and
-      // `filtered` row on 16 bytes: the FFT segment, B vectors' loads at
-      // once, no bounds to check (the segment lies inside the window).
+      const In* const src = slot + (long long)f * p.frame_stride;
+      In* const dst =
+          want_f ? static_cast<In*>(p.out_filtered) + row * S : nullptr;
+      constexpr uintptr_t kVec = 4 * sizeof(In) - 1;   // 4 samples' bytes
+      const bool vec_in = (reinterpret_cast<uintptr_t>(src) & kVec) == 0;
+      const bool vec_out = (reinterpret_cast<uintptr_t>(dst) & kVec) == 0;
+      // the common case, a pre-emphasis (2 taps) with the frame and
+      // `filtered` row on 4 samples' bytes and Hann on 16 bytes: the FFT
+      // segment, B vectors' loads at once, no bounds to check (the
+      // segment lies inside the window).
       // x[4v - 1] is vector v - 1's last sample: lane i - 1's, or for lane
       // 0 lane T - 1's vector before, by warp shuffle (a load where a frame
       // spans warps)
       const bool fast = n_taps == 2 && vec_in && vec_hann &&
                         (vec_out || !want_f);
       if (fast) {
-        const float4* const x4 = reinterpret_cast<const float4*>(src);
         const float4* const h4 = reinterpret_cast<const float4*>(p.hann);
         float carry = 0.f;   // the last sample of this lane's vector before
         static_for<U / B>([&](auto b1) {
@@ -410,9 +489,9 @@ asr_graph_kernel(const Params p) {
           static_for<B>([&](auto j1) {
             constexpr int j = CV(j1);
             const int v = i + T * (j0 + j);
-            cur[j] = __ldg(x4 + v);
+            cur[j] = ld4(src + 4 * v);
             if (want_mel) hv[j] = __ldg(h4 + v);
-            if constexpr (T > 32) xm1[j] = v > 0 ? __ldg(src + 4 * v - 1) : 0.f;
+            if constexpr (T > 32) xm1[j] = v > 0 ? ld1(src + 4 * v - 1) : 0.f;
           });
           static_for<B>([&](auto j1) {
             constexpr int j = CV(j1);
@@ -428,9 +507,7 @@ asr_graph_kernel(const Params p) {
             }
             float y[4];
             fir2(cur[j], xm1[j], tap0, tap1, y);
-            if (want_f)
-              __stcs(reinterpret_cast<float4*>(dst) + v,
-                     make_float4(y[0], y[1], y[2], y[3]));
+            if (want_f) st4(dst + 4 * v, y);
             if (want_mel) {
               sr[pad(2 * v)] = __fmul_rn(y[0], hv[j].x);
               si[pad(2 * v)] = __fmul_rn(y[1], hv[j].y);
@@ -451,12 +528,11 @@ asr_graph_kernel(const Params p) {
         fir_loads(src, t0, S, p.taps, n_taps, y);
         if (want_f) {
           if (vec_out && t0 + 4 <= S) {
-            __stcs(reinterpret_cast<float4*>(dst + t0),
-                   make_float4(y[0], y[1], y[2], y[3]));
+            st4(dst + t0, y);
           } else {
             static_for<4>([&](auto c1) {
               constexpr int c = CV(c1);
-              if (t0 + c < S) dst[t0 + c] = y[c];
+              if (t0 + c < S) st1(dst + t0 + c, y[c]);
             });
           }
         }
@@ -570,30 +646,30 @@ asr_graph_kernel(const Params p) {
   }
 }
 
-template <int LG>
+template <int LG, class In>
 cudaError_t launch_lg(const Params& p, int n_slots, cudaStream_t stream) {
   const size_t smem = smem_bytes(LG, p.block_frames, p.n_mels, p.n_packed);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        asr_graph_kernel<LG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        asr_graph_kernel<LG, In>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((p.n_frames + p.block_frames - 1) / p.block_frames, n_slots);
   const int threads = frame_slots(LG, p.block_frames)
                       << log_threads_per_frame(LG);
-  asr_graph_kernel<LG><<<grid, threads, smem, stream>>>(p);
+  asr_graph_kernel<LG, In><<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int LG = 1>
+template <class In, int LG = 1>
 cudaError_t dispatch(int lg, const Params& p, int n_slots,
                      cudaStream_t stream) {
   if constexpr (LG > kMaxLog) {
     return cudaErrorInvalidValue;
   } else {
-    if (lg == LG) return launch_lg<LG>(p, n_slots, stream);
-    return dispatch<LG + 1>(lg, p, n_slots, stream);
+    if (lg == LG) return launch_lg<LG, In>(p, n_slots, stream);
+    return dispatch<In, LG + 1>(lg, p, n_slots, stream);
   }
 }
 
@@ -625,23 +701,24 @@ const char* asr_graph_error_string(int code) {
 // `twiddles` is kernels/fft/kernel.py's stockham_table(fft_size / 2) and
 // (mel_first, mel_offset, mel_packed) asr.py's span table of mel_w. When
 // `retired` is not null the kernel adds to it the frames it wrote among the
-// first `valid_rows`.
-int asr_graph_launch(const float* x, long long slot_stride,
+// first `valid_rows`. `dtype` is the element type of x and out_filtered:
+// kFloat32, kBFloat16 or kFloat16.
+int asr_graph_launch(const void* x, int dtype, long long slot_stride,
                      long long frame_stride, int n_slots, int n_frames,
                      int window, int block_frames, const float* taps,
                      int n_taps, const float* hann, const float* twiddles,
                      const float* untangle, int fft_size,
                      const int* mel_first, const int* mel_offset,
                      const float* mel_packed, int n_packed, int n_mels,
-                     float* out_filtered,
-                     float* out_logmel, int* retired, int valid_rows,
-                     int flags, void* stream) {
+                     void* out_filtered, float* out_logmel, int* retired,
+                     int valid_rows, int flags, void* stream) {
   const int m = fft_size / 2;
   if (n_taps < 1 || n_taps > kMaxTaps || n_mels < 1 || n_mels > kMaxMels ||
       n_packed < 0 || n_slots < 1 || n_slots > 65535 || n_frames < 1 ||
       block_frames < 1 ||
       fft_size < 4 || (m & (m - 1)) != 0 || m > (1 << kMaxLog) ||
-      fft_size > window || (flags & (kOutFiltered | kOutLogmel)) == 0)
+      fft_size > window || (flags & (kOutFiltered | kOutLogmel)) == 0 ||
+      dtype < kFloat32 || dtype > kFloat16)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.x = x;
@@ -665,8 +742,12 @@ int asr_graph_launch(const float* x, long long slot_stride,
   p.retired = retired;
   p.valid_rows = valid_rows;
   p.flags = flags;
-  return static_cast<int>(dispatch(log2_of(m), p, n_slots,
-                                   static_cast<cudaStream_t>(stream)));
+  const int lg = log2_of(m);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      dtype == kFloat32    ? dispatch<float>(lg, p, n_slots, st)
+      : dtype == kBFloat16 ? dispatch<__nv_bfloat16>(lg, p, n_slots, st)
+                           : dispatch<__half>(lg, p, n_slots, st));
 }
 
 }  // extern "C"

@@ -70,7 +70,18 @@
 // gap statistics are exact in any order. The delineation mean, the
 // segment mean and the band sums reduce in another order. No fast-math:
 // sqrtf, division and log1pf stay IEEE.
+//
+// The signal may be float32, bfloat16 or float16 (the kernel is
+// instantiated per element type, In). A 16-bit frame is widened to float32
+// as it is staged (8-byte loads of 4 samples where the frame lies on 8
+// bytes, 2-byte loads elsewhere), as the reference stages it, so every step
+// after the load is the float32 one; `filtered` is stored in the signal's
+// own type, rounded to nearest even, which is the plain version's
+// .to(dtype). A 16-bit signal halves the bytes the frame loads and the
+// `filtered` stores move.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -94,8 +105,74 @@ constexpr int kOutFeatures = 2;
 constexpr int kOutMargin = 4;
 constexpr int kOutClass = 8;
 
+// signal element types (cuda.py keeps the same codes)
+constexpr int kFloat32 = 0;
+constexpr int kBFloat16 = 1;
+constexpr int kFloat16 = 2;
+
+// ---- the signal's element type In: loads widen to float32, stores of
+// `filtered` round back to nearest even. ld4/st4 take 4 samples that lie
+// on 4 * sizeof(In) bytes. (The same helpers as asr_graph.cu's: each
+// source builds alone.)
+template <class In>
+__device__ __forceinline__ float widen(unsigned short b);
+template <>
+__device__ __forceinline__ float widen<__nv_bfloat16>(unsigned short b) {
+  return __bfloat162float(__ushort_as_bfloat16(b));
+}
+template <>
+__device__ __forceinline__ float widen<__half>(unsigned short b) {
+  return __half2float(__ushort_as_half(b));
+}
+template <class In>
+__device__ __forceinline__ unsigned short narrow(float v);
+template <>
+__device__ __forceinline__ unsigned short narrow<__nv_bfloat16>(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+template <>
+__device__ __forceinline__ unsigned short narrow<__half>(float v) {
+  return __half_as_ushort(__float2half_rn(v));
+}
+template <class In>
+__device__ __forceinline__ float ld1(const In* p) {
+  if constexpr (sizeof(In) == 4) {
+    return __ldg(p);
+  } else {
+    return widen<In>(__ldg(reinterpret_cast<const unsigned short*>(p)));
+  }
+}
+template <class In>
+__device__ __forceinline__ float4 ld4(const In* p) {
+  if constexpr (sizeof(In) == 4) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  } else {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    return make_float4(widen<In>(u.x & 0xffffu), widen<In>(u.x >> 16),
+                       widen<In>(u.y & 0xffffu), widen<In>(u.y >> 16));
+  }
+}
+template <class In>
+__device__ __forceinline__ void st1(In* p, float v) {
+  if constexpr (sizeof(In) == 4) {
+    *p = v;
+  } else {
+    *reinterpret_cast<unsigned short*>(p) = narrow<In>(v);
+  }
+}
+template <class In>
+__device__ __forceinline__ void st4(In* p, const float (&y)[4]) {
+  if constexpr (sizeof(In) == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(y[0], y[1], y[2], y[3]));
+  } else {
+    __stcs(reinterpret_cast<uint2*>(p),
+           make_uint2(narrow<In>(y[0]) | (unsigned(narrow<In>(y[1])) << 16),
+                      narrow<In>(y[2]) | (unsigned(narrow<In>(y[3])) << 16)));
+  }
+}
+
 struct Params {
-  const float* x;
+  const void* x;          // (In) the signal
   long long slot_stride;
   long long frame_stride;
   int n_frames;
@@ -114,7 +191,7 @@ struct Params {
   int bands[7];           // band edges over the fft/2+1 power bins
   float prominence;
   int min_distance;
-  float* out_filtered;    // (rows, window) or null
+  void* out_filtered;     // (rows, window) of In, or null
   float* out_features;    // (rows, 12) or null
   float* out_margin;      // (rows, C) or null
   int* out_class;         // (rows,) or null
@@ -396,8 +473,8 @@ __device__ __forceinline__ void fft_pass_any(int L, int M, int s0, int i0,
 // = T - 32 threads take the delineation, each part synchronised on its own
 // (a warp; named barrier 1 + kMaxBlockThreads / T + g), the whole group on
 // named barrier 1 + g. KT: the filter's taps exactly, or 0 for any count
-// (fir8).
-template <int KT>
+// (fir8). In: the signal's element type.
+template <int KT, class In>
 __global__ void __launch_bounds__(kMaxBlockThreads)
 biosignal_graph_kernel(const Params p) {
   constexpr int T = kFrameThreads;
@@ -477,26 +554,41 @@ biosignal_graph_kernel(const Params p) {
 
   const int f_begin = blockIdx.x * p.block_frames;
   const int f_end = min(p.n_frames, f_begin + p.block_frames);
-  const float* const slot = p.x + (long long)blockIdx.y * p.slot_stride;
+  const In* const slot =
+      static_cast<const In*>(p.x) + (long long)blockIdx.y * p.slot_stride;
   const long long slot_row = (long long)blockIdx.y * p.n_frames;
   int retired = 0;
 
   for (int f = f_begin + g; f < f_end; f += G) {
     const long long row = slot_row + f;
-    const float* const src = slot + (long long)f * p.frame_stride;
-    float* const dst =
-        (p.flags & kOutFiltered) ? p.out_filtered + row * S : nullptr;
+    const In* const src = slot + (long long)f * p.frame_stride;
+    In* const dst = (p.flags & kOutFiltered)
+                        ? static_cast<In*>(p.out_filtered) + row * S
+                        : nullptr;
     retired += row < p.valid_rows;
 
-    // ---- stage 1: the frame to shared memory by cp.async (16 bytes a
-    // copy where the frame lies on 16 bytes, else 4), all of it in flight
-    // at once; the tables' copies once the first frame is in
-    const int nv = (S + 3) / 4;              // 16-byte vectors a frame
+    // ---- stage 1: the frame to shared memory, as float32: by cp.async
+    // for a float32 signal (16 bytes a copy where the frame lies on 16
+    // bytes, else 4), all of it in flight at once; a 16-bit one loaded 4
+    // samples (8 bytes) a thread where it lies on 8 bytes, else 1, and
+    // widened. The tables' copies once the first frame is in
+    const int nv = (S + 3) / 4;              // 4-sample vectors a frame
     const int rounds = (nv + T - 1) / T;     // vector v = i + T j in round j
-    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && (S & 3) == 0) {
-      for (int v = i; v < nv; v += T) copy_async16(filt + 4 * v, src + 4 * v);
+    const bool vec_in =
+        (reinterpret_cast<uintptr_t>(src) & (4 * sizeof(In) - 1)) == 0 &&
+        (S & 3) == 0;
+    if constexpr (sizeof(In) == 4) {
+      if (vec_in) {
+        for (int v = i; v < nv; v += T)
+          copy_async16(filt + 4 * v, src + 4 * v);
+      } else {
+        for (int t = i; t < S; t += T) copy_async4(filt + t, src + t);
+      }
+    } else if (vec_in) {
+      for (int v = i; v < nv; v += T)
+        reinterpret_cast<float4*>(filt)[v] = ld4(src + 4 * v);
     } else {
-      for (int t = i; t < S; t += T) copy_async4(filt + t, src + t);
+      for (int t = i; t < S; t += T) filt[t] = ld1(src + t);
     }
     if (need_features)
       for (int w = i; w < 2 * Wp; w += T) mask[w] = 0u;
@@ -511,7 +603,8 @@ biosignal_graph_kernel(const Params p) {
     // shared memory; its sum, max, min and FFT-segment sum on the way.
     float red4[4] = {0.f, -INFINITY, INFINITY, 0.f};
     {
-      const bool vec_out = (reinterpret_cast<uintptr_t>(dst) & 15) == 0;
+      const bool vec_out =
+          (reinterpret_cast<uintptr_t>(dst) & (4 * sizeof(In) - 1)) == 0;
       const float4* const raw4 = reinterpret_cast<const float4*>(filt);
       for (int j1 = rounds - 1; j1 >= 0; j1 -= 2) {
         float x[2][4 * NH + 4], y[2][4];
@@ -537,14 +630,14 @@ biosignal_graph_kernel(const Params p) {
           const int v = i + T * (j1 - r), t0 = 4 * v;
           if (j1 - r < 0 || v >= nv) continue;
           if (t0 + 4 <= S) {
-            const float4 o = make_float4(y[r][0], y[r][1], y[r][2], y[r][3]);
-            reinterpret_cast<float4*>(filt)[v] = o;
+            reinterpret_cast<float4*>(filt)[v] =
+                make_float4(y[r][0], y[r][1], y[r][2], y[r][3]);
             if (dst != nullptr) {
               if (vec_out) {
-                __stcs(reinterpret_cast<float4*>(dst) + v, o);
+                st4(dst + t0, y[r]);
               } else {
 #pragma unroll
-                for (int c = 0; c < 4; ++c) dst[t0 + c] = y[r][c];
+                for (int c = 0; c < 4; ++c) st1(dst + t0 + c, y[r][c]);
               }
             }
           } else {
@@ -552,7 +645,7 @@ biosignal_graph_kernel(const Params p) {
             for (int c = 0; c < 4; ++c) {
               if (t0 + c < S) {
                 filt[t0 + c] = y[r][c];
-                if (dst != nullptr) dst[t0 + c] = y[r][c];
+                if (dst != nullptr) st1(dst + t0 + c, y[r][c]);
               }
             }
           }
@@ -904,18 +997,27 @@ biosignal_graph_kernel(const Params p) {
   if (need_features) tables_wait(&tables_bar);   // no copy outlives the block
 }
 
-template <int KT>
+template <int KT, class In>
 cudaError_t launch_kernel(const Params& p, size_t smem, int n_slots,
                           cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        biosignal_graph_kernel<KT>,
+        biosignal_graph_kernel<KT, In>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((p.n_frames + p.block_frames - 1) / p.block_frames, n_slots);
-  biosignal_graph_kernel<KT><<<grid, p.groups * kFrameThreads, smem, stream>>>(p);
+  biosignal_graph_kernel<KT, In>
+      <<<grid, p.groups * kFrameThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <class In>
+cudaError_t launch_taps(const Params& p, size_t smem, int n_slots,
+                        cudaStream_t stream) {
+  return p.n_taps == kAppTaps ? launch_kernel<kAppTaps, In>(p, smem, n_slots,
+                                                             stream)
+                              : launch_kernel<0, In>(p, smem, n_slots, stream);
 }
 
 }  // namespace
@@ -938,13 +1040,15 @@ const char* biosignal_graph_error_string(int code) {
 // launch (0 on success). Allocates nothing and does not synchronise.
 // `bands` is a host array of 7 band edges. When `retired` is not null the
 // kernel adds to it the frames it wrote among the first `valid_rows`.
+// `dtype` is the element type of x and out_filtered: kFloat32, kBFloat16
+// or kFloat16.
 int biosignal_graph_launch(
-    const float* x, long long slot_stride, long long frame_stride,
+    const void* x, int dtype, long long slot_stride, long long frame_stride,
     int n_slots, int n_frames, int window, int block_frames,
     const float* taps, int n_taps, const float* tw_re, const float* tw_im,
     const float* untangle, int fft_size, const float* svm_w,
     const float* svm_b, int n_features, int n_classes, const int* bands,
-    float prominence, int min_distance, float* out_filtered,
+    float prominence, int min_distance, void* out_filtered,
     float* out_features, float* out_margin, int* out_class, int* retired,
     int valid_rows, int flags, void* stream) {
   const int m = fft_size / 2;
@@ -952,7 +1056,7 @@ int biosignal_graph_launch(
       n_classes > kMaxClasses || n_features != kFeatures || n_slots < 1 ||
       n_slots > 65535 || n_frames < 1 || block_frames < 1 || window < 2 ||
       window > kMaxWindow || fft_size < 4 || fft_size > window ||
-      (m & (m - 1)) != 0)
+      (m & (m - 1)) != 0 || dtype < kFloat32 || dtype > kFloat16)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.x = x;
@@ -992,8 +1096,9 @@ int biosignal_graph_launch(
   const size_t smem = tables + groups * per_group;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      n_taps == kAppTaps ? launch_kernel<kAppTaps>(p, smem, n_slots, st)
-                         : launch_kernel<0>(p, smem, n_slots, st));
+      dtype == kFloat32    ? launch_taps<float>(p, smem, n_slots, st)
+      : dtype == kBFloat16 ? launch_taps<__nv_bfloat16>(p, smem, n_slots, st)
+                           : launch_taps<__half>(p, smem, n_slots, st));
 }
 
 }  // extern "C"

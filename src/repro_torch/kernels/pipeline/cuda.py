@@ -5,7 +5,9 @@
 
 Both are declared with `kernels._cuda`, which builds, loads, launches and
 counts them (``LAUNCHES[kernel][entry]``). Their entries are
-``"frames"``, ``"stream"`` and ``"ring"``.
+``"frames"``, ``"stream"`` and ``"ring"``. Both take a float32, bfloat16
+or float16 signal (`SIGNAL_DTYPES`): the kernel widens each sample to
+float32 at its load and writes ``filtered`` in the signal's own dtype.
 """
 from __future__ import annotations
 
@@ -24,6 +26,9 @@ from repro_torch.kernels.fft.kernel import stockham_plan
 CSRC = Path(__file__).resolve().parent / "csrc"
 ENTRIES = ("frames", "stream", "ring")
 
+# the signal dtypes the graph kernels take, and their codes in the sources
+SIGNAL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
 # output selection bits, as in the graph sources
 OUT_BITS = {
     "biosignal_graph": {"filtered": 1, "features": 2, "margin": 4,
@@ -35,7 +40,7 @@ _p, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 _cuda.declare("biosignal_graph", CSRC / "biosignal_graph.cu", ENTRIES, {
     "biosignal_graph_launch": ([
-        _p, _ll, _ll, _i, _i, _i, _i,              # x, framing
+        _p, _i, _ll, _ll, _i, _i, _i, _i,          # x, its dtype, framing
         _p, _i, _p, _p, _p, _i,                    # taps, fft tables
         _p, _p, _i, _i, ctypes.POINTER(_i),        # svm, sizes, bands
         _f, _i,                                    # delineation
@@ -45,7 +50,7 @@ _cuda.declare("biosignal_graph", CSRC / "biosignal_graph.cu", ENTRIES, {
 })
 _cuda.declare("asr_graph", CSRC / "asr_graph.cu", ENTRIES, {
     "asr_graph_launch": ([
-        _p, _ll, _ll, _i, _i, _i, _i,              # x, framing
+        _p, _i, _ll, _ll, _i, _i, _i, _i,          # x, its dtype, framing
         _p, _i, _p, _p, _p, _i,                    # taps, hann, fft
         _p, _p, _p, _i, _i,                        # mel spans, n_mels
         _p, _p,                                    # outputs
@@ -76,7 +81,7 @@ def _graph_outputs(kernel: str, out: dict, want: dict, device) -> tuple:
 def _graph_common(x, entry, framing: dict, retired) -> None:
     if entry not in ENTRIES:
         raise ValueError(f"unknown entry {entry!r}")
-    check_cuda_input(x)
+    check_cuda_input(x, tuple(SIGNAL_DTYPES))
     check_frames(x, **framing)
     check_retired(retired, x.device)
 
@@ -118,7 +123,7 @@ def launch_biosignal_graph(x: torch.Tensor, *, entry: str, window: int,
     check_table("svm_b", svm_b, dev, (C,))
     rows = n_slots * n_frames
     flags, ptrs = _graph_outputs("biosignal_graph", out, {
-        "filtered": ((rows, window), torch.float32),
+        "filtered": ((rows, window), x.dtype),
         "features": ((rows, 12), torch.float32),
         "margin": ((rows, C), torch.float32),
         "class": ((rows,), torch.int32)}, dev)
@@ -127,8 +132,9 @@ def launch_biosignal_graph(x: torch.Tensor, *, entry: str, window: int,
     check_smem("biosignal_graph", lib.biosignal_graph_smem_bytes(
         window, fft_size), f"window {window}")
     launch("biosignal_graph", entry, x, "biosignal_graph_launch",
-           x.data_ptr(), slot_stride, frame_stride, n_slots, n_frames,
-           window, block_frames, taps.data_ptr(), taps.shape[0],
+           x.data_ptr(), SIGNAL_DTYPES[x.dtype], slot_stride, frame_stride,
+           n_slots, n_frames, window, block_frames, taps.data_ptr(),
+           taps.shape[0],
            twiddle_re.data_ptr(), twiddle_im.data_ptr(), untangle.data_ptr(),
            fft_size, svm_w.data_ptr(), svm_b.data_ptr(), svm_w.shape[0], C,
            (ctypes.c_int * 7)(*bands), prominence, min_distance,
@@ -180,7 +186,7 @@ def launch_asr_graph(x: torch.Tensor, *, entry: str, window: int,
                          f"{dev}")
     rows = n_slots * n_frames
     flags, ptrs = _graph_outputs("asr_graph", out, {
-        "filtered": ((rows, window), torch.float32),
+        "filtered": ((rows, window), x.dtype),
         "logmel": ((rows, n_mels), torch.float32)}, dev)
     valid_rows = rows if valid_rows is None else valid_rows
     lib = library("asr_graph")
@@ -188,8 +194,9 @@ def launch_asr_graph(x: torch.Tensor, *, entry: str, window: int,
         fft_size, block_frames, n_mels, spans.weights.shape[0]),
         f"fft_size {fft_size}")
     launch("asr_graph", entry, x, "asr_graph_launch",
-           x.data_ptr(), slot_stride, frame_stride, n_slots, n_frames,
-           window, block_frames, taps.data_ptr(), taps.shape[0],
+           x.data_ptr(), SIGNAL_DTYPES[x.dtype], slot_stride, frame_stride,
+           n_slots, n_frames, window, block_frames, taps.data_ptr(),
+           taps.shape[0],
            hann.data_ptr(), twiddles.data_ptr(), untangle.data_ptr(),
            fft_size, spans.first.data_ptr(), spans.offset.data_ptr(),
            spans.weights.data_ptr(), spans.weights.shape[0], n_mels,

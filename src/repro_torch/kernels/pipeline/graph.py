@@ -23,6 +23,12 @@ pre-framed rows and the hop for a raw signal, ``slot_stride`` the row
 stride of a ring. Every entry runs the same per-frame code, each frame
 filtered with zero history before its first sample, so on one device
 stream == framed == ring slot to the last bit.
+
+The kernels take a float32, bfloat16 or float16 signal and widen it to
+float32 at the load, as the plain version does; ``filtered`` keeps the
+signal's dtype. A float64 signal is narrowed to float32 at every entry
+(`staged_signal`), as the reference's ``jnp.asarray`` makes it with x64
+off.
 """
 from __future__ import annotations
 
@@ -45,12 +51,18 @@ __all__ = ["OutputSpec", "StageGraph", "build_graph", "stages_to_run",
            "graph_ring_call", "graph_frames_plain", "graph_stream_plain",
            "graph_ring_plain", "graph_alloc_outputs", "stream_frame_count",
            "min_stream_block_frames", "resolve_stream_block_frames",
-           "ring_chunk_samples", "block_frames_pool"]
+           "ring_chunk_samples", "block_frames_pool", "staged_signal"]
 
 
 # ---------------------------------------------------------------------------
 # Framing arithmetic
 # ---------------------------------------------------------------------------
+
+def staged_signal(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the entries stage it: float64 narrowed to float32 (the
+    reference's ``jnp.asarray`` with x64 off), any other dtype kept."""
+    return x.to(torch.float32) if x.dtype == torch.float64 else x
+
 
 def stream_frame_count(n_samples: int, window: int, hop: int) -> int:
     return 0 if n_samples < window else 1 + (n_samples - window) // hop
@@ -435,6 +447,7 @@ def graph_frames_call(frames: torch.Tensor, operands, *, graph: StageGraph,
     outputs = canonical_graph_outputs(graph, outputs)
     if frames.ndim != 2:
         raise ValueError(f"frames must be (R, S), got {tuple(frames.shape)}")
+    frames = staged_signal(frames)
     R, S = frames.shape
     _check_window(graph, S, S)
     if R == 0:
@@ -458,6 +471,7 @@ def graph_stream_call(signal: torch.Tensor, operands, *, graph: StageGraph,
     outputs = canonical_graph_outputs(graph, outputs)
     if signal.ndim != 1:
         raise ValueError(f"signal must be 1-D, got {tuple(signal.shape)}")
+    signal = staged_signal(signal)
     _check_window(graph, window, hop)
     n = stream_frame_count(signal.shape[0], window, hop)
     if n == 0:
@@ -493,6 +507,7 @@ def graph_ring_call(ring: torch.Tensor, operands, *, graph: StageGraph,
     outputs = canonical_graph_outputs(graph, outputs)
     if ring.ndim != 2:
         raise ValueError(f"ring must be (D, span), got {tuple(ring.shape)}")
+    ring = staged_signal(ring)
     _check_window(graph, window, hop)
     D, span = ring.shape
     n = stream_frame_count(span, window, hop)

@@ -40,6 +40,7 @@ from repro_torch.kernels.pipeline.graph import (StageGraph,
                                                 graph_empty_outputs,
                                                 graph_frames_call,
                                                 graph_stream_call,
+                                                staged_signal,
                                                 stream_frame_count)
 from repro_torch.kernels.pipeline.kernel import (OUTPUTS,
                                                  _biosignal_graph_operands)
@@ -208,6 +209,7 @@ def graph_stream_sharded(signal: torch.Tensor, operands, *,
     _check_weights(weights, n_columns)
     if signal.ndim != 1:
         raise ValueError(f"signal must be 1-D, got {tuple(signal.shape)}")
+    signal = staged_signal(signal)
     n = stream_frame_count(signal.shape[0], window, hop)
     if n_columns == 1:
         return graph_stream_call(signal, operands, graph=graph,

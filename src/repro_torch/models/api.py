@@ -43,9 +43,11 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as tfm
+from repro_torch.sharding.ctx import constrain
 
 __all__ = ["Model", "build_model", "init_model_params", "init_cache",
-           "params_from_numpy", "cast_params", "init_cast_params"]
+           "abstract_cache", "params_from_numpy", "cast_params",
+           "init_cast_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,7 +88,7 @@ def _embed_tokens(params, batch, cfg, *, mode):
     if "embed_norm" in params:
         x = L.apply_norm(params["embed_norm"], x, kind="layernorm",
                          eps=cfg.norm_eps)
-    return x
+    return constrain(x, "btd")
 
 
 def _cache_len(batch, B: int, device):
@@ -108,8 +110,10 @@ def _final_logits(params, x, cfg):
     x = L.apply_norm(params["final_norm"], x, kind=cfg.norm_type,
                      eps=cfg.norm_eps)
     if cfg.tie_embeddings:
-        return L.unembed(params["embed"], x)
-    return L.linear_head(params["head"], x)
+        logits = L.unembed(params["embed"], x)
+    else:
+        logits = L.linear_head(params["head"], x)
+    return constrain(logits, "btv")
 
 
 def _encode(params, batch, cfg, enc_plan):
@@ -214,6 +218,12 @@ def init_cache(model: Model, batch_size: int, max_len: int, *,
         lambda p: torch.zeros(p.shape, dtype=p.dtype or torch.float32,
                               device=dev),
         model.cache_schema(batch_size, max_len))
+
+
+def abstract_cache(model: Model, batch_size: int, max_len: int):
+    """`init_cache`'s shapes and dtypes as "meta" tensors."""
+    return L.abstract_params(model.cache_schema(batch_size, max_len),
+                             torch.float32)
 
 
 def params_from_numpy(model: Model, tree, *, device="cuda"):

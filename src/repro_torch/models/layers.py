@@ -4,8 +4,11 @@ JAX package's `models/layers.py`).
 Every module describes its parameters as a *schema*: a nested dict whose
 leaves are :class:`P` entries carrying (shape, logical axes, init rule,
 dtype). One schema drives `init_params` (materialize a tree of tensors),
-`param_count` and the weight carrier `models.api.params_from_numpy`
-(check another package's tree leaf by leaf). The logical axis names are
+`axes_tree` (the matching tree of logical-axis tuples, which the
+sharding rules read), `abstract_params` (the matching tree of "meta"
+tensors: shapes and dtypes, no storage), `param_count` and the weight
+carrier `models.api.params_from_numpy` (check another package's tree
+leaf by leaf). The logical axis names are
 the reference's: layers, embed, vocab, heads, kv_heads, head_dim, mlp,
 batch, seq, None.
 
@@ -24,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["P", "fanin_std", "stack_schema", "tree_map", "tree_items",
-           "tree_from_items", "init_leaf", "init_params", "param_count",
+           "tree_from_items", "init_leaf", "init_params", "axes_tree",
+           "abstract_params", "param_count",
            "norm_schema", "apply_norm", "embed_schema", "embed", "unembed",
            "linear_head_schema", "linear_head", "mlp_schema", "apply_mlp",
            "sinusoidal_positions", "cross_entropy_loss"]
@@ -111,6 +115,19 @@ def init_params(gen: torch.Generator, schema, param_dtype=torch.float32):
     rules are the reference's; the draws are torch's, not JAX's."""
     dev = gen.device
     return tree_map(lambda p: init_leaf(p, param_dtype, gen, dev), schema)
+
+
+def axes_tree(schema):
+    """The tree of logical-axis tuples matching the parameter tree."""
+    return tree_map(lambda p: p.axes, schema)
+
+
+def abstract_params(schema, param_dtype=torch.float32):
+    """The parameter tree's shapes and dtypes as tensors on the "meta"
+    device (no storage): the reference's ``ShapeDtypeStruct`` tree."""
+    meta = torch.device("meta")
+    return tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype or
+                                          param_dtype, device=meta), schema)
 
 
 def param_count(schema) -> int:

@@ -37,6 +37,7 @@ from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwk
 from repro_torch.models.layers import P
+from repro_torch.sharding.ctx import constrain
 
 __all__ = ["Segment", "stack_plan", "encoder_plan", "stack_schema",
            "shared_attn_schema", "cache_schema", "paged_pool_schema", "Ctx",
@@ -346,6 +347,7 @@ def apply_stack(stack_params, x, plan, ctx, cache=None):
         seg_cache = _layers(cache[f"seg{i}"], seg.repeats) \
             if cache is not None else [{}] * seg.repeats
         for layer_params, layer_cache in zip(seg_params, seg_cache):
+            x = constrain(x, "btd")
             if remat is None:
                 x, aux = _repeat(seg.pattern, layer_params, layer_cache, x,
                                  ctx)

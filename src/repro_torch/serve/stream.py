@@ -49,6 +49,7 @@ from repro_torch.kernels.pipeline.graph import (canonical_graph_outputs,
                                                 default_app,
                                                 get_graph_factory,
                                                 graph_empty_outputs,
+                                                staged_signal,
                                                 stream_frame_count)
 from repro_torch.kernels.pipeline.kernel import OUTPUTS
 from repro_torch.kernels.pipeline.ops import (tune_frames_block,
@@ -113,9 +114,7 @@ def stream_signal(signal, device) -> torch.Tensor:
     """``signal`` as a 1-D tensor on ``device``, the stream entries' input.
     float64 becomes float32, as the reference's ``jnp.asarray`` makes it
     with x64 off; any other dtype is kept."""
-    sig = torch.as_tensor(signal)
-    if sig.dtype == torch.float64:
-        sig = sig.float()
+    sig = staged_signal(torch.as_tensor(signal))
     if sig.ndim != 1:
         raise ValueError(f"signal must be 1-D, got {tuple(sig.shape)}")
     return sig.to(device)

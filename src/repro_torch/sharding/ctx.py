@@ -1,0 +1,82 @@
+"""Logical activation-sharding constraints, context-scoped (the port's
+counterpart of the JAX package's `sharding/ctx.py`).
+
+A step that runs over a mesh installs a spec table for it; model code
+calls ``constrain(x, "btd")`` at the reference's points (the embedded
+tokens, every repeat of the layer stack, the logits). ``constrain``
+redistributes a ``DTensor`` to the kind's placements; it returns its
+argument unchanged outside an installed context, on a plain tensor, and
+on a tensor whose rank is not the kind's, so single-device runs are
+unaffected.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Optional
+
+from repro_torch.launch.mesh import mesh_axis_sizes
+
+__all__ = ["make_activation_specs", "activation_sharding", "install",
+           "constrain"]
+
+# (mesh, {kind: spec}) while a table is installed
+_STATE: Optional[tuple] = None
+
+
+def make_activation_specs(mesh, strategy: str = "train") -> dict:
+    """{kind: spec} for ``mesh`` (a `launch.mesh.MeshShape` or a
+    ``DeviceMesh``): the batch over the data-parallel axes (every axis
+    for the fsdp strategies), the vocabulary and heads over "model"
+    otherwise. A spec is the reference's ``PartitionSpec`` entries."""
+    names = set(mesh_axis_sizes(mesh))
+    if strategy in ("fsdp", "serve_fsdp"):
+        dp = tuple(a for a in ("pod", "data", "model") if a in names)
+        tp = None            # weights are gathered; no TP-sharded activations
+    else:
+        dp = tuple(a for a in ("pod", "data") if a in names)
+        tp = "model" if "model" in names else None
+    dp_entry = dp if len(dp) > 1 else (dp[0] if dp else None)
+    return {
+        "btd": (dp_entry, None, None),       # (batch, seq, d_model)
+        "bt": (dp_entry, None),              # (batch, seq) token planes
+        "btv": (dp_entry, None, tp),         # logits: vocab over TP
+        "bthd": (dp_entry, None, tp, None),  # heads over TP
+    }
+
+
+@contextlib.contextmanager
+def activation_sharding(mesh, strategy: str = "train"):
+    """Install the table of ``mesh`` for the ``with`` block."""
+    global _STATE
+    prev = _STATE
+    _STATE = (mesh, make_activation_specs(mesh, strategy))
+    try:
+        yield
+    finally:
+        _STATE = prev
+
+
+def install(mesh, strategy: str = "train") -> None:
+    """Install the table of ``mesh`` until the next call (``None``
+    removes it)."""
+    global _STATE
+    _STATE = (mesh, make_activation_specs(mesh, strategy)) \
+        if mesh is not None else None
+
+
+def constrain(x, kind: str):
+    """``x`` redistributed to the installed ``kind``'s placements when it
+    is a ``DTensor`` of that rank; else ``x`` itself."""
+    if _STATE is None:
+        return x
+    mesh, specs = _STATE
+    spec = specs.get(kind)
+    if spec is None or x.ndim != len(spec):
+        return x
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding.rules import placements_for
+
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(mesh, placements_for(spec, mesh))

@@ -23,8 +23,8 @@ import torch
 
 from repro_torch.models.layers import tree_items, tree_map
 
-__all__ = ["OptConfig", "init_opt_state", "schedule", "global_norm",
-           "clip_by_global_norm", "adamw_update"]
+__all__ = ["OptConfig", "init_opt_state", "abstract_opt_state", "schedule",
+           "global_norm", "clip_by_global_norm", "adamw_update"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +92,12 @@ def init_opt_state(params, cfg: OptConfig):
         "v": tree_map(lambda p: _v_init(p, cfg), params),
         "count": torch.zeros((), dtype=torch.int32, device=dev),
     }
+
+
+def abstract_opt_state(abstract_params, cfg: OptConfig):
+    """`init_opt_state`'s shapes and dtypes as "meta" tensors, from the
+    parameters' (`models.layers.abstract_params`)."""
+    return init_opt_state(abstract_params, cfg)
 
 
 def schedule(step, cfg: OptConfig):

@@ -9,10 +9,13 @@ state in place, and returns (state, metrics) with the reference's metric
 names: loss, ce, aux, grad_norm, lr and step, each a 0-d tensor on the
 device (reading one waits for the step).
 
-The reference's sharding trees (`state_shardings`, `batch_shardings`)
-and its mesh place the state over a device mesh; on one card they have
-no meaning, and they wait for the port's `sharding/`. So `StepBundle`
-carries the step function and the abstract state only.
+The reference's sharding trees of the state and the batch are given here
+by `opt_state_shardings` and `batch_shardings_for` over the port's rules
+(`sharding/rules.py`): `NamedSharding`s, whose ``placements`` lay a
+tensor out on a ``DeviceMesh``. The step itself
+runs on one device, so `StepBundle` carries the step function and the
+abstract state only; a step over a mesh of more than one rank is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -23,11 +26,16 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.models import init_model_params
-from repro_torch.models.layers import tree_from_items, tree_items, tree_map
+from repro_torch.models.layers import (abstract_params, tree_from_items,
+                                       tree_items, tree_map)
+from repro_torch.sharding.rules import (NamedSharding, Strategy,
+                                        replicated, spec_for)
 from repro_torch.train import optim
 
-__all__ = ["StepBundle", "make_train_step", "init_state", "abstract_state"]
+__all__ = ["StepBundle", "make_train_step", "init_state", "abstract_state",
+           "batch_shardings_for", "opt_state_shardings"]
 
 
 @dataclasses.dataclass
@@ -40,12 +48,54 @@ def abstract_state(model, opt_cfg: optim.OptConfig):
     """The state's shapes and dtypes as a tree of tensors on the "meta"
     device (no storage): the port's ``jax.eval_shape`` of `init_state`,
     the template `checkpoint.ckpt.restore` fills."""
-    meta = torch.device("meta")
-    params = tree_map(lambda p: torch.empty(
-        p.shape, dtype=p.dtype or model.cfg.param_dtype, device=meta),
-        model.schema)
-    return {"params": params, "opt": optim.init_opt_state(params, opt_cfg),
-            "step": torch.zeros((), dtype=torch.int32, device=meta)}
+    params = abstract_params(model.schema, model.cfg.param_dtype)
+    return {"params": params,
+            "opt": optim.abstract_opt_state(params, opt_cfg),
+            "step": torch.zeros((), dtype=torch.int32, device="meta")}
+
+
+def _dp_degree(mesh) -> int:
+    """The data-parallel degree: the "data" and "pod" axes' product."""
+    sizes = mesh_axis_sizes(mesh)
+    return sizes.get("data", 1) * sizes.get("pod", 1)
+
+
+def batch_shardings_for(batch_tree, mesh, strategy: Strategy):
+    """The sharding of each batch leaf (anything with ``.shape``): its
+    first dim as "batch" by the rules, a 0-d leaf replicated."""
+    def one(t):
+        if len(t.shape) == 0:
+            return replicated(mesh)
+        axes = ("batch",) + (None,) * (len(t.shape) - 1)
+        return NamedSharding(mesh, spec_for(axes, tuple(t.shape), mesh,
+                                            strategy))
+    return tree_map(one, batch_tree)
+
+
+def _heuristic_sharding(mesh, strategy: Strategy):
+    """The sharding of a state leaf with no logical axes: its first dim
+    over "data" where it divides, else replicated."""
+    d = mesh_axis_sizes(mesh).get("data", 1)
+
+    def one(t):
+        shape = tuple(t.shape)
+        if shape and shape[0] % d == 0 and shape[0] >= d:
+            return NamedSharding(mesh, ("data",) + (None,) * (len(shape) - 1))
+        return replicated(mesh)
+    return one
+
+
+def opt_state_shardings(abs_opt, param_shardings, mesh, strategy: Strategy,
+                        opt_cfg: optim.OptConfig) -> dict:
+    """The optimizer state's shardings: m (and a dense v) as the
+    parameters; a qint8 v, whose leaves have another rank than their
+    parameter, by `_heuristic_sharding`; the count replicated."""
+    m_sh = tree_map(lambda _, s: s, abs_opt["m"], param_shardings)
+    if opt_cfg.v_dtype == "qint8":
+        v_sh = tree_map(_heuristic_sharding(mesh, strategy), abs_opt["v"])
+    else:
+        v_sh = tree_map(lambda _, s: s, abs_opt["v"], param_shardings)
+    return {"m": m_sh, "v": v_sh, "count": replicated(mesh)}
 
 
 def _to_device(batch, batch_tree, dev) -> dict:

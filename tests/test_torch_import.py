@@ -56,7 +56,10 @@ def test_port_has_sources():
                  "archsim/isa.py", "archsim/machine.py", "archsim/vector.py",
                  "archsim/energy.py", "archsim/programs/__init__.py",
                  "archsim/programs/fir.py", "archsim/programs/fft.py",
-                 "archsim/programs/app.py"):
+                 "archsim/programs/app.py", "launch/quickstart.py",
+                 "launch/asr_frontend.py", "launch/mesh.py",
+                 "sharding/__init__.py", "sharding/rules.py",
+                 "sharding/ctx.py"):
         assert need in names
     for src in ("pipeline/csrc/biosignal_graph.cu",
                 "pipeline/csrc/asr_graph.cu", "fir/csrc/fir.cu",

@@ -16,6 +16,10 @@ The `cuda`-marked tests skip without a card. Tolerances on the card:
 * ASR: filtered exact (the same FIR); logmel within `ASR_LOGMEL_TOL` of
   max(1, its largest magnitude) (the FFT passes and the mel sums run in
   another order than the plain version's);
+* a bfloat16 or float16 signal on either graph: the same, with filtered
+  bitwise in the signal's dtype, and every output bitwise the float32
+  kernel's on the widened signal (filtered rounded to the dtype): the
+  kernels widen at the load and compute in float32 after it;
 * FIR: within 1e-5 in float32 and 2e-2 in bfloat16 (the kernel repeats
   the plain version's operations in its order, so they usually agree to
   the last bit);
@@ -183,8 +187,8 @@ def test_kernel_refuses_what_it_does_not_take(card):
     graph, operands = get_graph_factory("biosignal")(app)
     sig = torch.zeros(4096, device=card)
     with pytest.raises(ValueError, match="float32"):
-        graph_stream_call(sig.double(), operands, graph=graph, window=2048,
-                          hop=512)
+        graph_stream_call(sig.to(torch.int16), operands, graph=graph,
+                          window=2048, hop=512)
     with pytest.raises(ValueError, match="contiguous"):
         graph_frames_call(sig.reshape(2, 2048).t().contiguous().t(),
                           operands, graph=graph)
@@ -440,6 +444,103 @@ def test_asr_kernel_reads_unaligned_frames_on_card(card, hop):
         one = graph_stream_call(ring[r].clone(), operands, **kw)
         for k in one:
             assert torch.equal(ringed[k][r], one[k]), k
+
+
+# ------------------------------------- 16-bit signals, both graphs
+
+def _graph_case(name: str, card):
+    """(operands, graph, signal, window, hop, plain comparison) of one
+    graph on the card."""
+    if name == "biosignal":
+        app = make_app(device=card)
+        sig = synthetic_respiration(1, 11 * 512 + 2048 + 5, seed=3,
+                                    device=card)[0][0]
+        window, hop, close = 2048, 512, _close
+    else:
+        app = make_asr_frontend(device=card)
+        sig = _audio(21 * 160 + 512 + 5, seed=3, device=card)
+        window, hop, close = 512, 160, _close_asr
+    graph, operands = get_graph_factory(name)(app)
+    return operands, graph, sig, window, hop, close
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name", ["biosignal", "asr"])
+def test_graph_kernels_take_16bit_signals_on_card(card, name, dtype):
+    """A bfloat16 or float16 signal at all three entries: the plain
+    version's outputs (filtered bitwise in the signal's dtype), and the
+    float32 kernel's on the widened signal bitwise, filtered rounded."""
+    operands, graph, sig, window, hop, close = _graph_case(name, card)
+    x = sig.to(dtype)
+    kw = dict(graph=graph)
+    stream = graph_stream_call(x, operands, window=window, hop=hop, **kw)
+    frames = frame_signal(x, window, hop)
+    framed = graph_frames_call(frames, operands, block_rows=3, **kw)
+    bw, depth = 4, 3
+    span, stride = ring_chunk_samples(window, hop, bw), bw * hop
+    ring = x[: (depth - 1) * stride + span].as_strided((depth, span),
+                                                       (stride, 1))
+    ringed = graph_ring_call(ring, operands, window=window, hop=hop, **kw)
+    assert stream["filtered"].dtype == dtype
+    close(stream, graph_stream_plain(x, operands, window=window, hop=hop,
+                                     **kw))
+    close(framed, graph_frames_plain(frames, operands, **kw))
+    close(ringed, graph_ring_plain(ring, operands, window=window, hop=hop,
+                                   **kw))
+    wide = graph_stream_call(x.float(), operands, window=window, hop=hop,
+                             **kw)
+    for k in stream:
+        want = wide[k].to(dtype) if k == "filtered" else wide[k]
+        assert torch.equal(stream[k], want), k
+        assert torch.equal(framed[k], stream[k]), k
+        for r in range(depth):
+            assert torch.equal(ringed[k][r],
+                               stream[k][r * bw: r * bw + bw]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["biosignal", "asr"])
+def test_graph_kernels_read_unaligned_16bit_frames_on_card(card, name):
+    """16-bit frames off an 8-byte boundary (an odd hop; a ring of odd
+    slot stride on a base one sample in) take the 2-byte loads and agree
+    bitwise with the aligned path of the same frames."""
+    operands, graph, sig, window, hop, close = _graph_case(name, card)
+    hop += 1
+    bw, depth = 5, 3
+    span = ring_chunk_samples(window, hop, bw)
+    buf = sig.new_zeros(depth * (span + 1) + 3)
+    n = min(buf.numel(), sig.numel())
+    buf[:n] = sig[:n]
+    buf = buf.to(torch.bfloat16)
+    ring = buf[1:].as_strided((depth, span), (span + 1, 1))
+    kw = dict(graph=graph, window=window, hop=hop)
+    ringed = graph_ring_call(ring, operands, **kw)
+    close(ringed, graph_ring_plain(ring, operands, **kw))
+    for r in range(depth):
+        one = graph_stream_call(ring[r].clone(), operands, **kw)
+        for k in one:
+            assert torch.equal(ringed[k][r], one[k]), k
+
+
+@pytest.mark.cuda
+def test_graph_kernels_refuse_other_dtypes_on_card(card):
+    """Integer signals raise at the launcher, before any launch; float64
+    is narrowed to float32 by the entries, as the reference's jnp.asarray
+    does, and computes."""
+    operands, graph, sig, window, hop, _ = _graph_case("asr", card)
+    _cuda.reset_launches()
+    for dt in (torch.int16, torch.int32):
+        with pytest.raises(ValueError, match="bfloat16"):
+            graph_stream_call(sig.to(dt), operands, graph=graph,
+                              window=window, hop=hop)
+    assert _cuda.LAUNCHES["asr_graph"]["stream"] == 0
+    got = graph_stream_call(sig.double(), operands, graph=graph,
+                            window=window, hop=hop)
+    want = graph_stream_call(sig, operands, graph=graph, window=window,
+                             hop=hop)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
 
 
 # ------------------------------------- the ASR kernel's map, on the CPU
@@ -720,7 +821,7 @@ def bio_fir_walk_through(frame: np.ndarray, taps: np.ndarray) -> np.ndarray:
     src = _BIO_CU.read_text()
     T = _bio_cu_const("kFrameThreads")
     app, long_ = _bio_cu_const("kAppTaps"), _bio_cu_const("kLongHistory")
-    assert "n_taps == kAppTaps ? launch_kernel<kAppTaps>" in src
+    assert "n_taps == kAppTaps ? launch_kernel<kAppTaps, In>" in src
     assert "kt == 0 ? kLongHistory : (kt + 2) / 4" in src
     assert 4 * long_ + 1 >= _bio_cu_const("kMaxTaps")
     k = len(taps)

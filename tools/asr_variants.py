@@ -269,7 +269,7 @@ def main(argv=None) -> int:
         else:
             sp = dense if name == "dense_mel" else spans
             kern = kerns["kernel" if name == "dense_mel" else name]
-            err = kern(x.data_ptr(), slot_stride, frame_stride, n_slots,
+            err = kern(x.data_ptr(), 0, slot_stride, frame_stride, n_slots,
                        n_frames, W, b, taps.data_ptr(), taps.shape[0],
                        hann.data_ptr(), tw.data_ptr(), u.data_ptr(),
                        app.fft_size, sp.first.data_ptr(),

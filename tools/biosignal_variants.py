@@ -42,7 +42,9 @@ bitwise the plain version's. Then clock64 stamps of one frame's chain
 (`STAMPS`), alone and under load. ``--main-path`` then runs the main
 path's windows/s (`BiosignalStream` at batch_windows 8 and 512 without
 `filtered`, `ResidentStream` at 8 and 512, ring depth 4) with the parent's
-library and the kernel's in turn: parent, kernel, kernel, parent. Writes
+library and the kernel's in turn: parent, kernel, kernel, parent (a
+parent whose launcher takes no dtype code, from before the 16-bit signal
+path, is timed by rows only). Writes
 ``build/biosignal_variants/report.json``. Needs a CUDA card and nvcc.
 """
 from __future__ import annotations
@@ -185,15 +187,15 @@ VARIANTS = {
     # every tap count on the generic path (16 history vectors, the taps
     # read through L1), and counts up to 17 on one loop of at most 17 taps
     # held in registers, left after n_taps (4 history vectors)
-    "generic_taps": [("      n_taps == kAppTaps ? launch_kernel",
-                      "      false ? launch_kernel")],
+    "generic_taps": [("p.n_taps == kAppTaps ? launch_kernel",
+                      "false ? launch_kernel")],
     "cap17": [("constexpr int kAppTaps = 11;", "constexpr int kAppTaps = 17;"),
               ("    if (KT == 0 && i >= n_taps) break;",
                "    if (i >= n_taps) break;"),
               ("taps[t] = __ldg(p.taps + t);",
                "taps[t] = t < p.n_taps ? __ldg(p.taps + t) : 0.f;"),
-              ("      n_taps == kAppTaps ? launch_kernel",
-               "      n_taps <= kAppTaps ? launch_kernel")],
+              ("p.n_taps == kAppTaps ? launch_kernel",
+               "p.n_taps <= kAppTaps ? launch_kernel")],
     # registers capped at 64 (two blocks of 512 threads an SM) and 80
     # (three of 256)
     "regs64": [("__launch_bounds__(kMaxBlockThreads)",
@@ -348,6 +350,12 @@ def variant_sources() -> dict:
     return sources
 
 
+def takes_dtype(text: str) -> bool:
+    """Whether a source's launcher takes the signal's dtype code after x
+    (sources before the 16-bit signal path do not)."""
+    return "const void* x, int dtype" in text
+
+
 def build(name: str, text: str) -> Path:
     from repro_torch.kernels import _cuda
 
@@ -461,8 +469,10 @@ def main(argv=None) -> int:
             continue
         handles[name] = ctypes.CDLL(str(libs[name]))
         kerns[name] = handles[name].biosignal_graph_launch
-        kerns[name].argtypes, kerns[name].restype = \
-            sig_spec["biosignal_graph_launch"]
+        argtypes, restype = sig_spec["biosignal_graph_launch"]
+        if not takes_dtype(sources[name]):
+            argtypes = argtypes[:1] + argtypes[2:]
+        kerns[name].argtypes, kerns[name].restype = argtypes, restype
     empty = ctypes.CDLL(str(libs["empty"])).empty_launch
     empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p]
@@ -526,8 +536,9 @@ def main(argv=None) -> int:
             err = empty(-(-n_frames // blk), n_slots, 32, st)
         else:
             kern = kerns[name]
-            err = kern(x.data_ptr(), slot_stride, frame_stride, n_slots,
-                       n_frames, WINDOW, blk, taps.data_ptr(), taps.shape[0],
+            dtype = (0,) if takes_dtype(sources[name]) else ()
+            err = kern(x.data_ptr(), *dtype, slot_stride, frame_stride,
+                       n_slots, n_frames, WINDOW, blk, taps.data_ptr(), taps.shape[0],
                        wr.data_ptr(), wi.data_ptr(), u.data_ptr(),
                        app.fft_size, w.data_ptr(), b.data_ptr(), 12, C,
                        bands, MIN_PROMINENCE, MIN_DISTANCE,
@@ -616,7 +627,8 @@ def main(argv=None) -> int:
                 + f"; kernel start to frame end {med[0] + sum(med[1:9])} "
                 f"[{card}]", flush=True)
 
-    if args.main_path and "parent" in handles:
+    if args.main_path and "parent" in handles and \
+            takes_dtype(sources["parent"]):
         # the port's launcher with the parent's library or the kernel's
         real = _cuda.library
 
