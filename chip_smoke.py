@@ -9,6 +9,7 @@ NVIDIA GPU.
     python3 chip_smoke.py --phase-u  # phases U and E alone (no result)
     python3 chip_smoke.py --phase-d  # phase D alone (no result)
     python3 chip_smoke.py --phase-q  # phase Q and the mesh check (no result)
+    python3 chip_smoke.py --phase-r  # phase R alone (no build, no result)
 
 Phases, each printing one line (or a few):
 
@@ -239,6 +240,21 @@ Q. `launch.quickstart.main` and `launch.asr_frontend.main` as a user runs
    FIR and FFT once in the ASR entry); then the mesh check:
    qwen1.5-0.5b's parameters laid out on `make_local_mesh(1, 1)` over the
    card by the serve strategy, each local shard bitwise its parameter.
+R. the multi-rank substrate on one card (NCCL, world 1), with the launch
+   counts set to 0 before and read after (no kernel may launch): R1
+   `make_serve_step` on `make_local_mesh(1, 1)`, qwen1.5-0.5b at full
+   width and depth in bfloat16, one prefill of 4 x 64 tokens and 8 greedy
+   decode steps bitwise `model.prefill` / `model.decode` (logits and
+   every cache leaf), the greedy tokens and a decode step's host wall,
+   busy time and launches; the run fails unless the check flags a decode
+   that does not write its cache back; R2 `gpipe_apply` at one stage at
+   `launch/dryrun_pp.py`'s widths in bfloat16 (8 x 256 tokens, 4
+   microbatches) against the sequential loop, forward and gradient
+   within `GPIPE_TOL`, failing unless it flags a lost hand-off; R3
+   `psum_compressed` at world 1 bitwise the int8 round trip; R4
+   `python -m repro_torch.launch.dryrun` on the T1 step (a 1 x 1 mesh,
+   8 x 256; on the host) in a subprocess, its per-device FLOPs, bytes and
+   roofline bound beside T1's busy time and `train_work`'s bound.
 
 The last two lines are a JSON object of per-kernel numbers and the
 contract line ``{"ok": true, "device": {...}}``. Any failing phase raises,
@@ -1889,38 +1905,6 @@ def lm_prompts(n: int, lo: int, hi: int, vocab: int, seed: int) -> list:
             for _ in range(n)]
 
 
-def decode_work(cfg, weight_bytes: int, layer_params: int, n_rows: int,
-                contexts) -> tuple:
-    """(bytes, operations) one decode step over ``n_rows`` slots must
-    move and do: every weight once (the layers' in bfloat16, norm scales
-    and the float32 embedding that the tied head reads in full), each live
-    slot's K and V rows up to its position once, the new rows and the
-    float32 logits written once; products of 2 operations a weight a row,
-    attention's 4 dh a live pair."""
-    kv_row = 2 * cfg.num_kv_heads * cfg.hd * 2 * cfg.num_layers   # K+V bf16
-    live = int(sum(contexts))
-    nbytes = (weight_bytes + kv_row * live + kv_row * n_rows
-              + n_rows * cfg.vocab_size * 4)
-    ops = (2 * layer_params * n_rows + 2 * cfg.vocab_size * cfg.d_model
-           * n_rows + 4 * cfg.hd * cfg.num_heads * live * cfg.num_layers)
-    return nbytes, ops
-
-
-def prefill_work(cfg, weight_bytes: int, layer_params: int, n_rows: int,
-                 width: int) -> tuple:
-    """(bytes, operations) of one bucket's prefill over ``n_rows`` slots
-    of ``width`` tokens: weights once, the K/V rows written once, the
-    last position's logits; 2 operations a weight a token, causal
-    attention's 4 dh a pair, the head on one row a slot."""
-    kv_row = 2 * cfg.num_kv_heads * cfg.hd * 2 * cfg.num_layers
-    tokens = n_rows * width
-    pairs = n_rows * width * (width + 1) // 2
-    nbytes = weight_bytes + kv_row * tokens + n_rows * cfg.vocab_size * 4
-    ops = (2 * layer_params * tokens + 4 * cfg.hd * cfg.num_heads * pairs
-           * cfg.num_layers + 2 * cfg.vocab_size * cfg.d_model * n_rows)
-    return nbytes, ops
-
-
 def wrong_rope_decode(model, params, batch, cache):
     """What phase L's check reads from a decode whose rotary angle is one
     position late (q and k rotated at cache_len + 1; everything else
@@ -2217,6 +2201,8 @@ def lm_path(dev, card: str, cfg=None) -> dict:
               f"{k} {v or 'none'}" for k, v in res["placement"].items()))
 
     # ---- L5: times beside their bounds
+    from repro_torch.analysis.roofline import prefill_work
+
     res["prefill"] = []
     for p in teng.prefills:
         nbytes, ops = prefill_work(cfg, weight_bytes, layer_params,
@@ -2277,6 +2263,8 @@ def decode_times(eng, walls, admits, cfg, weight_bytes, layer_params, model,
     contexts)`` gives its bytes and operations; default `decode_work`)."""
     import numpy as np
     import torch
+
+    from repro_torch.analysis.roofline import decode_work
 
     torch.cuda.synchronize()
     steps = [(e0.elapsed_time(e1), lens, live)
@@ -3095,39 +3083,6 @@ def decode_step_batch(cfg, tok, t: int, dev):
     return batch
 
 
-def family_work(model, cparams, n_rows: int, contexts, max_len: int) -> \
-        tuple:
-    """(bytes, operations) one decode step over ``n_rows`` slots must move
-    and do: every weight once (of an untied embedding only the ``n_rows``
-    rows looked up; MoE's dense dispatch reads every expert), each live
-    slot's K/V rows up to its position once and the new rows once, every
-    recurrent state leaf read and written once, the float32 logits
-    written once; 2 operations a weight a row, attention's 4 dh a live
-    pair a head an attention layer."""
-    from repro_torch.models.layers import tree_items
-
-    cfg = model.cfg
-    nbytes = ops = 0
-    for path, t in tree_items(cparams):
-        if path[0] == "embed" and not cfg.tie_embeddings:
-            nbytes += n_rows * cfg.d_model * t.element_size()
-            continue
-        nbytes += t.numel() * t.element_size()
-        if t.dim() >= 2:
-            ops += 2 * t.numel() * n_rows
-    live = int(sum(contexts))
-    for path, p in tree_items(model.cache_schema(n_rows, max_len)):
-        size = math.prod(p.shape) * p.dtype.itemsize
-        if "seq" in p.axes:
-            nbytes += size // (n_rows * p.shape[p.axes.index("seq")]) * (
-                live + n_rows)
-            if path[-1] == "k":
-                ops += 4 * cfg.hd * cfg.num_heads * live * p.shape[0]
-        else:
-            nbytes += 2 * size
-    return nbytes + n_rows * cfg.vocab_size * 4, ops
-
-
 def family_cache_check(name, model, params, dev, card: str) -> dict:
     """Prefill M_BATCH prompts of M_PROMPT tokens (one length: recurrent
     state cannot be padded; qwen2-vl's image first), then M_FORCED
@@ -3368,6 +3323,8 @@ def family_serving(name, model, params, dev, card: str) -> dict:
           f"greedy twice and at temperature {LM_TEMPERATURE}: every "
           f"request finished, the greedy repeat identical{paged}; "
           f"{res['e2e_tok_s']:.1f} generated tokens/s end to end [{card}]")
+    from repro_torch.analysis.roofline import family_work
+
     res["decode"] = decode_times(
         teng, walls, admits, cfg, None, None, model, card, tag=name,
         work=lambda n_rows, contexts: family_work(
@@ -3405,6 +3362,8 @@ def family_decode_alone(name, model, params, dev, card: str) -> dict:
         busy, launches = device_busy(lambda: model.decode(params, batch,
                                                           cache))
     host = statistics.median(walls)
+    from repro_torch.analysis.roofline import family_work
+
     nbytes, ops = family_work(model, params, M_BATCH, [n] * M_BATCH,
                               LM_MAX_LEN)
     bms, by = bound_ms(nbytes, ops, PEAK_BF16)
@@ -3693,33 +3652,6 @@ def same_tree(a, b) -> bool:
                for (_, x), (_, y) in zip(tree_items(a), tree_items(b)))
 
 
-def train_work(model, n_tokens: int, seq: int, rows: int) -> dict:
-    """The least time of one train step on this card, worked out from the
-    shapes (TF32 off): the float32 head's three products (forward and two
-    backward) at 67 TFLOP/s, the bfloat16 body's 6 operations a weight a
-    token and attention's 3 x 4 dh a live pair a head at 989 TFLOP/s,
-    and AdamW's 7 float32 reads and writes a parameter (p, g, m, v read;
-    p, m, v written) at 3.35 TB/s; their sum, each part run after the
-    other."""
-    from repro_torch.models.layers import param_count
-
-    cfg = model.cfg
-    n_params = param_count(model.schema)
-    body = n_params - cfg.vocab_size * cfg.d_model * (
-        1 if cfg.tie_embeddings else 2)
-    head_ops = 3 * 2 * n_tokens * cfg.d_model * cfg.vocab_size
-    pairs = rows * seq * (seq + 1) // 2
-    attn_ops = 3 * 4 * cfg.hd * cfg.num_heads * pairs * cfg.num_layers
-    body_ops = 6 * body * n_tokens + attn_ops
-    opt_bytes = 7 * 4 * n_params
-    parts = {"head_ms": head_ops / PEAK_FP32 * 1e3,
-             "body_ms": body_ops / PEAK_BF16 * 1e3,
-             "adamw_ms": opt_bytes / PEAK_BYTES * 1e3}
-    return {**parts, "bound_ms": sum(parts.values()), "params": n_params,
-            "head_tflop": head_ops / 1e12, "body_tflop": body_ops / 1e12,
-            "adamw_gb": opt_bytes / 1e9}
-
-
 def t_run(model, oc, dev, state, n: int, rows: int = T_BATCH,
           seq: int = T_SEQ, ckpt_dir=None, every: int = 0):
     """``launch/train.py``'s loop on the synthetic loader: n steps of
@@ -3824,6 +3756,8 @@ def phase_t1(dev, card: str, cfg=None) -> dict:
     batch = t_batch(cfg.vocab_size, T_BATCH, T_SEQ, T_RUN)
     step = make_train_step(model, oc, batch_tree(batch), device=dev).step_fn
     busy, launches = device_busy(lambda: step(state_b, batch))
+    from repro_torch.analysis.roofline import train_work
+
     work = train_work(model, T_BATCH * T_SEQ, T_SEQ, T_BATCH)
     res["time"] = {"host_ms": host, "device_busy_ms": busy,
                    "launches": launches, "idle_share": 1 - busy / host,
@@ -4519,6 +4453,288 @@ def mesh_check(dev, card: str) -> dict:
             "wall_s": time.perf_counter() - t_phase}
 
 
+# phase R: the multi-rank substrate on one card
+R_BATCH, R_PROMPT, R_DECODE, R_MAX_LEN = 4, 64, 8, 128
+# GPipe at one stage at dryrun_pp's layer widths (d 1024, d_ff 2816, 24
+# layers), bfloat16, a batch of 8 x 256 tokens in 4 microbatches, against
+# the loop over the whole batch: relative L2 errors of the output and of
+# the gradients. The pipeline's weight gradient is the sum of 4
+# microbatch gradients each rounded to bfloat16 (2^-8), the loop's one
+# product rounded once: 3.2e-3 in a CPU rehearsal at cut widths; 2e-2
+# leaves room for 5 roundings, where a lost hand-off reads order 1
+R_PP = (8, 256, 4)
+GPIPE_TOL = 2e-2
+R_DRYRUN = ("qwen1.5-0.5b", f"train_{T_BATCH}x{T_SEQ}", "1x1")
+
+
+def r_serve(dev, card: str, mesh) -> dict:
+    """R1: `make_serve_step` on ``mesh`` (one rank) against the model's
+    own prefill and decode on the same bfloat16 weights and cache: one
+    prefill of R_BATCH prompts of R_PROMPT tokens and R_DECODE greedy
+    decode steps, logits and every cache leaf bitwise; what the check
+    reads from a decode that does not write its cache back (the next
+    step's logits; the run fails unless it differs)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, build_model, init_cache
+    from repro_torch.models import init_model_params
+    from repro_torch.models.layers import tree_items, tree_map
+    from repro_torch.serve.step import make_serve_step
+    from repro_torch.sharding.rules import distribute_tree
+
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg, device=dev)
+    params = tree_map(lambda t: t.to(cfg.compute_dtype),
+                      init_model_params(model, 0, device=dev))
+    rng = np.random.default_rng(0)
+    prompt = torch.as_tensor(rng.integers(1, cfg.vocab_size,
+                                          (R_BATCH, R_PROMPT)),
+                             dtype=torch.int32, device=dev)
+    bundle = make_serve_step(
+        model, mesh, {"tokens": torch.empty(R_BATCH, R_PROMPT,
+                                            dtype=torch.int32,
+                                            device="meta")},
+        batch_size=R_BATCH, max_len=R_MAX_LEN)
+    dparams = distribute_tree(params, bundle.param_shardings)
+
+    def same(tag, a, b):
+        if not torch.equal(a, b):
+            diff = float((a.float() - b.float()).abs().max())
+            raise AssertionError(f"R1 {tag}: the serve step differs from "
+                                 f"the model: max |diff| {diff}")
+
+    def decode_batch(tok, t):
+        return {"tokens": tok, "cache_len": torch.tensor(
+            R_PROMPT + t, dtype=torch.int32, device=dev)}
+
+    with torch.no_grad():
+        cache0 = init_cache(model, R_BATCH, R_MAX_LEN, device=dev)
+        want, wcache = model.prefill(params, {"tokens": prompt}, cache0)
+        got, gcache = bundle.prefill_fn(
+            dparams, distribute_tree({"tokens": prompt},
+                                     bundle.batch_shardings),
+            distribute_tree(cache0, bundle.cache_shardings))
+        same("prefill logits", got.full_tensor(), want)
+        tokens, walls, toks = [], [], []
+        for t in range(R_DECODE):
+            tok = want[:, -1].argmax(-1).to(torch.int32)[:, None]
+            toks.append(tok)
+            tokens.append(tok[:, 0].tolist())
+            want, wcache = model.decode(params, decode_batch(tok, t), wcache)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, gcache = bundle.decode_fn(dparams, decode_batch(tok, t),
+                                           gcache)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            same(f"decode {t} logits", got.full_tensor(), want)
+            for (path, a), (_, b) in zip(tree_items(gcache),
+                                         tree_items(wcache)):
+                same(f"decode {t} cache {'/'.join(path)}", a.to_local(), b)
+        last = decode_batch(toks[-1], R_DECODE - 1)
+        busy, launches = device_busy(lambda: bundle.decode_fn(
+            dparams, last, gcache))
+        # the check's bite: step 0 run without its cache write, then step 1
+        fresh = model.prefill(params, {"tokens": prompt}, cache0)[1]
+        ok = tree_map(torch.clone, fresh)
+        model.decode(params, decode_batch(toks[0], 0), ok)
+        want1 = model.decode(params, decode_batch(toks[1], 1), ok)[0]
+        wrong = distribute_tree(fresh, bundle.cache_shardings)
+        right_write = attention._write_rows
+        attention._write_rows = lambda cache, slot, new: None
+        try:
+            bundle.decode_fn(dparams, decode_batch(toks[0], 0), wrong)
+        finally:
+            attention._write_rows = right_write
+        bad = bundle.decode_fn(dparams, decode_batch(toks[1], 1),
+                               wrong)[0].full_tensor()
+        unwritten = float((bad.float() - want1.float()).abs().max())
+    if not unwritten > 0:
+        raise AssertionError("R1: a decode that did not write its cache back "
+                             "went unnoticed")
+    host = statistics.median(walls[2:])
+    print(f"R1 serve step on make_local_mesh(1, 1) ({LM_ARCH}, "
+          f"{cfg.num_layers} layers, bfloat16 weights, {R_BATCH} prompts of "
+          f"{R_PROMPT} tokens): prefill and {R_DECODE} decode steps bitwise "
+          f"model.prefill / model.decode (logits and every cache leaf); "
+          f"greedy tokens {tokens}; a decode step {host:.2f} ms host wall "
+          f"(median of steps 3-{R_DECODE}), the card busy {busy:.3f} ms "
+          f"over {launches} launches; a decode without its cache write "
+          f"reads max |diff| {unwritten:.3e} at the next step (flagged) "
+          f"[{card}]")
+    return {"tokens": tokens, "decode_host_ms": host, "walls_ms": walls,
+            "device_busy_ms": busy, "launches": launches,
+            "unwritten_cache_reading": unwritten}
+
+
+def r_gpipe(dev, card: str, pipe_mesh) -> dict:
+    """R2: `gpipe_apply` at one stage on the card at `launch/dryrun_pp.py`'s
+    widths, forward and gradient against the sequential loop within
+    GPIPE_TOL; what the check reads from a schedule that loses one
+    hand-off (the stage fed zeros at one tick; the run fails unless the
+    tolerance flags it)."""
+    import torch
+
+    from repro_torch.launch import dryrun_pp
+    from repro_torch.sharding.pipeline import gpipe_apply
+
+    B, S, M = R_PP
+    g = torch.Generator(device=dev).manual_seed(0)
+    L, d, f = dryrun_pp.LAYERS, dryrun_pp.D, dryrun_pp.D_FF
+
+    def draw(*shape, std):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(
+            torch.bfloat16)
+    w1 = draw(L, d, f, std=d ** -0.5).requires_grad_()
+    w2 = draw(L, f, d, std=f ** -0.5).requires_grad_()
+    x = draw(B, S, d, std=1.0)
+    layer = dryrun_pp.layer
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    h = x
+    for i in range(L):
+        h = layer((w1[i], w2[i]), h)
+    gw = torch.autograd.grad(h.float().square().sum(), (w1, w2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = gpipe_apply(layer, (w1[None], w2[None]), x, mesh=pipe_mesh,
+                    microbatches=M)
+    gp = torch.autograd.grad(y.float().square().sum(), (w1, w2))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    fwd = rel(y, h)
+    grad = max(rel(a, b) for a, b in zip(gp, gw))
+    calls = []
+
+    def lossy(p, hh):              # tick 2's input lost on its way in
+        calls.append(1)
+        return layer(p, hh * 0 if len(calls) == 2 * L + 1 else hh)
+    with torch.no_grad():
+        lost = rel(gpipe_apply(lossy, (w1[None], w2[None]), x,
+                               mesh=pipe_mesh, microbatches=M), h)
+    print(f"R2 gpipe_apply at 1 stage on the card ({L} layers of h + "
+          f"tanh(h @ w1) @ w2, d {d}, d_ff {f}, bfloat16, batch {B} x {S} "
+          f"in {M} microbatches): against the sequential loop forward "
+          f"{fwd:.3e}, gradient {grad:.3e} (relative L2, tol {GPIPE_TOL}); "
+          f"a lost hand-off reads {lost:.3e} (flagged); forward + backward "
+          f"{wall:.1f} ms wall [{card}]")
+    if not (fwd <= GPIPE_TOL and grad <= GPIPE_TOL):
+        raise AssertionError(f"R2: gpipe_apply off the loop: forward {fwd}, "
+                             f"gradient {grad}")
+    if not lost > GPIPE_TOL:
+        raise AssertionError(f"R2: a lost hand-off went unnoticed ({lost})")
+    return {"forward_rel_err": fwd, "grad_rel_err": grad,
+            "lost_hand_off_reading": lost, "wall_ms": wall}
+
+
+def r_psum(dev, card: str, mesh) -> dict:
+    """R3: `psum_compressed` over the one-rank mesh's "data" axis equals
+    the int8 round trip of its input, bitwise."""
+    import torch
+
+    from repro_torch.train.compress import (dequantize_block_int8,
+                                            psum_compressed,
+                                            quantize_block_int8)
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(1024, 1000, generator=g, device=dev)
+    got = psum_compressed(x, "data", mesh=mesh)
+    q, s = quantize_block_int8(x)
+    if not torch.equal(got, dequantize_block_int8(q, s, x.shape)):
+        raise AssertionError("R3: psum_compressed at world 1 is not the "
+                             "quantization round trip")
+    print(f"R3 psum_compressed over a world of 1 on the card: "
+          f"{x.numel():,} values bitwise dequantize(quantize(x)) [{card}]")
+    return {"values": x.numel()}
+
+
+def r_dryrun(card: str, t1_busy_ms=None) -> dict:
+    """R4: `python -m repro_torch.launch.dryrun` on the T1 step (a 1 x 1
+    mesh, batch T_BATCH x T_SEQ; a fake process group on the host, no
+    card) in a subprocess: its per-device counts and roofline bound
+    beside phase T1's busy time and `train_work`'s bound."""
+    import os
+
+    from repro_torch.analysis.roofline import train_work
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    arch, shape, mesh = R_DRYRUN
+    out = ROOT / "chiprun_out" / "dryrun_r"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--out", str(out)],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"R4: the dry run failed: {proc.stdout[-2000:]}"
+                             f"{proc.stderr[-2000:]}")
+    rec = json.loads((out / f"{arch}__{shape}__{mesh}.json").read_text())
+    oc, rl = rec["op_cost"], rec["roofline"]
+    work = train_work(build_model(get_config(arch), device="meta"),
+                      T_BATCH * T_SEQ, T_SEQ, T_BATCH)
+    busy = (f"{t1_busy_ms:.2f} ms" if t1_busy_ms is not None else
+            "not measured in this run")
+    print(f"R4 dry run of the T1 step ({arch}, {mesh} mesh, {shape}; a "
+          f"{wall:.1f} s subprocess on the host): {oc['flops']:,} FLOPs, "
+          f"{oc['bytes']:,} bytes (unfused), roofline bound "
+          f"{rl['bound_s'] * 1e3:.2f} ms ({rl['dominant']}; compute "
+          f"{rl['compute_s'] * 1e3:.2f} ms at 989 TFLOP/s, memory "
+          f"{rl['memory_s'] * 1e3:.2f} ms); train_work's bound "
+          f"{work['bound_ms']:.2f} ms "
+          f"({work['body_tflop'] + work['head_tflop']:.3f} TFLOP); phase "
+          f"T1's step busy {busy} [{card}]")
+    return {"flops": oc["flops"], "bytes": oc["bytes"],
+            "bound_ms": rl["bound_s"] * 1e3, "dominant": rl["dominant"],
+            "train_work_bound_ms": work["bound_ms"],
+            "train_work_tflop": work["body_tflop"] + work["head_tflop"],
+            "t1_busy_ms": t1_busy_ms, "wall_s": wall}
+
+
+def phase_r(dev, card: str, t1_busy_ms=None) -> dict:
+    """Phase R: the multi-rank substrate on one card (one rank: NCCL,
+    world 1), with the launch counts set to 0 before and read after (no
+    kernel of the port may launch): R1 the serve step, R2 GPipe, R3 the
+    compressed collective, R4 the dry run of the T1 step."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t_phase = time.perf_counter()
+    made = not dist.is_initialized()
+    mesh = make_local_mesh(data=1, model=1)
+    try:
+        pipe = init_device_mesh("cuda", (1,), mesh_dim_names=("pipe",))
+
+        def run():
+            return {"serve": r_serve(dev, card, mesh),
+                    "gpipe": r_gpipe(dev, card, pipe),
+                    "psum": r_psum(dev, card, mesh)}
+        report, got = counted(run)
+    finally:
+        if made:
+            dist.destroy_process_group()
+    if any(n for entries in got.values() for n in entries.values()):
+        raise AssertionError(f"phase R launched a kernel: {got}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["dryrun"] = r_dryrun(card, t1_busy_ms)
+    report["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase R: no kernel of the port launched; "
+          f"{report['wall_s']:.1f} s wall")
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -4539,6 +4755,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phase-q", action="store_true",
                     help="the card's name, phase Q and the mesh check only "
                          "(kernels built at first use, no result lines)")
+    ap.add_argument("--phase-r", action="store_true",
+                    help="the card's name and phase R only (no build, no "
+                         "result lines)")
     args = ap.parse_args(argv)
 
     import torch
@@ -4614,6 +4833,13 @@ def main(argv=None) -> int:
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_d.json").write_text(
+            json.dumps(report, indent=1, default=str))
+        return 0
+    if args.phase_r:
+        report["phase_r"] = phase_r(torch.device("cuda", 0), card)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_r.json").write_text(
             json.dumps(report, indent=1, default=str))
         return 0
     if args.phase_q:
@@ -5217,6 +5443,9 @@ def main(argv=None) -> int:
     # ---- phase Q: the quickstart and ASR front-end entries; the mesh
     report["phase_q"] = phase_q(dev, card)
     report["mesh"] = mesh_check(dev, card)
+    # ---- phase R: the multi-rank substrate on one card
+    report["phase_r"] = phase_r(
+        dev, card, report["phase_t"]["T1"]["time"]["device_busy_ms"])
     for k in kernels:
         if k["name"] == "asr_graph[stream]":
             k["launches_phase_p"] = report["phase_p"]["frontend"][

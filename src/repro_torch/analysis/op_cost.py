@@ -1,0 +1,203 @@
+"""Per-device operation counts of one step (the port's counterpart of the
+JAX package's `analysis/hlo_cost.py`).
+
+The reference parses the optimised HLO of a step that XLA partitioned
+for one device. The port has no HLO: `analyze` runs the step once under
+a dispatch mode (`OpCounter`) and counts the operations this rank runs
+itself. Run it on "meta" tensors (shapes and dtypes, no storage) and on
+the ``DTensor``s of a fake process group (``"fake"`` backend: any world
+size in one process, collectives that move nothing), and it sizes a
+production step without a device.
+
+A ``DTensor`` operation is not counted as such: the mode hands it back
+to ``DTensor`` (``NotImplemented``), which redistributes its operands
+(functional collectives) and runs the operation on the local shards,
+and those local operations are what the mode counts. A global count
+(``FlopCounterMode`` over ``DTensor``s) would charge every rank the
+whole product. The fake tensors on which ``DTensor`` works out an
+output's global shape (once an operation signature) are not counted.
+
+Counts:
+  * ``flops``: products and convolutions (``torch.utils.flop_counter``'s
+    formulas), this rank's share, backward and rematerialisation
+    included as they run;
+  * ``bytes``: the inputs and outputs of every operation that computes
+    or moves data (views cost nothing), as eager PyTorch runs them:
+    nothing is fused. Not the reference's accounting (XLA's bytes at its
+    fusion boundaries, donated buffers and in-place updates as XLA
+    lowers them), so the two can differ either way;
+  * ``transcendentals``: output elements of exp, log, tanh, sigmoid,
+    rsqrt, sin, cos and their kin;
+  * ``collectives``: {kind: {count, bytes, group_size, ib_bytes}} with the
+    reference's HLO names (all-reduce, all-gather, reduce-scatter,
+    all-to-all) and send / recv for point-to-point. ``bytes`` is what
+    one rank moves (the larger of input and output); ``ib_bytes`` the
+    part in groups that span more than one node of `NODE_SIZE`
+    consecutive ranks (the reference's ``dcn_bytes``, there the groups
+    that cross a pod).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+
+__all__ = ["NODE_SIZE", "OpCounter", "analyze", "local_bytes"]
+
+NODE_SIZE = 8            # H100 GPUs a node on NVLink; between nodes InfiniBand
+
+_VIEWS = {
+    "view", "_unsafe_view", "reshape", "permute", "transpose", "t", "expand",
+    "slice", "select", "unsqueeze", "squeeze", "as_strided", "alias",
+    "detach", "split", "split_with_sizes", "unbind", "chunk", "narrow",
+    "view_as_real", "view_as_complex", "lift_fresh", "_to_copy_meta",
+    "empty", "empty_strided", "empty_like", "new_empty", "new_empty_strided",
+    "wait_tensor", "_wrap_tensor_autograd", "sym_size", "sym_stride",
+    "sym_numel", "is_same_size", "_local_scalar_dense",
+}
+_TRANSCENDENTAL = {
+    "exp", "exp_", "exp2", "expm1", "log", "log1p", "log2", "log10",
+    "tanh", "tanh_backward", "sigmoid", "sigmoid_backward", "silu",
+    "silu_backward", "gelu", "gelu_backward", "rsqrt", "sqrt", "sin", "cos",
+    "erf", "pow", "logsumexp", "_log_softmax", "_softmax",
+    "_log_softmax_backward_data", "_softmax_backward_data",
+}
+# functional and c10d collectives -> the reference's HLO names
+_COLLECTIVES = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "allreduce_": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather", "_allgather_base_": "all-gather",
+    "allgather_": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "alltoall_base_": "all-to-all",
+    "broadcast_": "collective-broadcast", "broadcast": "collective-broadcast",
+    "send": "send", "recv_": "recv",
+}
+
+
+def _tensors(tree) -> list:
+    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+
+
+def _nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _group_ranks(name: str, args, kwargs) -> list:
+    """The global ranks a collective spans: its group's (functional
+    collectives name the group, c10d ops pass it boxed); for send and
+    recv this rank and its peer."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    group = None
+    for a in list(args) + list(kwargs.values()):
+        if isinstance(a, str):
+            try:
+                group = _resolve_process_group(a)
+                break
+            except (ValueError, RuntimeError):
+                continue
+        if isinstance(a, torch.ScriptObject):
+            group = dist.ProcessGroup.unbox(a)
+            break
+    if group is None:
+        return []
+    ranks = dist.get_process_group_ranks(group)
+    if name in ("send", "recv_"):       # (tensors, group, peer, tag)
+        return [dist.get_rank(), ranks[args[2]]]
+    return ranks
+
+
+class OpCounter(TorchDispatchMode):
+    """Counts the local operations run under it (see the module's
+    docstring); ``record()`` gives `analyze`'s dict."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+        self.bytes = 0
+        self.transcendentals = 0
+        self.elementwise = 0
+        self.collectives: dict = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+        from torch.utils.flop_counter import flop_registry
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented          # let DTensor run the local ops
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if any(issubclass(t, FakeTensor) for t in types):
+            return out     # DTensor's shape propagation, on global shapes
+        name = func.__name__.split(".")[0]
+        if name in _VIEWS:
+            return out
+        ins, outs = _tensors((args, kwargs)), _tensors(out)
+        kind = _COLLECTIVES.get(name)
+        if kind is not None:
+            ranks = _group_ranks(name, args, kwargs)
+            moved = max(_nbytes(ins), _nbytes(outs))
+            d = self.collectives.setdefault(kind, {
+                "count": 0, "bytes": 0, "group_size": 0, "ib_bytes": 0})
+            d["count"] += 1
+            d["bytes"] += moved
+            d["group_size"] = max(d["group_size"], len(ranks))
+            if len({r // NODE_SIZE for r in ranks}) > 1:
+                d["ib_bytes"] += moved
+            self.bytes += _nbytes(ins) + _nbytes(outs)
+            return out
+        formula = flop_registry.get(func._overloadpacket)
+        if formula is not None:
+            self.flops += int(formula(*args, **kwargs, out_val=out))
+        else:
+            n = sum(t.numel() for t in outs)
+            self.elementwise += n
+            if name in _TRANSCENDENTAL:
+                self.transcendentals += n
+        self.bytes += _nbytes(ins) + _nbytes(outs)
+        return out
+
+    def record(self) -> dict:
+        return {
+            "flops": self.flops,
+            "bytes": self.bytes,
+            "transcendentals": self.transcendentals,
+            "elementwise": self.elementwise,
+            "collectives": {k: dict(v) for k, v in
+                            sorted(self.collectives.items())},
+            "collective_bytes": sum(v["bytes"]
+                                    for v in self.collectives.values()),
+            "collective_ib_bytes": sum(v["ib_bytes"]
+                                       for v in self.collectives.values()),
+        }
+
+
+def analyze(fn, *args) -> dict:
+    """The counts of one run of ``fn(*args)`` (its result is dropped).
+    The caller builds the inputs: "meta" tensors, or ``DTensor``s on a
+    (fake) process group's mesh."""
+    counter = OpCounter()
+    with counter:
+        fn(*args)
+    return counter.record()
+
+
+def local_bytes(tree) -> int:
+    """The bytes this rank holds of a tree of tensors (a ``DTensor`` by
+    its local shard)."""
+    from torch.distributed.tensor import DTensor
+
+    total = 0
+    for t in _tensors(tree):
+        if isinstance(t, DTensor):
+            t = t.to_local()
+        total += math.prod(t.shape) * t.element_size()
+    return total

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.layers import P, fanin_std
+from repro_torch.sharding.ctx import pin
 
 __all__ = ["NEG_INF", "padded_heads", "head_mask", "attention_schema",
            "apply_rope", "blockwise_attention", "decode_attention",
@@ -131,6 +132,140 @@ def apply_rope(x, positions, *, theta, style="neox", sections=(2, 1, 1)):
 # Blockwise (flash-style) attention — train / prefill
 # ---------------------------------------------------------------------------
 
+def _groups(q, k, v):
+    """(k, v, KV, G) of grouped-query attention of q's H heads over k's
+    and v's KV heads (dim 2), G = H / KV. Where q is a ``DTensor`` whose
+    heads a mesh dim splits but whose KV groups it does not (its size
+    does not divide KV), each kv head is repeated over its G query heads
+    (KV = H, G = 1): DTensor cannot cut a (KV, G) view of a head dim
+    split inside a group, and so the query heads stay split."""
+    from torch.distributed.tensor import DTensor
+
+    H, KV = q.shape[2], k.shape[2]
+    G = H // KV
+    if G > 1 and isinstance(q, DTensor) and any(
+            p.is_shard(2) and KV % q.device_mesh.size(i)
+            for i, p in enumerate(q.placements)):
+        def rep(t):
+            # split as q's heads are (a local slice of the repeat); the
+            # gradient is gathered before the repeat's backward sums it
+            # over G
+            B, S, _, dh = t.shape
+            r = _keep_layout(t[:, :, :, None].expand(
+                B, S, KV, G, dh).reshape(B, S, H, dh))
+            return pin(r, [p if p.is_shard(2) else r.placements[i]
+                           for i, p in enumerate(q.placements)])
+        return rep(k), rep(v), H, 1
+    return k, v, KV, G
+
+
+def _local_placements(q, k, v):
+    """Where attention over ``DTensor``s q, k, v is exact on each rank's
+    shards alone, their placements; else None. That holds when every
+    mesh dim splits all three alike over the batch (dim 0) or the heads
+    (dim 2), or none of them: rows and heads attend independently (a
+    rank's query heads read its kv heads, G to one, as on one device).
+    The shards then run the one-device code, with no DTensor dispatch in
+    the chunk loops; a cache split over the sequence is not local."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not all(isinstance(t, DTensor) for t in (q, k, v)):
+        return None
+    pl = tuple(q.placements)
+    if tuple(k.placements) != pl or tuple(v.placements) != pl:
+        return None
+    if all(p == Replicate() or (p.is_shard() and p.dim in (0, 2))
+           for p in pl):
+        return pl
+    return None
+
+
+def _from_local(out, like, placements):
+    """This rank's attention output as a ``DTensor`` laid out as ``like``
+    (q) is, with ``out``'s global shape."""
+    from torch.distributed.tensor import DTensor
+
+    shape = (like.shape[0], out.shape[1], like.shape[2], out.shape[3])
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(out, like.device_mesh, placements,
+                              run_check=False, shape=shape, stride=stride)
+
+
+def _local_rows(cl, like):
+    """This rank's rows of the (B,) integer tensor ``cl`` (replicated, a
+    ``DTensor`` or a plain tensor), split over the batch as ``like``'s
+    dim 0 is."""
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+
+    pl = [Shard(0) if p.is_shard() and p.dim == 0 else Replicate()
+          for p in like.placements]
+    if isinstance(cl, DTensor):
+        return cl.redistribute(like.device_mesh, pl).to_local()
+    return distribute_tensor(cl, like.device_mesh, pl,
+                             src_data_rank=None).to_local()
+
+
+def _seq_split_dim(q, k, v):
+    """The mesh dim that splits a ``DTensor`` cache k, v over its
+    sequence (dim 1) while q is whole or split over its heads there, when
+    that is the only difference (every other mesh dim splits q, k and v
+    alike over the batch or the heads, or none of them); else None."""
+    from torch.distributed.tensor import DTensor
+
+    if not all(isinstance(t, DTensor) for t in (q, k, v)) or \
+            tuple(k.placements) != tuple(v.placements):
+        return None
+    seq = [i for i, p in enumerate(k.placements) if p.is_shard(1)]
+    if len(seq) != 1:
+        return None
+    for i, (a, b) in enumerate(zip(q.placements, k.placements)):
+        if i == seq[0]:
+            if not (a.is_replicate() or a.dim == 2):
+                return None
+        elif a != b or not (a.is_replicate() or a.dim in (0, 2)):
+            return None
+    return seq[0]
+
+
+def _decode_split_sequence(q, k_cache, v_cache, cl, seq_dim: int, live):
+    """Decode attention over a cache split over its sequence on mesh dim
+    ``seq_dim`` (the flash-decoding layout): each rank scores every
+    query head (gathered there: one token's) against its slice of the
+    positions (``live(positions, cache_len)`` masks them), then
+    the max, the sum of exponentials and the weighted values are reduced
+    over that dim's group, the reference's softmax combine, where
+    DTensor would gather the whole cache. Decode only: no gradient
+    passes the reductions."""
+    import torch.distributed as dist
+
+    from torch.distributed.tensor import Replicate
+
+    mesh, placements = q.device_mesh, q.placements
+    q = q.redistribute(mesh, [Replicate() if i == seq_dim else p
+                              for i, p in enumerate(placements)])
+    ql, kl, vl = q.to_local(), k_cache.to_local(), v_cache.to_local()
+    B, _, H, dh = ql.shape
+    S_l, KV = kl.shape[1], kl.shape[2]
+    pos = mesh.get_local_rank(seq_dim) * S_l + torch.arange(
+        S_l, device=ql.device)
+    qr = ql.reshape(B, KV, H // KV, dh).float() * (1.0 / math.sqrt(dh))
+    s = torch.einsum("bkgd,bskd->bkgs", qr, kl.float())
+    s = torch.where(live(pos, _local_rows(cl, q))[:, None, None, :], s,
+                    NEG_INF)
+    group = mesh.get_group(seq_dim)
+    m = s.amax(dim=-1, keepdim=True)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgs,bskd->bkgd", p, vl.float())
+    dist.all_reduce(l, group=group)
+    dist.all_reduce(o, group=group)
+    out = (o / torch.clamp(l, min=1e-30)).reshape(B, 1, H, dh)
+    return _from_local(out.to(q.dtype), q, q.placements).redistribute(
+        mesh, placements)
+
+
 def blockwise_attention(q, k, v, *, causal=True, window=None,
                         q_chunk=1024, kv_chunk=1024):
     """Online-softmax chunked attention.
@@ -141,8 +276,13 @@ def blockwise_attention(q, k, v, *, causal=True, window=None,
     outside the causal or window band are skipped, as the reference's
     ``lax.cond`` skips them."""
     B, Sq, H, dh = q.shape
-    _, Skv, KV, _ = k.shape
-    G = H // KV
+    _, Skv, _, _ = k.shape
+    k, v, KV, G = _groups(q, k, v)
+    local = _local_placements(q, k, v)
+    if local is not None:
+        return _from_local(blockwise_attention(
+            q.to_local(), k.to_local(), v.to_local(), causal=causal,
+            window=window, q_chunk=q_chunk, kv_chunk=kv_chunk), q, local)
     qc = min(q_chunk, Sq)
     kc = min(kv_chunk, Skv)
     sq_valid, skv_valid = Sq, Skv
@@ -220,35 +360,50 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=None):
     integer tensor, the index of the new token (per slot under continuous
     batching). Positions past cache_len, or at least ``window`` behind
     it, are masked."""
-    B, _, H, dh = q.shape
-    _, S, KV, _ = k_cache.shape
-    G = H // KV
-    scale = 1.0 / math.sqrt(dh)
-    cl = torch.as_tensor(cache_len, device=q.device).reshape(-1).expand(B)
-    qr = q.reshape(B, KV, G, dh).float() * scale
-    s = torch.einsum("bkgd,bskd->bkgs", qr, k_cache.float())
-    pos = torch.arange(S, device=q.device)
-    mask = pos[None, :] <= cl[:, None]
-    if window is not None:
-        mask = mask & (pos[None, :] > cl[:, None] - window)
-    return _softmax_value(s, mask, v_cache, B, H, dh, q.dtype)
+    def live(pos, c):
+        mask = pos[None, :] <= c[:, None]
+        if window is not None:
+            mask = mask & (pos[None, :] > c[:, None] - window)
+        return mask
+    return _decode(q, k_cache, v_cache, cache_len, live)
 
 
 def decode_attention_ring(q, k_cache, v_cache, cl):
     """Sliding-window decode over a RING cache of W slots: slot i holds the
     key of absolute position p == i (mod W), p <= cache_len. All slots are
     in-window once warm; cold slots (p would be negative) are masked."""
+    W = k_cache.shape[1]
+
+    def live(slots, c):
+        # absolute position held by slot i: largest p <= cl, p % W == i
+        return c[:, None] - torch.remainder(c[:, None] - slots[None, :],
+                                            W) >= 0
+    return _decode(q, k_cache, v_cache, cl, live)
+
+
+def _decode(q, k_cache, v_cache, cache_len, live):
+    """One token's attention over the cache, ``live(positions,
+    cache_len)`` masking (B, S) of them. ``DTensor`` inputs run on each
+    rank's shards (`_local_placements`), or with the softmax combined
+    over the mesh dim that splits the sequence
+    (`_decode_split_sequence`), else through DTensor's own rules."""
     B, _, H, dh = q.shape
-    _, W, KV, _ = k_cache.shape
-    G = H // KV
-    scale = 1.0 / math.sqrt(dh)
-    cl = torch.as_tensor(cl, device=q.device).reshape(-1).expand(B)
-    qr = q.reshape(B, KV, G, dh).float() * scale
+    S = k_cache.shape[1]
+    cl = torch.as_tensor(cache_len, device=q.device).reshape(-1).expand(B)
+    seq_dim = _seq_split_dim(q, k_cache, v_cache)
+    if seq_dim is not None:
+        return _decode_split_sequence(q, k_cache, v_cache, cl, seq_dim,
+                                      live)
+    k_cache, v_cache, KV, G = _groups(q, k_cache, v_cache)
+    local = _local_placements(q, k_cache, v_cache)
+    if local is not None:
+        return _from_local(_decode(
+            q.to_local(), k_cache.to_local(), v_cache.to_local(),
+            _local_rows(cl, q), live), q, local)
+    qr = q.reshape(B, KV, G, dh).float() * (1.0 / math.sqrt(dh))
     s = torch.einsum("bkgd,bskd->bkgs", qr, k_cache.float())
-    slots = torch.arange(W, device=q.device)[None, :]
-    # absolute position held by slot i: largest p <= cl with p % W == i
-    abs_pos = cl[:, None] - torch.remainder(cl[:, None] - slots, W)
-    return _softmax_value(s, abs_pos >= 0, v_cache, B, H, dh, q.dtype)
+    return _softmax_value(s, live(torch.arange(S, device=q.device), cl),
+                          v_cache, B, H, dh, q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -334,8 +489,90 @@ def project(x, w, b=None):
     where given, in x's dtype (weights cast to it, as the reference's
     ``.astype``): (B, S, heads, dh)."""
     B, S, d = x.shape
-    y = torch.matmul(x, w.to(x.dtype).reshape(d, -1)).view(B, S, *w.shape[1:])
+    w2 = _keep_layout(w.to(x.dtype).reshape(d, -1))
+    y = _heads_split(torch.matmul(x, w2), w).view(B, S, *w.shape[1:])
     return y + b.to(x.dtype) if b is not None else y
+
+
+def _write_rows(cache, slot, new):
+    """cache[b, slot[b]] = new[b, 0] for every row b, in place (cache:
+    (B, S, KV, dh); new: (B, 1, KV, dh)): a scatter along the sequence.
+    A ``DTensor`` cache is written on each rank's shard, its own rows at
+    their slots (DTensor has no rule for an indexed or scattered write
+    into a split tensor); where the sequence is split (the
+    flash-decoding layout), each rank writes the rows whose slot lies in
+    its slice."""
+    from torch.distributed.tensor import DTensor
+
+    from torch.distributed.tensor import Replicate
+
+    new = new.to(cache.dtype)
+    seq = []
+    if isinstance(cache, DTensor):
+        mesh = cache.device_mesh
+        seq = [i for i, p in enumerate(cache.placements) if p.is_shard(1)]
+        new = new.redistribute(mesh, [Replicate() if i in seq else p for
+                                      i, p in enumerate(cache.placements)])
+        slot, new, cache = _local_rows(slot, cache), new.to_local(), \
+            cache.to_local()
+    if seq:        # rows whose slot lies elsewhere rewrite what they read
+        slot = slot - mesh.get_local_rank(seq[0]) * cache.shape[1]
+        inside = (slot >= 0) & (slot < cache.shape[1])
+        slot = torch.clamp(slot, 0, cache.shape[1] - 1)
+    idx = slot.reshape(-1, 1, 1, 1).expand(cache.shape[0], 1,
+                                           *cache.shape[2:])
+    if seq:
+        new = torch.where(inside[:, None, None, None], new,
+                          cache.gather(1, idx))
+    cache.scatter_(1, idx, new)
+
+
+def _write_prefix(cache, new):
+    """cache[:, :S] = new in place (new: (B, S, KV, dh), S at most the
+    cache's length). A ``DTensor`` cache is written on each rank's
+    shard: where the sequence is split, each rank writes the rows of
+    ``new`` that fall in its slice (a slice assignment across a split
+    dim is not DTensor's to get right)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    new = new.to(cache.dtype)
+    if not isinstance(cache, DTensor):
+        cache[:, :new.shape[1]] = new
+        return
+    mesh = cache.device_mesh
+    seq = [i for i, p in enumerate(cache.placements) if p.is_shard(1)]
+    new = new.redistribute(mesh, [Replicate() if i in seq else p for
+                                  i, p in enumerate(cache.placements)])
+    new, cache = new.to_local(), cache.to_local()
+    off = mesh.get_local_rank(seq[0]) * cache.shape[1] if seq else 0
+    n = max(0, min(cache.shape[1], new.shape[1] - off))
+    cache[:, :n] = new[:, off:off + n]
+
+
+def _keep_layout(t):
+    """``t``, whose gradient is laid out as ``t`` when it is a
+    ``DTensor``: put after a view that merges the heads with another dim,
+    so that the view's backward never splits a gradient that DTensor
+    split otherwise (unevenly: a split inside a head)."""
+    from torch.distributed.tensor import DTensor
+
+    return pin(t, t.placements) if isinstance(t, DTensor) else t
+
+
+def _heads_split(y, w):
+    """A ``DTensor`` product (B, S, heads x dh) split over a mesh dim on
+    which the weight's heads are not (DTensor may split the flat output
+    of a replicated weight, where the heads do not divide the mesh dim
+    and no head view can carry a split inside a head) gathered on that
+    dim; anything else as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(y, DTensor) or not isinstance(w, DTensor):
+        return y
+    last = y.ndim - 1
+    want = [Replicate() if p.is_shard(last) and not q.is_shard(1) else p
+            for p, q in zip(y.placements, w.placements)]
+    return y if tuple(want) == tuple(y.placements) else pin(y, want)
 
 
 def qkv_project(params, x, cfg):
@@ -399,13 +636,12 @@ def attention_block(params, x, *, cfg, positions, causal=True, cross_kv=None,
         S_cache = k_cache.shape[1]
         cl = torch.as_tensor(cache_len, device=x.device).reshape(-1)
         cl = cl.expand(B).long()
-        rows = torch.arange(B, device=x.device)
         ring = bool(cfg.sliding_window) and S_cache == cfg.sliding_window
         # ring buffer: slot i holds the key of absolute position p with
         # p == i (mod W); the new token at cache_len lands in slot cl % W
         slot = torch.remainder(cl, S_cache) if ring else cl
-        k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
-        v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+        _write_rows(k_cache, slot, k)
+        _write_rows(v_cache, slot, v)
         if ring:
             o = decode_attention_ring(q, k_cache, v_cache, cl)
         else:
@@ -429,11 +665,11 @@ def attention_block(params, x, *, cfg, positions, causal=True, cross_kv=None,
             tail_k, tail_v, shift = k[:, -W:], v[:, -W:], (S - W) % W
         else:
             tail_k, tail_v, shift = _pad_seq(k, W), _pad_seq(v, W), 0
-        k_cache.copy_(torch.roll(tail_k, shift, dims=1))
-        v_cache.copy_(torch.roll(tail_v, shift, dims=1))
+        _write_prefix(k_cache, torch.roll(tail_k, shift, dims=1))
+        _write_prefix(v_cache, torch.roll(tail_v, shift, dims=1))
     else:
-        k_cache[:, :S] = k.to(k_cache.dtype)
-        v_cache[:, :S] = v.to(v_cache.dtype)
+        _write_prefix(k_cache, k)
+        _write_prefix(v_cache, v)
     return out_project(params, o, x.dtype, cfg), (k_cache, v_cache)
 
 

@@ -169,7 +169,12 @@ def embed_schema(vocab: int, d: int):
 
 
 def embed(params, tokens):
-    return params["embedding"][tokens]
+    """The table's rows at ``tokens``. ``F.embedding`` (the same rows as
+    indexing) because ``DTensor`` has a vocabulary-parallel rule for it:
+    each rank looks up the tokens in its slice of a table split over the
+    vocabulary and one all-reduce sums the rows, where an indexed read
+    gathers the whole table on every rank."""
+    return F.embedding(tokens, params["embedding"])
 
 
 def unembed(params, x):
@@ -244,8 +249,20 @@ def sinusoidal_positions(seq_len: int, d: int, dtype=torch.float32,
 
 def cross_entropy_loss(logits, labels, *, z_loss: float = 0.0):
     """Mean next-token cross entropy in float32; ``labels == -1`` are
-    masked out; ``z_loss`` adds z_loss * logsumexp^2 per token."""
+    masked out; ``z_loss`` adds z_loss * logsumexp^2 per token.
+
+    Logits that are a ``DTensor`` (a step over a mesh, the vocabulary
+    split over "model") take `_cross_entropy_parallel`: the max, the sum
+    of exponentials and the gold logit each all-reduced over the
+    vocabulary's shards. DTensor's ``logsumexp`` would gather the whole
+    vocabulary on every rank, its ``gather`` over a split dim fails, and
+    its ``loss_parallel`` takes a one-dimensional mesh only in some
+    versions."""
+    from torch.distributed.tensor import DTensor
+
     logits = logits.float()
+    if isinstance(logits, DTensor):
+        return _cross_entropy_parallel(logits, labels, z_loss)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
                         torch.clamp(labels, min=0).long()[..., None])[..., 0]
@@ -254,3 +271,72 @@ def cross_entropy_loss(logits, labels, *, z_loss: float = 0.0):
         nll = nll + z_loss * torch.square(lse)
     mask = (labels >= 0).float()
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum of ``x`` over a process group's ranks; its backward hands
+    each rank the gradient of its own term (every rank computes the same
+    loss from the sum, so an all-reduce there would scale it by the
+    group's size)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _cross_entropy_parallel(logits, labels, z_loss: float):
+    """`cross_entropy_loss` of ``DTensor`` logits split over the batch
+    and the vocabulary (at most one mesh dim), on each rank's shard with
+    explicit collectives, never gathering the vocabulary: the max, the
+    sum of exponentials and the gold logit each reduced over the
+    vocabulary's group, then the masked sum and the token count over the
+    batch's groups. Returns a replicated 0-d ``DTensor``."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    vocab = [i for i, p in enumerate(logits.placements) if p.is_shard(last)]
+    batch = [i for i, p in enumerate(logits.placements) if p.is_shard(0)]
+    if len(vocab) > 1 or len(vocab) + len(batch) != sum(
+            not p.is_replicate() for p in logits.placements):
+        raise ValueError(f"cross entropy over logits laid out as "
+                         f"{logits.placements}")
+    x = logits.to_local()
+    rows = [Replicate() if i in vocab else p
+            for i, p in enumerate(logits.placements)]
+    lab = labels.redistribute(mesh, rows).to_local() \
+        if isinstance(labels, DTensor) else \
+        distribute_tensor(labels, mesh, rows, src_data_rank=None).to_local()
+    m = x.detach().amax(dim=-1, keepdim=True)
+    idx = torch.clamp(lab, min=0).long()
+    if vocab:
+        group = mesh.get_group(vocab[0])
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        idx = idx - mesh.get_local_rank(vocab[0]) * x.shape[-1]
+    inside = (idx >= 0) & (idx < x.shape[-1])
+    gold = torch.where(inside, torch.gather(
+        x, -1, torch.clamp(idx, 0, x.shape[-1] - 1)[..., None])[..., 0], 0.0)
+    se = torch.exp(x - m).sum(dim=-1)
+    if vocab:
+        se, gold = _SumOver.apply(se, group), _SumOver.apply(gold, group)
+    lse = torch.log(se) + m[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * torch.square(lse)
+    mask = (lab >= 0).float()
+    total, count = torch.sum(nll * mask), torch.sum(mask)
+    for i in batch:
+        total = _SumOver.apply(total, mesh.get_group(i))
+        count = _SumOver.apply(count, mesh.get_group(i))
+    # replicated, so that it meets the other DTensor terms of the loss
+    # (MoE's aux) as one
+    return DTensor.from_local(total / torch.clamp(count, min=1.0), mesh,
+                              [Replicate()] * mesh.ndim, run_check=False)

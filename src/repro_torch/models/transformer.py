@@ -301,6 +301,11 @@ def _repeat(pattern, layer_params, layer_cache, x, ctx):
             key = f"l{li}_{kind}"
             x, aux = _apply_sublayer(kind, layer_params.get(key), x,
                                      layer_cache.get(key), ctx)
+            # over a mesh, the residual stream is summed over the model
+            # axis after each sublayer (a no-op on a plain tensor):
+            # DTensor would carry it on partial and gather the next
+            # sublayer's weights instead
+            x = constrain(x, "btd")
             if aux is not None:
                 total = aux if total is None else total + aux
     return x, total

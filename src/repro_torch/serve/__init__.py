@@ -1,7 +1,8 @@
 """Serving runtimes: the host-driven stream and the resident loop, the
 fault-tolerant column runner, the LM engines (dense `Engine`, paged
 `PagedEngine`, the supervised `FaultTolerantEngine` and
-`FaultTolerantPagedEngine`) and the unified front-end `ServeFrontend`.
+`FaultTolerantPagedEngine`), the unified front-end `ServeFrontend` and
+the serving steps over a mesh (`make_serve_step`).
 
 The public names below load their module on first use, so importing one
 serving module does not import the others."""
@@ -20,6 +21,7 @@ _EXPORTS = {
     "FaultTolerantColumnRunner": "fault",
     "BiosignalStream": "stream", "StreamConfig": "stream",
     "ResidentStream": "resident", "ResidentConfig": "resident",
+    "ServeBundle": "step", "make_serve_step": "step",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -4,7 +4,8 @@ counterpart of the JAX package's `sharding/ctx.py`).
 A step that runs over a mesh installs a spec table for it; model code
 calls ``constrain(x, "btd")`` at the reference's points (the embedded
 tokens, every repeat of the layer stack, the logits). ``constrain``
-redistributes a ``DTensor`` to the kind's placements; it returns its
+redistributes a ``DTensor`` to the kind's placements, and its gradient
+in the backward as well; it returns its
 argument unchanged outside an installed context, on a plain tensor, and
 on a tensor whose rank is not the kind's, so single-device runs are
 unaffected.
@@ -17,7 +18,7 @@ from typing import Optional
 from repro_torch.launch.mesh import mesh_axis_sizes
 
 __all__ = ["make_activation_specs", "activation_sharding", "install",
-           "constrain"]
+           "constrain", "pin"]
 
 # (mesh, {kind: spec}) while a table is installed
 _STATE: Optional[tuple] = None
@@ -79,4 +80,20 @@ def constrain(x, kind: str):
 
     if not isinstance(x, DTensor):
         return x
-    return x.redistribute(mesh, placements_for(spec, mesh))
+    return pin(x, placements_for(spec, mesh))
+
+
+def pin(x, placements):
+    """A ``DTensor`` redistributed to ``placements``, whose gradient is
+    redistributed to ``placements`` as well in the backward, as the
+    transpose of the reference's with_sharding_constraint is one on the
+    cotangent (``from_local``'s backward redistributes the incoming
+    gradient: a partial sum is reduced here, where DTensor would rather
+    gather the next product's weights)."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = x.device_mesh
+    y = x.redistribute(mesh, placements)
+    return DTensor.from_local(y.to_local(), mesh, placements,
+                              run_check=False, shape=y.shape,
+                              stride=y.stride())

@@ -34,7 +34,8 @@ from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.models.layers import tree_map
 
 __all__ = ["Strategy", "NamedSharding", "spec_for", "sharding_tree",
-           "placements_for", "replicated", "batch_sharding"]
+           "placements_for", "replicated", "batch_sharding",
+           "distribute_tree"]
 
 # logical name -> ordered candidate lists of mesh-axis groups
 _TRAIN_CANDIDATES = {
@@ -159,6 +160,17 @@ def sharding_tree(schema_axes, abstract_tree, mesh, strategy: Strategy):
     return tree_map(lambda axes, t: NamedSharding(
         mesh, spec_for(axes, tuple(t.shape), mesh, strategy)),
         schema_axes, abstract_tree)
+
+
+def distribute_tree(tree, shardings):
+    """A tree of full tensors (the same on every rank) as ``DTensor``s laid
+    out by the matching tree of `NamedSharding`s on their ``DeviceMesh``:
+    each rank keeps its own shard and nothing is sent
+    (``src_data_rank=None``)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return tree_map(lambda t, s: distribute_tensor(
+        t, s.mesh, s.placements, src_data_rank=None), tree, shardings)
 
 
 def replicated(mesh) -> NamedSharding:

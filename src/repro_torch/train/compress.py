@@ -4,9 +4,9 @@ the JAX package's `train/compress.py`).
 A gradient is quantized to int8 with one float32 scale per block of its
 flattened values; error feedback adds the quantization residual back
 before the next quantization, which keeps the noise unbiased over time.
-`EFCompressor` carries the residual state in a train loop. The
-reference's `psum_compressed`, the collective that all-reduces the
-quantized blocks over a mesh axis, waits for the port's sharding.
+`EFCompressor` carries the residual state in a train loop;
+`psum_compressed` is the collective that all-reduces the quantized
+blocks over one axis of a ``DeviceMesh``.
 """
 from __future__ import annotations
 
@@ -17,7 +17,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import tree_from_items, tree_items, tree_map
 
-__all__ = ["quantize_block_int8", "dequantize_block_int8", "EFCompressor"]
+__all__ = ["quantize_block_int8", "dequantize_block_int8", "EFCompressor",
+           "psum_compressed"]
 
 
 def quantize_block_int8(x, block: int = 256):
@@ -61,3 +62,17 @@ class EFCompressor:
         leaves of ``like``."""
         return tree_map(lambda c, t: dequantize_block_int8(
             c[0], c[1], t.shape).to(t.dtype), comp, like)
+
+
+def psum_compressed(x, axis_name: str, *, block: int = 256, mesh):
+    """The sum of ``x`` over the ranks of ``mesh``'s axis ``axis_name``,
+    each rank's contribution int8-quantized first: the reference's steps,
+    q * scale of each block all-reduced in float32 (the compressed
+    exchange modelled) and cut back to ``x``'s shape. Every rank of the
+    axis calls it; each gets the sum."""
+    import torch.distributed as dist
+
+    q, s = quantize_block_int8(x, block)
+    part = q.float() * s
+    dist.all_reduce(part, group=mesh.get_group(axis_name))
+    return part.reshape(-1)[:math.prod(x.shape)].reshape(x.shape)

@@ -59,7 +59,10 @@ def test_port_has_sources():
                  "archsim/programs/app.py", "launch/quickstart.py",
                  "launch/asr_frontend.py", "launch/mesh.py",
                  "sharding/__init__.py", "sharding/rules.py",
-                 "sharding/ctx.py"):
+                 "sharding/ctx.py", "sharding/pipeline.py",
+                 "serve/step.py", "analysis/__init__.py",
+                 "analysis/op_cost.py", "analysis/roofline.py",
+                 "launch/dryrun.py", "launch/dryrun_pp.py"):
         assert need in names
     for src in ("pipeline/csrc/biosignal_graph.cu",
                 "pipeline/csrc/asr_graph.cu", "fir/csrc/fir.cu",

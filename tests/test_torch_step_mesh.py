@@ -1,0 +1,321 @@
+"""The port's steps over a mesh (`train/step.py` with ``mesh=``,
+`serve/step.py`) against its one-device steps, on gloo ranks on the CPU,
+and rwkv6's decode against its forward (ROADMAP C.8).
+
+The train step: reduced qwen1.5-0.5b (float32), parameters from the
+port's seed 0 on every rank, a numpy batch of 4 x 16, on a (data 2) and
+a (data 1, model 2) mesh: loss and gradient norm within
+`test_torch_train.LOSS_TOL`, the gradient tree within ``GRAD_TOL`` and
+the update within ``STEP_UPDATE_TOL`` of the one-device step's (the same
+bounds the port is held to against the reference). The serve step:
+reduced qwen's prefill and decode on a (1, 2) mesh through
+`make_serve_step` (its kv heads split) and reduced starcoder2's on
+(1, 4) (its 2 kv heads repeated over the query heads in the prefill, its
+cache's sequence split in the decode) against the one-device prefill
+and decode (the mesh decodes from the one-device prefill's cache); on a one-rank
+mesh its prefill and decode are bitwise ``model.prefill`` /
+``model.decode``.
+
+C.8: per layer and decode step, rwkv6's state leaves after prefill +
+decode against those of a prefill over the extended sequence, and the
+readings of `tools/cache_vs_forward_reference.py` for both packages,
+pinned (see ROADMAP C.8: both packages' float32 states agree to an ulp;
+what differs is a bfloat16 rounding of the step's WKV output, in both
+packages alike).
+"""
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models import build_model, init_cache, init_model_params
+from repro_torch.models import layers as L
+from repro_torch.serve.step import make_serve_step
+from repro_torch.sharding.rules import distribute_tree
+from repro_torch.train import optim
+from repro_torch.train.step import init_state, make_train_step
+from test_torch_gpipe import run_ranks
+from test_torch_train import (GRAD_TOL, LOSS_TOL, OPT, STEP_UPDATE_TOL,
+                              _rel)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_TRAIN_RANK = """
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_config, reduced
+from repro_torch.models import build_model
+from repro_torch.models.layers import tree_items
+from repro_torch.sharding.rules import Strategy
+from repro_torch.train import optim
+from repro_torch.train.step import (distribute_state, init_state,
+                                    make_train_step, mesh_context)
+from torch.distributed.tensor import distribute_tensor
+shape = {shape}
+mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+model = build_model(reduced(get_config("qwen1.5-0.5b")), device="cpu")
+oc = optim.OptConfig(**{opt})
+toks = np.random.default_rng(0).integers(0, 256, (4, 17))
+batch = {{"tokens": toks[:, :-1].astype(np.int32),
+         "labels": toks[:, 1:].astype(np.int32)}}
+bundle = make_train_step(model, oc, {{k: (v.shape, torch.int32)
+                                     for k, v in batch.items()}},
+                         device="cpu", mesh=mesh)
+st = distribute_state(init_state(model, oc, 0, device="cpu"), bundle)
+leaves = [t.requires_grad_() for _, t in tree_items(st["params"])]
+tb = {{k: distribute_tensor(torch.as_tensor(v), mesh,
+                           bundle.batch_shardings[k].placements,
+                           src_data_rank=None) for k, v in batch.items()}}
+with mesh_context(mesh, Strategy("train")):
+    loss, _ = model.loss(st["params"], tb)
+    grads = torch.autograd.grad(loss, leaves)
+grads = [g.full_tensor() for g in grads]
+st = distribute_state(init_state(model, oc, 0, device="cpu"), bundle)
+st, met = bundle.step_fn(st, batch)
+save({{"grads": grads, "metrics": {{k: float(v) for k, v in met.items()}},
+      "params": [t.full_tensor().detach()
+                 for _, t in tree_items(st["params"])]}})
+"""
+
+
+def _one_device_train():
+    model = build_model(reduced(get_config("qwen1.5-0.5b")), device="cpu")
+    oc = optim.OptConfig(**OPT)
+    toks = np.random.default_rng(0).integers(0, 256, (4, 17))
+    batch = {"tokens": toks[:, :-1].astype(np.int32),
+             "labels": toks[:, 1:].astype(np.int32)}
+    st = init_state(model, oc, 0, device="cpu")
+    leaves = [t.requires_grad_() for _, t in L.tree_items(st["params"])]
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    grads = torch.autograd.grad(model.loss(st["params"], tb)[0], leaves)
+    old = [t.detach().clone() for t in leaves]
+    bundle = make_train_step(model, oc, {k: (v.shape, torch.int32)
+                                         for k, v in batch.items()},
+                             device="cpu")
+    st, met = bundle.step_fn(init_state(model, oc, 0, device="cpu"), batch)
+    return (grads, {k: float(v) for k, v in met.items()}, old,
+            [t.detach() for _, t in L.tree_items(st["params"])])
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2)],
+                         ids=["data2", "data1_model2"])
+def test_train_step_over_a_mesh_matches_one_device(tmp_path, shape):
+    grads, met, old, new = _one_device_train()
+    got = run_ranks(tmp_path, shape[0] * shape[1],
+                    _TRAIN_RANK.format(shape=shape, opt=OPT))
+    for r, g in enumerate(got):
+        for k in ("loss", "ce", "grad_norm"):
+            np.testing.assert_allclose(g["metrics"][k], met[k], **LOSS_TOL)
+        assert g["metrics"]["step"] == met["step"] == 1
+        assert _rel([t.numpy() for t in g["grads"]],
+                    [t.numpy() for t in grads]) <= GRAD_TOL, r
+        assert _rel([a.numpy() - b.numpy() for a, b in zip(g["params"], old)],
+                    [a.numpy() - b.numpy() for a, b in zip(new, old)]) \
+            <= STEP_UPDATE_TOL, r
+
+
+_SERVE_RANK = """
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_config, reduced
+from repro_torch.models import build_model
+from repro_torch.models.layers import tree_items
+from repro_torch.serve.step import make_serve_step
+from repro_torch.sharding.rules import distribute_tree
+mesh = init_device_mesh("cpu", {shape}, mesh_dim_names=("data", "model"))
+model = build_model(reduced(get_config("{arch}")), device="cpu")
+ins = torch.load(os.path.join(out_dir, "..", "serve_in.pt"))
+meta = {{"tokens": torch.empty(2, 1, dtype=torch.int32, device="meta"),
+        "cache_len": torch.empty((), dtype=torch.int32, device="meta")}}
+bundle = make_serve_step(model, mesh, meta, batch_size=2, max_len=32)
+params = distribute_tree(ins["params"], bundle.param_shardings)
+with torch.no_grad():
+    first, fresh = bundle.prefill_fn(
+        params, distribute_tree({{"tokens": ins["prompt"]}},
+                                bundle.batch_shardings),
+        distribute_tree(ins["empty"], bundle.cache_shardings))
+cache = distribute_tree(ins["cache"], bundle.cache_shardings)
+logits = []
+with torch.no_grad():
+    for t, tok in enumerate(ins["tokens"]):
+        batch = distribute_tree({{"tokens": tok, "cache_len":
+                                 torch.tensor(8 + t, dtype=torch.int32)}},
+                                bundle.batch_shardings)
+        out, cache = bundle.decode_fn(params, batch, cache)
+        logits.append(out.full_tensor())
+save({{"logits": logits, "placements": [str(t.placements) for _, t in
+                                       tree_items(cache)],
+      "cache": [t.full_tensor() for _, t in tree_items(cache)],
+      "prefill": first.full_tensor(),
+      "prefill_cache": [t.full_tensor() for _, t in tree_items(fresh)]}})
+"""
+
+
+# the cache's layout over "model": qwen's 4 kv heads split on (1, 2);
+# starcoder2's 2 kv heads do not divide 4, so (1, 4) splits the sequence
+# (the flash-decoding layout, the softmax combined over the ranks)
+SERVE_CASES = [("qwen1.5-0.5b", (1, 2), "Shard(dim=3)"),
+               ("starcoder2-7b", (1, 4), "Shard(dim=2)")]
+
+
+@pytest.mark.parametrize("arch,shape,split", SERVE_CASES,
+                         ids=["qwen_heads", "starcoder2_sequence"])
+def test_serve_decode_over_a_mesh_matches_one_device(tmp_path, arch, shape,
+                                                     split):
+    model = build_model(reduced(get_config(arch)), device="cpu")
+    params = init_model_params(model, 0, device="cpu")
+    rng = np.random.default_rng(1)
+    prompt = torch.as_tensor(rng.integers(0, 256, (2, 8)), dtype=torch.int32)
+    toks = [torch.as_tensor(rng.integers(0, 256, (2, 1)), dtype=torch.int32)
+            for _ in range(3)]
+    with torch.no_grad():
+        empty = init_cache(model, 2, 32, device="cpu")
+        first, cache = model.prefill(params, {"tokens": prompt}, empty)
+        torch.save({"params": params, "cache": cache, "tokens": toks,
+                    "prompt": prompt, "empty": empty},
+                   tmp_path / "serve_in.pt")
+        prefilled = [t.clone() for _, t in L.tree_items(cache)]
+        want = []
+        for t, tok in enumerate(toks):
+            out, cache = model.decode(params, {"tokens": tok,
+                                               "cache_len": 8 + t}, cache)
+            want.append(out)
+    got = run_ranks(tmp_path, shape[0] * shape[1],
+                    _SERVE_RANK.format(arch=arch, shape=shape))
+    for r, g in enumerate(got):
+        assert any(split in p for p in g["placements"]), g["placements"]
+        np.testing.assert_allclose(g["prefill"].numpy(), first.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        for a, b in zip(g["prefill_cache"], prefilled):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                       atol=1e-6)
+        for a, b in zip(g["logits"], want):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                       atol=1e-5)
+        for a, (_, b) in zip(g["cache"], L.tree_items(cache)):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                       atol=1e-6)
+
+
+@pytest.fixture
+def local_mesh():
+    import torch.distributed as dist
+
+    mesh = make_local_mesh(data=1, model=1)
+    yield mesh
+    dist.destroy_process_group()
+
+
+def test_serve_step_on_one_rank_is_bitwise_the_model(local_mesh):
+    """On a one-rank mesh the serve step is ``model.prefill`` /
+    ``model.decode`` on the same weights and cache, bitwise, and decode
+    writes the cache in place; a decode that does not write its cache
+    back is caught."""
+    model = build_model(reduced(get_config("qwen1.5-0.5b")), device="cpu")
+    params = init_model_params(model, 0, device="cpu")
+    rng = np.random.default_rng(2)
+    prompt = torch.as_tensor(rng.integers(0, 256, (2, 8)), dtype=torch.int32)
+    meta = {"tokens": torch.empty(2, 8, dtype=torch.int32, device="meta")}
+    bundle = make_serve_step(model, local_mesh, meta, batch_size=2,
+                             max_len=16)
+    dp = distribute_tree(params, bundle.param_shardings)
+    with torch.no_grad():
+        c0 = init_cache(model, 2, 16, device="cpu")
+        want, wc = model.prefill(params, {"tokens": prompt}, c0)
+        got, gc = bundle.prefill_fn(
+            dp, distribute_tree({"tokens": prompt}, bundle.batch_shardings),
+            distribute_tree(c0, bundle.cache_shardings))
+        assert torch.equal(got.full_tensor(), want)
+        for t in range(3):
+            tok = want.argmax(-1).to(torch.int32)
+            before = [t_.to_local().clone() for _, t_ in L.tree_items(gc)]
+            want, wc = model.decode(params, {"tokens": tok,
+                                             "cache_len": 8 + t}, wc)
+            got, gc2 = bundle.decode_fn(dp, {"tokens": tok,
+                                             "cache_len": 8 + t}, gc)
+            assert gc2 is gc
+            assert torch.equal(got.full_tensor(), want)
+            for (_, a), (_, b), c in zip(L.tree_items(gc), L.tree_items(wc),
+                                         before):
+                assert torch.equal(a.to_local(), b)
+            assert any(not torch.equal(a.to_local(), c) for (_, a), c in
+                       zip(L.tree_items(gc), before))
+
+
+# ---------------------------------------------------------------------------
+# C.8: rwkv6's decode against its forward
+# ---------------------------------------------------------------------------
+
+def _tool():
+    sys.path.insert(0, str(ROOT / "tools"))
+    try:
+        import cache_vs_forward_reference as tool
+    finally:
+        sys.path.pop(0)
+    return tool
+
+
+def _tokens(tool, seed: int = 1):
+    return np.random.default_rng(seed).integers(
+        1, tool.WIDTHS["vocab_size"],
+        (tool.BATCH, tool.PROMPT + tool.STEPS)).astype(np.int32)
+
+
+def _rwkv_leaves(cache):
+    seg = cache["seg0"]
+    return {k: seg[key][k].double().numpy() for key in seg
+            for k in ("s", "att_prev", "ffn_prev")}
+
+
+@pytest.mark.parametrize("n_layers", [2, 4])
+def test_rwkv6_decode_state_is_the_forward_state(n_layers):
+    """Per layer and step: the state after prefill + decode against a
+    prefill over the extended sequence. The float32 WKV state agrees to
+    float32 rounding (the step form against the chunked sums), the
+    token-shift leaves to one bfloat16 rounding of a layer input."""
+    tool = _tool()
+    model = build_model(tool.cut(get_config("rwkv6-7b"), n_layers),
+                        device="cpu")
+    params = init_model_params(model, 0, device="cpu")
+    toks = torch.as_tensor(_tokens(tool))
+    P, B = tool.PROMPT, tool.BATCH
+    with torch.no_grad():
+        _, cache = model.prefill(params, {"tokens": toks[:, :P]},
+                                 init_cache(model, B, tool.MAX_LEN,
+                                            device="cpu"))
+        for t in range(tool.STEPS):
+            model.decode(params, {"tokens": toks[:, P + t:P + t + 1],
+                                  "cache_len": torch.full((B,), P + t)},
+                         cache)
+            _, fwd = model.prefill(params, {"tokens": toks[:, :P + t + 1]},
+                                   init_cache(model, B, tool.MAX_LEN,
+                                              device="cpu"))
+            got, want = _rwkv_leaves(cache), _rwkv_leaves(fwd)
+            for layer in range(n_layers):
+                s, s0 = got["s"][layer], want["s"][layer]
+                assert np.abs(s - s0).max() <= 1e-6 * np.abs(s0).max(), \
+                    (t, layer)
+                for k in ("att_prev", "ffn_prev"):
+                    a, b = got[k][layer], want[k][layer]
+                    assert np.abs(a - b).max() <= 2.0 ** -7 * \
+                        np.abs(b).max(), (t, layer, k)
+
+
+# `tools/cache_vs_forward_reference.py`'s readings on the CPU at 2
+# layers, token seed 1: each of the 4 decode steps' relative L2 error of
+# the logits against the forward's (see ROADMAP C.8)
+C8_PINNED = {"reference": [0.0, 0.0, 0.0, 0.0],
+             "port": [0.0, 0.0, 0.00094, 0.0]}
+
+
+def test_rwkv6_cache_vs_forward_readings_are_pinned():
+    tool = _tool()
+    toks = _tokens(tool)
+    jparams, jsteps, jfull = tool.reference_run("rwkv6-7b", 2, toks)
+    tsteps, tfull = tool.port_run("rwkv6-7b", 2, toks, jparams)
+    got = {"reference": [tool.rel_err(a, b) for a, b in zip(jsteps, jfull)],
+           "port": [tool.rel_err(a, b) for a, b in zip(tsteps, tfull)]}
+    for k, want in C8_PINNED.items():
+        np.testing.assert_allclose(got[k], want, atol=5e-5, err_msg=k)
