@@ -254,7 +254,9 @@ R. the multi-rank substrate on one card (NCCL, world 1), with the launch
    `psum_compressed` at world 1 bitwise the int8 round trip; R4
    `python -m repro_torch.launch.dryrun` on the T1 step (a 1 x 1 mesh,
    8 x 256; on the host) in a subprocess, its per-device FLOPs, bytes and
-   roofline bound beside T1's busy time and `train_work`'s bound.
+   roofline bound beside T1's busy time and `train_work`'s bound, and its
+   peak memory beside the card's `max_memory_allocated` over one T1 step
+   with one state held (run in R4): the ratio within `R_PEAK_RATIO`.
 
 The last two lines are a JSON object of per-kernel numbers and the
 contract line ``{"ok": true, "device": {...}}``. Any failing phase raises,
@@ -3753,8 +3755,11 @@ def phase_t1(dev, card: str, cfg=None) -> dict:
 
     # (e) readings: not gated
     host = statistics.median(h["time_s"] * 1e3 for h in hist_a[1:])
+    del state_a
     batch = t_batch(cfg.vocab_size, T_BATCH, T_SEQ, T_RUN)
     step = make_train_step(model, oc, batch_tree(batch), device=dev).step_fn
+    overall = torch.cuda.max_memory_allocated()
+    held, step_peak = step_memory(lambda: step(state_b, batch))
     busy, launches = device_busy(lambda: step(state_b, batch))
     from repro_torch.analysis.roofline import train_work
 
@@ -3762,8 +3767,9 @@ def phase_t1(dev, card: str, cfg=None) -> dict:
     res["time"] = {"host_ms": host, "device_busy_ms": busy,
                    "launches": launches, "idle_share": 1 - busy / host,
                    "tokens_s": T_BATCH * T_SEQ / host * 1e3,
-                   "max_memory_gib": torch.cuda.max_memory_allocated()
-                   / 2**30, **work}
+                   "max_memory_gib": max(overall, step_peak) / 2**30,
+                   "step_held_bytes": held, "step_peak_bytes": step_peak,
+                   **work}
     print(f"T1 step at batch {T_BATCH} x {T_SEQ}: {host:.2f} ms host wall "
           f"(median of steps 2-{T_RUN}); the card busy {busy:.2f} ms over "
           f"{launches} launches (profiler), idle {1 - busy / host:.1%}; "
@@ -3773,8 +3779,51 @@ def phase_t1(dev, card: str, cfg=None) -> dict:
           f"{work['body_tflop']:.3f} TFLOP {work['body_ms']:.2f} ms + AdamW "
           f"{work['adamw_gb']:.2f} GB {work['adamw_ms']:.2f} ms; "
           f"{work['params']:,} parameters), {work['bound_ms'] / host:.1%} "
-          f"of the host wall; " + memory_line("peak") + f" [{card}]")
+          f"of the host wall; peak: max_memory_allocated "
+          f"{res['time']['max_memory_gib']:.3f} GiB; one step with "
+          f"{held / 2**30:.3f} GiB held: {step_peak / 2**30:.3f} GiB "
+          f"[{card}]")
     return res
+
+
+def step_memory(fn) -> tuple:
+    """(bytes allocated before, the most allocated during) one call of
+    ``fn`` on the card, the peak reset just before it."""
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return held, torch.cuda.max_memory_allocated()
+
+
+def t1_step_memory(dev) -> tuple:
+    """T1's step alone, one state held: (bytes held, the most allocated
+    during one step after a warm one), each less what the card held
+    before T1's model and state were made (what earlier phases left)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train.step import init_state, make_train_step
+
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    cfg = get_config(T_ARCH)
+    oc = t_opt()
+    model = build_model(cfg, device=dev)
+    state = init_state(model, oc, T_PARAM_SEED, device=dev)
+    batch = t_batch(cfg.vocab_size, T_BATCH, T_SEQ, 0)
+    step = make_train_step(model, oc, batch_tree(batch), device=dev).step_fn
+    step(state, batch)
+    held, peak = step_memory(lambda: step(state, batch))
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return held - base, peak - base, base
 
 
 def phase_t2(dev, card: str, cfg=None) -> dict:
@@ -4654,11 +4703,21 @@ def r_psum(dev, card: str, mesh) -> dict:
     return {"values": x.numel()}
 
 
-def r_dryrun(card: str, t1_busy_ms=None) -> dict:
+# R4's gate on the dry run's peak over the measured one
+R_PEAK_RATIO = (0.8, 1.25)
+
+
+def r_dryrun(card: str, t1_busy_ms=None, t1_time=None, dev=None) -> dict:
     """R4: `python -m repro_torch.launch.dryrun` on the T1 step (a 1 x 1
     mesh, batch T_BATCH x T_SEQ; a fake process group on the host, no
     card) in a subprocess: its per-device counts and roofline bound
-    beside phase T1's busy time and `train_work`'s bound."""
+    beside phase T1's busy time and `train_work`'s bound, and its
+    `peak_bytes` beside the card's `max_memory_allocated` over one T1
+    step with one state held (`t1_step_memory` on ``dev``, less what the
+    card held before: earlier phases' leftovers are not the step's): the
+    ratio must lie in `R_PEAK_RATIO`. Phase T1's own readings (``t1_time``:
+    the phase's peak over its runs, and its step's beside what that
+    phase still held) are printed beside it."""
     import os
 
     from repro_torch.analysis.roofline import train_work
@@ -4692,14 +4751,39 @@ def r_dryrun(card: str, t1_busy_ms=None) -> dict:
           f"{work['bound_ms']:.2f} ms "
           f"({work['body_tflop'] + work['head_tflop']:.3f} TFLOP); phase "
           f"T1's step busy {busy} [{card}]")
+    mem = rec["memory"]
+    held, t1_peak, before = t1_step_memory(dev)
+    ratio = mem["peak_bytes"] / t1_peak
+    phase_t = ("not run" if t1_time is None else
+               f"{t1_time['max_memory_gib']:.3f} GiB over its runs, "
+               f"{t1_time['step_peak_bytes'] / 2**30:.3f} GiB over its "
+               f"step with {t1_time['step_held_bytes'] / 2**30:.3f} GiB "
+               f"held")
+    print(f"R4 memory of the T1 step: the dry run's peak "
+          f"{mem['peak_bytes']:,} bytes ({mem['peak_bytes'] / 2**30:.3f} "
+          f"GiB: arguments {mem['argument_size_in_bytes']:,}, outputs "
+          f"{mem['output_size_in_bytes']:,}, temporaries "
+          f"{mem['temp_size_in_bytes']:,}) against the card's "
+          f"max_memory_allocated over one step with one state held "
+          f"({held / 2**30:.3f} GiB), less the {before / 2**30:.3f} GiB "
+          f"allocated before the state was made, {t1_peak:,} bytes "
+          f"({t1_peak / 2**30:.3f} GiB): ratio {ratio:.4f}; phase T1 read "
+          f"{phase_t} [{card}]")
+    if not R_PEAK_RATIO[0] <= ratio <= R_PEAK_RATIO[1]:
+        raise AssertionError(f"R4: the dry run's peak is {ratio:.4f} of "
+                             f"the measured one, outside {R_PEAK_RATIO}")
     return {"flops": oc["flops"], "bytes": oc["bytes"],
             "bound_ms": rl["bound_s"] * 1e3, "dominant": rl["dominant"],
             "train_work_bound_ms": work["bound_ms"],
             "train_work_tflop": work["body_tflop"] + work["head_tflop"],
-            "t1_busy_ms": t1_busy_ms, "wall_s": wall}
+            "t1_busy_ms": t1_busy_ms, "memory": mem,
+            "t1_step_held_bytes": held, "t1_step_peak_bytes": t1_peak,
+            "allocated_before_bytes": before,
+            "peak_ratio": ratio,
+            "wall_s": wall}
 
 
-def phase_r(dev, card: str, t1_busy_ms=None) -> dict:
+def phase_r(dev, card: str, t1_busy_ms=None, t1_time=None) -> dict:
     """Phase R: the multi-rank substrate on one card (one rank: NCCL,
     world 1), with the launch counts set to 0 before and read after (no
     kernel of the port may launch): R1 the serve step, R2 GPipe, R3 the
@@ -4728,7 +4812,7 @@ def phase_r(dev, card: str, t1_busy_ms=None) -> dict:
         raise AssertionError(f"phase R launched a kernel: {got}")
     gc.collect()
     torch.cuda.empty_cache()
-    report["dryrun"] = r_dryrun(card, t1_busy_ms)
+    report["dryrun"] = r_dryrun(card, t1_busy_ms, t1_time, dev)
     report["wall_s"] = time.perf_counter() - t_phase
     print(f"phase R: no kernel of the port launched; "
           f"{report['wall_s']:.1f} s wall")
@@ -5445,7 +5529,8 @@ def main(argv=None) -> int:
     report["mesh"] = mesh_check(dev, card)
     # ---- phase R: the multi-rank substrate on one card
     report["phase_r"] = phase_r(
-        dev, card, report["phase_t"]["T1"]["time"]["device_busy_ms"])
+        dev, card, report["phase_t"]["T1"]["time"]["device_busy_ms"],
+        report["phase_t"]["T1"]["time"])
     for k in kernels:
         if k["name"] == "asr_graph[stream]":
             k["launches_phase_p"] = report["phase_p"]["frontend"][

@@ -15,7 +15,8 @@ to ``DTensor`` (``NotImplemented``), which redistributes its operands
 and those local operations are what the mode counts. A global count
 (``FlopCounterMode`` over ``DTensor``s) would charge every rank the
 whole product. The fake tensors on which ``DTensor`` works out an
-output's global shape (once an operation signature) are not counted.
+output's global shape (once an operation signature), and the tensors of
+global shape it makes them from, are not counted.
 
 Counts:
   * ``flops``: products and convolutions (``torch.utils.flop_counter``'s
@@ -28,6 +29,9 @@ Counts:
     lowers them), so the two can differ either way;
   * ``transcendentals``: output elements of exp, log, tanh, sigmoid,
     rsqrt, sin, cos and their kin;
+  * ``dtensor_ops``: the operations ``DTensor`` dispatched (each costs
+    the host its sharding propagation; a loop run on local shards
+    dispatches none);
   * ``collectives``: {kind: {count, bytes, group_size, ib_bytes}} with the
     reference's HLO names (all-reduce, all-gather, reduce-scatter,
     all-to-all) and send / recv for point-to-point. ``bytes`` is what
@@ -35,10 +39,30 @@ Counts:
     part in groups that span more than one node of `NODE_SIZE`
     consecutive ranks (the reference's ``dcn_bytes``, there the groups
     that cross a pod).
+
+Memory, in the same run: the bytes this rank holds as the step runs.
+The arguments (parameters, optimizer state, batch, cache: their local
+shards) are live throughout; every tensor an operation makes is live
+from that operation until its storage dies (a ``weakref`` finalizer on
+the storage: a view or an in-place result adds nothing, autograd's saved
+tensors stay live until the backward releases them, and a "meta"
+storage dies where a real one would). `analyze` records the peak and
+the bytes of the step's outputs beside the arguments, under the
+reference's names (XLA's ``memory_analysis()``):
+``argument_size_in_bytes``, ``output_size_in_bytes``,
+``temp_size_in_bytes`` (the peak less the arguments) and
+``peak_bytes``. XLA's ``generated_code_size_in_bytes`` has no
+counterpart (eager PyTorch generates no program) and is not recorded.
+The two accountings differ: XLA assigns buffers over a whole compiled
+program (reusing, aliasing donated arguments), the port counts eager
+liveness, tensor by tensor, as the caching allocator would see it
+without its rounding or fragmentation.
 """
 from __future__ import annotations
 
 import math
+import sys
+import weakref
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -75,6 +99,7 @@ _COLLECTIVES = {
     "_reduce_scatter_base_": "reduce-scatter",
     "reduce_scatter_tensor_coalesced": "reduce-scatter",
     "all_to_all_single": "all-to-all", "alltoall_base_": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
     "broadcast_": "collective-broadcast", "broadcast": "collective-broadcast",
     "send": "send", "recv_": "recv",
 }
@@ -114,6 +139,21 @@ def _group_ranks(name: str, args, kwargs) -> list:
     return ranks
 
 
+def _in_sharding_propagation() -> bool:
+    """Whether the caller runs inside ``DTensor``'s sharding propagation,
+    which makes a tensor of an operand's global shape (then a fake one
+    from it) to work out an output's: a storage no rank holds."""
+    f = sys._getframe(2)
+    for _ in range(32):
+        if f is None:
+            return False
+        if f.f_code.co_filename.endswith(("_sharding_prop.py",
+                                          "_op_schema.py")):
+            return True
+        f = f.f_back
+    return False
+
+
 class OpCounter(TorchDispatchMode):
     """Counts the local operations run under it (see the module's
     docstring); ``record()`` gives `analyze`'s dict."""
@@ -124,7 +164,43 @@ class OpCounter(TorchDispatchMode):
         self.bytes = 0
         self.transcendentals = 0
         self.elementwise = 0
+        self.dtensor_ops = 0     # operations DTensor dispatched
         self.collectives: dict = {}
+        self.live = 0            # bytes held now
+        self.peak = 0            # the most held at once
+        self._held: dict = {}    # storage key -> bytes, while it lives
+
+    def hold(self, tensors, *, counted: bool = True) -> None:
+        """Count the storages of ``tensors`` (``DTensor``s by their local
+        shards) live until they die; ``counted=False`` marks them seen
+        at no bytes (the arguments, counted by `hold_arguments`)."""
+        from torch.distributed.tensor import DTensor
+
+        for t in tensors:
+            if isinstance(t, DTensor):
+                t = t.to_local()
+            try:
+                st = t.untyped_storage()
+            except (NotImplementedError, RuntimeError):
+                continue          # a tensor with no storage of its own
+            key = st._cdata
+            if key in self._held:
+                continue
+            n = st.nbytes() if counted else 0
+            self._held[key] = n
+            self.live += n
+            weakref.finalize(st, self._release, key)
+        self.peak = max(self.peak, self.live)
+
+    def hold_arguments(self, tensors, nbytes: int) -> None:
+        """The step's arguments: ``nbytes`` (their local shards' bytes,
+        a view's storage may be larger) live throughout."""
+        self.hold(tensors, counted=False)
+        self.live += nbytes
+        self.peak = max(self.peak, self.live)
+
+    def _release(self, key) -> None:
+        self.live -= self._held.pop(key, 0)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch._subclasses.fake_tensor import FakeTensor
@@ -132,15 +208,19 @@ class OpCounter(TorchDispatchMode):
         from torch.utils.flop_counter import flop_registry
 
         if any(issubclass(t, DTensor) for t in types):
+            self.dtensor_ops += 1
             return NotImplemented          # let DTensor run the local ops
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if any(issubclass(t, FakeTensor) for t in types):
+        if any(issubclass(t, FakeTensor) for t in types) or \
+                not types and _in_sharding_propagation():
             return out     # DTensor's shape propagation, on global shapes
+        outs = _tensors(out)
+        self.hold(outs)
         name = func.__name__.split(".")[0]
         if name in _VIEWS:
             return out
-        ins, outs = _tensors((args, kwargs)), _tensors(out)
+        ins = _tensors((args, kwargs))
         kind = _COLLECTIVES.get(name)
         if kind is not None:
             ranks = _group_ranks(name, args, kwargs)
@@ -171,6 +251,7 @@ class OpCounter(TorchDispatchMode):
             "bytes": self.bytes,
             "transcendentals": self.transcendentals,
             "elementwise": self.elementwise,
+            "dtensor_ops": self.dtensor_ops,
             "collectives": {k: dict(v) for k, v in
                             sorted(self.collectives.items())},
             "collective_bytes": sum(v["bytes"]
@@ -181,13 +262,21 @@ class OpCounter(TorchDispatchMode):
 
 
 def analyze(fn, *args) -> dict:
-    """The counts of one run of ``fn(*args)`` (its result is dropped).
-    The caller builds the inputs: "meta" tensors, or ``DTensor``s on a
-    (fake) process group's mesh."""
+    """The counts of one run of ``fn(*args)``, with its ``memory`` (see
+    the module's docstring); its result is dropped. The caller builds
+    the inputs: "meta" tensors, or ``DTensor``s on a (fake) process
+    group's mesh."""
     counter = OpCounter()
+    arg_bytes = local_bytes(args)
+    counter.hold_arguments(_tensors(args), arg_bytes)
     with counter:
-        fn(*args)
-    return counter.record()
+        out = fn(*args)
+    rec = counter.record()
+    rec["memory"] = {"argument_size_in_bytes": arg_bytes,
+                     "output_size_in_bytes": local_bytes(out),
+                     "temp_size_in_bytes": counter.peak - arg_bytes,
+                     "peak_bytes": counter.peak}
+    return rec
 
 
 def local_bytes(tree) -> int:

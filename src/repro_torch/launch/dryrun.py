@@ -10,9 +10,15 @@ nothing), builds the model's state as "meta" ``DTensor``s from the
 abstract trees, laid out by the sharding rules, and runs one train step,
 prefill or decode through `train.step.make_train_step` /
 `serve.step.make_serve_step` as rank 0, counting what that rank runs
-(`analysis.op_cost.analyze`). Nothing is allocated and no device is
-needed. A cell that raises is recorded with ``"status": "fail"`` and its
-error; no operation is swapped for another.
+(`analysis.op_cost.analyze`) and the bytes it holds (``memory``: the
+arguments, the outputs, the peak of what is live through the step and
+that peak less the arguments, under the reference's key names; no
+``generated_code_size_in_bytes``). Nothing is allocated and no device is
+needed. A split moved from one dim to another is counted as the
+all-to-all a card's rank runs (`all_to_all_moves`), not as the gather
+the fake group's "cpu" mesh would fall back to. A cell that raises is
+recorded with ``"status": "fail"`` and its error; no operation is
+swapped for another.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b --shape train_4k --mesh single
@@ -27,6 +33,7 @@ ranks. Each record is ``{out}/{arch}__{shape}__{mesh}.json``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -37,7 +44,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.analysis.op_cost import analyze, local_bytes
+from repro_torch.analysis.op_cost import analyze
 from repro_torch.analysis.roofline import active_param_count, cell_roofline
 from repro_torch.configs import (ASSIGNED, SHAPES, ShapeSpec,
                                  applicable_shapes, get_config, input_specs)
@@ -47,7 +54,8 @@ from repro_torch.models import layers as L
 from repro_torch.sharding.rules import Strategy, distribute_tree
 from repro_torch.train import optim
 
-__all__ = ["fake_mesh", "shape_spec", "lower_cell", "run_cell", "main"]
+__all__ = ["fake_mesh", "all_to_all_moves", "shape_spec", "lower_cell",
+           "run_cell", "main"]
 
 _SHAPE_RE = re.compile(r"^(train|prefill|decode)_(\d+)x(\d+)$")
 _MESH_RE = re.compile(r"^(\d+)x(\d+)$")
@@ -86,6 +94,34 @@ def fake_mesh(mesh_kind: str):
     return init_device_mesh("cpu", shape, mesh_dim_names=names)
 
 
+@contextlib.contextmanager
+def all_to_all_moves():
+    """``DTensor`` moves a split from one tensor dim to another with an
+    all-to-all on NCCL, but on a "cpu" mesh (the fake group's) it gathers
+    the whole tensor over the mesh dim and keeps its own chunk: it would
+    hold, move and count the mesh dim's size times the bytes a card's
+    rank does. For the ``with`` block ``DTensor`` calls the all-to-all
+    itself, which the fake group serves (counted as "all-to-all")."""
+    import torch.distributed.tensor._collective_utils as cu
+    import torch.distributed.tensor.placement_types as pt
+
+    op = getattr(torch.ops._dtensor, "shard_dim_alltoall", None)
+
+    def alltoall(tensor, gather_dim, shard_dim, mesh, mesh_dim):
+        return op(tensor, gather_dim, shard_dim,
+                  mesh.get_group(mesh_dim).group_name)
+
+    saved = [(m, m.shard_dim_alltoall) for m in (cu, pt)
+             if op is not None and hasattr(m, "shard_dim_alltoall")]
+    for m, _ in saved:
+        m.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        for m, f in saved:
+            m.shard_dim_alltoall = f
+
+
 def _opt_config_for(cfg):
     # the 400B MoE config needs compact moments, as in the reference
     if cfg.name.startswith("llama4"):
@@ -108,13 +144,15 @@ def _configured(arch: str, overrides: dict | None):
 
 
 def lower_cell(arch: str, shape_name: str, mesh, strategy: str = None,
-               overrides: dict = None):
+               overrides: dict = None, config=None):
     """(step function, its arguments, meta) of one cell: the state (or
-    parameters and cache) as "meta" ``DTensor``s on ``mesh``."""
+    parameters and cache) as "meta" ``DTensor``s on ``mesh``. ``config``
+    (e.g. `configs.reduced`'s cut of ``arch``) stands in for the
+    registered one."""
     from repro_torch.serve.step import make_serve_step
     from repro_torch.train.step import distribute_state, make_train_step
 
-    cfg = _configured(arch, overrides)
+    cfg = config or _configured(arch, overrides)
     shape = shape_spec(shape_name)
     model = build_model(cfg, device="cpu")
     batch = input_specs(cfg, shape)
@@ -140,7 +178,8 @@ def lower_cell(arch: str, shape_name: str, mesh, strategy: str = None,
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: Path,
-             strategy: str = None, overrides: dict = None, tag: str = ""):
+             strategy: str = None, overrides: dict = None, tag: str = "",
+             config=None):
     import torch.distributed as dist
 
     t0 = time.time()
@@ -151,12 +190,13 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: Path,
         try:
             rec["devices"] = mesh.size()
             fn, args, meta = lower_cell(arch, shape_name, mesh, strategy,
-                                        overrides)
+                                        overrides, config)
             rec.update(meta)
-            rec["memory"] = {"argument_size_in_bytes": local_bytes(args)}
             t1 = time.time()
-            rec["op_cost"] = analyze(fn, *args)
+            with all_to_all_moves():
+                rec["op_cost"] = analyze(fn, *args)
             rec["trace_s"] = round(time.time() - t1, 1)
+            rec["memory"] = rec["op_cost"].pop("memory")
             rec["roofline"] = cell_roofline(rec, active_param_count(arch))
             rec["status"] = "ok"
         finally:

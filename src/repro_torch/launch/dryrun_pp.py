@@ -65,6 +65,7 @@ def run(out_dir: Path) -> dict:
         "layers": LAYERS, "stages": STAGES, "microbatches": MICROBATCHES,
         "bubble_fraction": bubble_fraction(STAGES, MICROBATCHES),
         "trace_s": round(time.time() - t0, 1),
+        "memory": cost.pop("memory"),
         "op_cost": cost,
         "point_to_point": {k: cost["collectives"].get(k, {"count": 0})
                            ["count"] for k in ("send", "recv")},

@@ -169,12 +169,71 @@ def embed_schema(vocab: int, d: int):
 
 
 def embed(params, tokens):
-    """The table's rows at ``tokens``. ``F.embedding`` (the same rows as
-    indexing) because ``DTensor`` has a vocabulary-parallel rule for it:
-    each rank looks up the tokens in its slice of a table split over the
-    vocabulary and one all-reduce sums the rows, where an indexed read
-    gathers the whole table on every rank."""
+    """The table's rows at ``tokens`` (``F.embedding``). Over a mesh the
+    lookup runs on local shards (`_embed_local`)."""
+    local = _embed_local(params["embedding"], tokens)
+    if local is not None:
+        return local
     return F.embedding(tokens, params["embedding"])
+
+
+def _embed_local(table, tokens):
+    """The vocabulary-parallel lookup of a ``DTensor`` table, on this
+    rank's shards: where a mesh dim splits the vocabulary, each rank
+    looks up the tokens in its slice, zeroes the rows of tokens outside
+    it, and the rows are a partial sum over that dim (one all-reduce
+    where the caller's layout asks); a table split over the model width
+    is gathered where the tokens' rows are split on the same dim (the
+    ZeRO-3 gather a product runs too), else its width stays split. It is
+    the lookup ``DTensor``'s own rule makes, without its mask buffers,
+    which other operations compare with ``torch.equal`` (no kernel on
+    "meta"). None for a plain table, or a layout this does not cover."""
+    from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                          distribute_tensor)
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    if not isinstance(table, DTensor):
+        return None
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = distribute_tensor(tokens, mesh,
+                                   [Replicate()] * mesh.ndim,
+                                   src_data_rank=None)
+    if tokens.device_mesh != mesh:
+        return None
+    want, grad, out = [], [], []
+    for tp, kp in zip(table.placements, tokens.placements):
+        rows = type(kp) is Shard and kp.dim == 0
+        if not (rows or kp.is_replicate()):
+            return None
+        if tp.is_replicate():
+            want.append(tp)
+            grad.append(Partial() if rows else tp)
+            out.append(Shard(0) if rows else tp)
+        elif type(tp) is Shard and tp.dim == 0 and not rows:
+            want.append(tp)
+            grad.append(tp)
+            out.append(Partial())
+        elif type(tp) is Shard and tp.dim == 1:
+            want.append(Replicate() if rows else tp)
+            grad.append(Partial() if rows else tp)
+            out.append(Shard(0) if rows else Shard(2))
+        else:
+            return None
+    if tuple(table.placements) != tuple(want):
+        table = table.redistribute(mesh, want)
+    (n, _), (off, _) = compute_local_shape_and_global_offset(
+        table.shape, mesh, want)
+    tl = table.to_local(grad_placements=grad)
+    idx = tokens.to_local() - off
+    live = (idx >= 0) & (idx < n)
+    rows = F.embedding(torch.where(live, idx, 0), tl)
+    rows = torch.where(live[..., None], rows, 0.0)
+    shape = tuple(tokens.shape) + (table.shape[1],)
+    return DTensor.from_local(rows, mesh, out, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def unembed(params, x):

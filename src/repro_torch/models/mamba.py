@@ -9,6 +9,11 @@ Evaluators:
     scans the chunks with ``lax.scan``, the port loops over them).
 The depthwise causal conv1d (k = 4) runs over the (x, B, C) channels in
 plain PyTorch, as the reference's model path runs it in plain jnp.
+
+Over a mesh both run on each rank's shards (`sharding.local.local_call`):
+batch rows and heads (channels, for the convolution) are independent,
+so the chunk loop dispatches no ``DTensor`` operation. On plain tensors
+they are the one-device code.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import P, apply_norm, fanin_std
+from repro_torch.sharding.local import local_call
 
 __all__ = ["mamba_block_schema", "causal_conv1d", "ssd_scan",
            "ssd_chunked", "mamba_block", "mamba_state_schema"]
@@ -48,6 +54,19 @@ def causal_conv1d(x, w, b, *, state=None):
 
     state: (B, k-1, C), the trailing inputs of the previous call (decode),
     or None (train/prefill: zeros on the left). Returns (y, new state)."""
+    # roles (batch, channels) of x, w, b, state and of y, the new state
+    if state is None:
+        local = local_call(causal_conv1d, (x, w, b),
+                           ((0, 2), (None, 1), (None, 0)),
+                           ((0, 2), (0, 2)))
+    else:
+        local = local_call(lambda x, w, b, st: causal_conv1d(x, w, b,
+                                                             state=st),
+                           (x, w, b, state),
+                           ((0, 2), (None, 1), (None, 0), (0, 2)),
+                           ((0, 2), (0, 2)))
+    if local is not None:
+        return local
     B, S, C = x.shape
     k = w.shape[0]
     state_dtype = x.dtype if state is None else state.dtype
@@ -78,6 +97,13 @@ def ssd_scan(xh, dt, A, B_, C_, s0):
 def ssd_chunked(xh, dt, A, B_, C_, s0, chunk: int):
     """Chunk-parallel SSD: a scalar decay per head gives an (L, L)
     segment-sum matrix per chunk."""
+    # roles (batch, heads): B_ and C_ are every head's
+    local = local_call(lambda *a: ssd_chunked(*a, chunk),
+                       (xh, dt, A, B_, C_, s0),
+                       ((0, 2), (0, 2), (None, 0), (0, None), (0, None),
+                        (0, 1)), ((0, 2), (0, 1)))
+    if local is not None:
+        return local
     B, S_in, H, Pd = xh.shape
     N = B_.shape[-1]
     L = min(chunk, S_in)

@@ -20,6 +20,7 @@ import math
 import torch
 
 from repro_torch.models.layers import _ACTS as ACTS, P, fanin_std
+from repro_torch.sharding.local import local_call
 
 __all__ = ["moe_schema", "moe_layer", "moe_layer_dense_oracle", "top_k"]
 
@@ -80,6 +81,23 @@ def _shared_mlp(sp, x, act: str, cd):
     return torch.matmul(h, sp["w_out"].to(cd))
 
 
+def _combine(combine, eo):
+    """The experts' outputs ``eo`` (E, G, C, d) gathered back to their
+    tokens by the combine weights (G, sg, E, C): (G, sg, d). Over a mesh
+    that splits the groups and the experts, it runs on each rank's
+    groups and experts (`local_call`) and the sum over the experts is a
+    partial one over the ranks that split them (reduced by the caller's
+    layout). ``DTensor``'s own rule gathered ``eo`` over the expert ranks
+    and ran the product on each of them, and choosing that layout on the
+    two-pod mesh took most of a MoE cell's trace."""
+    local = local_call(
+        lambda c, e: torch.einsum("gsec,egcd->gsd", c, e), (combine, eo),
+        ((0, 2), (1, 0)), ((0, None),))
+    if local is not None:
+        return local
+    return torch.einsum("gsec,egcd->gsd", combine, eo)
+
+
 def moe_layer(params, x, cfg):
     """x: (B, S, d) -> (y, aux_loss). Overflowing tokens are dropped
     (their identity path is the caller's residual)."""
@@ -125,7 +143,7 @@ def moe_layer(params, x, cfg):
                                    params["w_gate"].to(cd)))
     h = h * torch.einsum("egcd,edf->egcf", xin, params["w_in"].to(cd))
     eo = torch.einsum("egcf,efd->egcd", h, params["w_out"].to(cd))
-    y = torch.einsum("gsec,egcd->gsd", combine.to(cd), eo)
+    y = _combine(combine.to(cd), eo)
     if "shared" in params:
         y = y + _shared_mlp(params["shared"], xg, cfg.act, cd)
     return y.reshape(B, S, d).to(x.dtype), aux

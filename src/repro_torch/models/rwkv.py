@@ -20,6 +20,12 @@ WKV evaluators:
 Where the reference scans the chunks with ``lax.scan``, the port loops
 over them. The state is (S: (B, H, K, V) float32, x_prev_att,
 x_prev_ffn).
+
+Over a mesh the evaluators, the token shift and the five mixed streams
+run on each rank's shards (`sharding.local.local_call`): rows and heads
+are independent in a scan, so a rank's batch rows and heads are exact
+on their own, and the chunk loop dispatches no ``DTensor`` operation.
+On plain tensors they are the one-device code.
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import P, apply_norm, fanin_std
+from repro_torch.sharding.ctx import constrain
+from repro_torch.sharding.local import local_call
 
 __all__ = ["NUM_MIX", "rwkv_block_schema", "wkv6_scan", "wkv6_chunked",
            "wkv6_chunked_mm", "wkv6_step", "rwkv_time_mix",
@@ -108,8 +116,18 @@ def _chunks(chunk: int, r, k, v, lw):
                            for t in (r, k, v, lw))
 
 
+# the role dims (batch, heads) of the evaluators' operands r, k, v, lw,
+# u, s0 and of their results o, S
+_SCAN_DIMS = ((0, 2),) * 4 + ((None, 0), (0, 1))
+_SCAN_OUT = ((0, 2), (0, 1))
+
+
 def wkv6_chunked(r, k, v, lw, u, s0, chunk: int):
     """Chunk-parallel WKV6, numerically stable for any decay."""
+    local = local_call(lambda *a: wkv6_chunked(*a, chunk),
+                       (r, k, v, lw, u, s0), _SCAN_DIMS, _SCAN_OUT)
+    if local is not None:
+        return local
     B, S_in, H, _ = r.shape
     V = v.shape[-1]
     L, nc, rc, kc, vc, wc = _chunks(chunk, r, k, v, lw)
@@ -155,6 +173,10 @@ def wkv6_chunked_mm(r, k, v, lw, u, s0, chunk: int, lw_min: float = -2.0):
 
     which stay inside float32's range because the per-step log-decay is
     clamped at ``lw_min`` (chunks up to 64)."""
+    local = local_call(lambda *a: wkv6_chunked_mm(*a, chunk, lw_min),
+                       (r, k, v, lw, u, s0), _SCAN_DIMS, _SCAN_OUT)
+    if local is not None:
+        return local
     B, S_in, H, _ = r.shape
     V = v.shape[-1]
     L, nc, rc, kc, vc, wc = _chunks(chunk, r, k, v,
@@ -190,6 +212,11 @@ def wkv6_chunked_mm(r, k, v, lw, u, s0, chunk: int, lw_min: float = -2.0):
 def wkv6_step(r, k, v, lw, u, s0):
     """One decode token. r, k, lw: (B, H, K); v: (B, H, V);
     s0: (B, H, K, V)."""
+    local = local_call(wkv6_step, (r, k, v, lw, u, s0),
+                       ((0, 1),) * 4 + ((None, 0), (0, 1)),
+                       ((0, 1), (0, 1)))
+    if local is not None:
+        return local
     r, k, v, lw = (t.float() for t in (r, k, v, lw))
     kv = k[..., None] * v[..., None, :]
     o = torch.einsum("bhk,bhkv->bhv", r,
@@ -204,6 +231,10 @@ def wkv6_step(r, k, v, lw, u, s0):
 def _token_shift(x, x_prev):
     """x: (B, S, d); x_prev: (B, d), the carry from the previous segment
     or step."""
+    local = local_call(_token_shift, (x, x_prev), ((0, 2), (0, 1)),
+                       ((0, 2),))
+    if local is not None:
+        return local
     return torch.cat([x_prev[:, None, :].to(x.dtype), x[:, :-1, :]], dim=1)
 
 
@@ -219,6 +250,25 @@ def _ddlerp(att, x, xs):
     return x[:, :, None, :] + sx[:, :, None, :] * mix
 
 
+_MIX_WEIGHTS = ("mu_x", "mu", "lora_A", "lora_B")
+
+
+def _mixed_streams(att, x, xs):
+    """`_ddlerp`'s five streams (r, k, v, g, w), each (B, S, d). Over a
+    mesh they are mixed on this rank's rows with the mixing weights
+    gathered (`local_call`): the five streams share one (B, S, 5, d)
+    tensor whose stream axis ``DTensor`` would otherwise split."""
+    w = tuple(att[k] for k in _MIX_WEIGHTS)
+    local = local_call(
+        lambda x, xs, *w: _ddlerp(dict(zip(_MIX_WEIGHTS, w)), x,
+                                  xs).unbind(2),
+        (x, xs) + w, ((0,),) * 2 + ((None,),) * 4, ((0,),) * NUM_MIX,
+        gather=(2, 3, 4, 5))
+    if local is not None:
+        return local
+    return _ddlerp(att, x, xs).unbind(2)
+
+
 def rwkv_time_mix(att, x, x_prev, s0, cfg, *, mode: str):
     """Returns (out, the last position's x, the final WKV state)."""
     B, S, d = x.shape
@@ -226,8 +276,7 @@ def rwkv_time_mix(att, x, x_prev, s0, cfg, *, mode: str):
     H = d // K
     dt = x.dtype
     xs = _token_shift(x, x_prev)
-    m = _ddlerp(att, x, xs)
-    xr, xk, xv, xg, xw = m.unbind(2)
+    xr, xk, xv, xg, xw = _mixed_streams(att, x, xs)
     r = torch.matmul(xr, att["wr"].to(dt))
     k = torch.matmul(xk, att["wk"].to(dt))
     v = torch.matmul(xv, att["wv"].to(dt))
@@ -275,7 +324,11 @@ def rwkv_block(params, x, state, cfg, *, mode: str):
     h = apply_norm(params["ln1"], x, kind="layernorm", eps=cfg.norm_eps)
     att_out, att_prev, s_fin = rwkv_time_mix(
         params["att"], h, state["att_prev"], state["s"], cfg, mode=mode)
-    x = x + att_out
+    # over a mesh the residual is summed over the model axis here, as
+    # after each sublayer (`transformer._repeat`): on a partial sum
+    # DTensor would run the channel mix's products with their weights
+    # gathered, on every model rank
+    x = constrain(x + att_out, "btd")
     h = apply_norm(params["ln2"], x, kind="layernorm", eps=cfg.norm_eps)
     ffn_out, ffn_prev = rwkv_channel_mix(params["ffn"], h, state["ffn_prev"])
     return x + ffn_out, {"s": s_fin,

@@ -28,7 +28,7 @@ import functools
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import (checkpoint,
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as att
@@ -254,7 +254,9 @@ def _apply_sublayer(kind, params, x, cache, ctx):
     if kind == "shared_attn":
         sp = ctx.shared
         h = L.apply_norm(sp["norm1"], x, kind=cfg.norm_type, eps=cfg.norm_eps)
-        x = x + _attend(sp["attn"], h, cache, ctx)
+        # the residual summed over the model axis before the MLP, as
+        # between sublayers (`_repeat`; a no-op on a plain tensor)
+        x = constrain(x + _attend(sp["attn"], h, cache, ctx), "btd")
         h = L.apply_norm(sp["norm2"], x, kind=cfg.norm_type, eps=cfg.norm_eps)
         return x + L.apply_mlp(sp["mlp"], h, act=cfg.act), None
     h = L.apply_norm(params["norm"], x, kind=cfg.norm_type, eps=cfg.norm_eps)
@@ -311,9 +313,15 @@ def _repeat(pattern, layer_params, layer_cache, x, ctx):
     return x, total
 
 
-# the reference's `dots_with_no_batch_dims_saveable`: keep the outputs of
-# the 2-D matrix products (activations times weights), recompute the rest
-_SAVED_PRODUCTS = [torch.ops.aten.mm.default]
+def _save_products(ctx, op, *args, **kwargs):
+    """The reference's `dots_with_no_batch_dims_saveable`: keep the
+    outputs of the products with no batch dims (activations times
+    weights: ``mm``, and the ``bmm`` over a batch of one that
+    ``torch.einsum`` makes of such a product), recompute the rest."""
+    if op is torch.ops.aten.mm.default or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _remat(cfg):
@@ -326,7 +334,7 @@ def _remat(cfg):
         return {"use_reentrant": False}
     if cfg.remat == "dots":
         return {"use_reentrant": False, "context_fn": functools.partial(
-            create_selective_checkpoint_contexts, _SAVED_PRODUCTS)}
+            create_selective_checkpoint_contexts, _save_products)}
     raise ValueError(f"remat {cfg.remat!r}")
 
 

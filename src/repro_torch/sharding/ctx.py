@@ -4,8 +4,9 @@ counterpart of the JAX package's `sharding/ctx.py`).
 A step that runs over a mesh installs a spec table for it; model code
 calls ``constrain(x, "btd")`` at the reference's points (the embedded
 tokens, every repeat of the layer stack, the logits). ``constrain``
-redistributes a ``DTensor`` to the kind's placements, and its gradient
-in the backward as well; it returns its
+redistributes a ``DTensor`` to the kind's placements (a dim the mesh
+does not divide left whole), and its gradient in the backward as well;
+it returns its
 argument unchanged outside an installed context, on a plain tensor, and
 on a tensor whose rank is not the kind's, so single-device runs are
 unaffected.
@@ -13,6 +14,7 @@ unaffected.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Optional
 
 from repro_torch.launch.mesh import mesh_axis_sizes
@@ -80,6 +82,13 @@ def constrain(x, kind: str):
 
     if not isinstance(x, DTensor):
         return x
+    # a dim the mesh does not divide stays whole, as `rules.spec_for`
+    # leaves it (DTensor cannot flatten an unevenly split dim: a batch of
+    # one over "data")
+    sizes = mesh_axis_sizes(mesh)
+    spec = tuple(e if e is None or x.shape[d] % math.prod(
+        sizes[a] for a in ((e,) if isinstance(e, str) else e)) == 0
+        else None for d, e in enumerate(spec))
     return pin(x, placements_for(spec, mesh))
 
 

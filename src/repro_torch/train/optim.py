@@ -70,6 +70,53 @@ def _q8_decode(q, scale, shape):
     return x[:, :last].reshape(shape)
 
 
+def _rows_split(q) -> bool:
+    """Whether ``q`` is a ``DTensor`` whose rows are split (the layout
+    `train.step.opt_state_shardings` gives a qint8 leaf: its first dim
+    over "data" where it divides)."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(q, DTensor) and any(p.is_shard() for p in q.placements)
+
+
+def _q8_decode_sharded(q, scale, like):
+    """The decoded second moment of a leaf whose codes are split over
+    their rows, laid out as the ``DTensor`` ``like`` (its parameter).
+    Each rank decodes its own rows (a block never crosses a row, so a
+    split of rows is exact). The rows then move by all-to-all: first to
+    a split of the last axis, so that the rows can be unflattened into
+    the leaf's leading dims (``DTensor`` cannot unflatten a split dim
+    the mesh does not divide evenly, e.g. 24 stacked layers over 16
+    ranks), then to the parameter's own layout."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    mesh, pq = q.device_mesh, q.placements
+    rows, last = q.shape[0], like.shape[-1]
+    ql = q.to_local()
+    x = DTensor.from_local(_q8_decode(ql, scale.to_local(),
+                                      (ql.shape[0], last)),
+                           mesh, pq, run_check=False,
+                           shape=torch.Size((rows, last)), stride=(last, 1))
+    x = x.redistribute(mesh, [Shard(1) if p.is_shard() else p for p in pq])
+    return x.view(like.shape).redistribute(mesh, like.placements)
+
+
+def _q8_encode_sharded(v32, v, block: int) -> None:
+    """`_q8_encode` of ``v32`` (laid out as its parameter) into the codes
+    and scales ``v`` holds split over their rows, each rank encoding its
+    own rows: `_q8_decode_sharded`'s moves in reverse."""
+    from torch.distributed.tensor import Shard
+
+    mesh, pq = v["q"].device_mesh, v["q"].placements
+    rows, last = v["q"].shape[0], v32.shape[-1]
+    x = v32.redistribute(mesh, [Shard(v32.ndim - 1) if p.is_shard() else p
+                                for p in pq])
+    x = x.reshape(rows, last).redistribute(mesh, pq)
+    q, s = _q8_encode(x.to_local(), block)
+    v["q"].to_local().copy_(q)
+    v["scale"].to_local().copy_(s)
+
+
 def _v_init(p, cfg: OptConfig):
     if cfg.v_dtype == "qint8":
         q, s = _q8_encode(torch.zeros(p.shape, device=p.device), cfg.q_block)
@@ -138,7 +185,10 @@ def _update_leaf(g, m, v, p, scale, lr, bc1, bc2, cfg: OptConfig):
     m32 = m if m.dtype == torch.float32 else m.float()
     m32.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
     qint8 = cfg.v_dtype == "qint8"
-    if qint8:
+    sharded = qint8 and _rows_split(v["q"])
+    if sharded:
+        v32 = _q8_decode_sharded(v["q"], v["scale"], p)
+    elif qint8:
         v32 = _q8_decode(v["q"], v["scale"], p.shape)
     else:
         v32 = v if v.dtype == torch.float32 else v.float()
@@ -154,7 +204,9 @@ def _update_leaf(g, m, v, p, scale, lr, bc1, bc2, cfg: OptConfig):
         p.copy_(p32)
     if m32 is not m:
         m.copy_(m32)
-    if qint8:
+    if sharded:
+        _q8_encode_sharded(v32, v, cfg.q_block)
+    elif qint8:
         q, s = _q8_encode(v32, cfg.q_block)
         v["q"].copy_(q)
         v["scale"].copy_(s)

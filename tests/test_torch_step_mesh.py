@@ -56,7 +56,7 @@ from repro_torch.train.step import (distribute_state, init_state,
 from torch.distributed.tensor import distribute_tensor
 shape = {shape}
 mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
-model = build_model(reduced(get_config("qwen1.5-0.5b")), device="cpu")
+model = build_model(reduced(get_config("{arch}")), device="cpu")
 oc = optim.OptConfig(**{opt})
 toks = np.random.default_rng(0).integers(0, 256, (4, 17))
 batch = {{"tokens": toks[:, :-1].astype(np.int32),
@@ -81,8 +81,8 @@ save({{"grads": grads, "metrics": {{k: float(v) for k, v in met.items()}},
 """
 
 
-def _one_device_train():
-    model = build_model(reduced(get_config("qwen1.5-0.5b")), device="cpu")
+def _one_device_train(arch):
+    model = build_model(reduced(get_config(arch)), device="cpu")
     oc = optim.OptConfig(**OPT)
     toks = np.random.default_rng(0).integers(0, 256, (4, 17))
     batch = {"tokens": toks[:, :-1].astype(np.int32),
@@ -100,12 +100,22 @@ def _one_device_train():
             [t.detach() for _, t in L.tree_items(st["params"])])
 
 
-@pytest.mark.parametrize("shape", [(2, 1), (1, 2)],
-                         ids=["data2", "data1_model2"])
-def test_train_step_over_a_mesh_matches_one_device(tmp_path, shape):
-    grads, met, old, new = _one_device_train()
+# qwen; rwkv6 and zamba2, whose scans, token shifts, mixed streams and
+# convolutions run on each rank's shards over a mesh; deepseek-moe, whose
+# combine product does (its sum over the experts a partial one)
+TRAIN_CASES = [pytest.param(arch, shape, id=f"{tag}{sid}")
+               for arch, tag in (("qwen1.5-0.5b", ""), ("rwkv6-7b", "rwkv6_"),
+                                 ("zamba2-7b", "zamba2_"),
+                                 ("deepseek-moe-16b", "moe_"))
+               for shape, sid in (((2, 1), "data2"),
+                                  ((1, 2), "data1_model2"))]
+
+
+@pytest.mark.parametrize("arch,shape", TRAIN_CASES)
+def test_train_step_over_a_mesh_matches_one_device(tmp_path, arch, shape):
+    grads, met, old, new = _one_device_train(arch)
     got = run_ranks(tmp_path, shape[0] * shape[1],
-                    _TRAIN_RANK.format(shape=shape, opt=OPT))
+                    _TRAIN_RANK.format(arch=arch, shape=shape, opt=OPT))
     for r, g in enumerate(got):
         for k in ("loss", "ce", "grad_norm"):
             np.testing.assert_allclose(g["metrics"][k], met[k], **LOSS_TOL)
@@ -115,6 +125,80 @@ def test_train_step_over_a_mesh_matches_one_device(tmp_path, shape):
         assert _rel([a.numpy() - b.numpy() for a, b in zip(g["params"], old)],
                     [a.numpy() - b.numpy() for a, b in zip(new, old)]) \
             <= STEP_UPDATE_TOL, r
+
+
+# the qint8 second moment over a mesh: llama4 cut to 6 layers, whose 3
+# stacked repeats do not divide "data" while the codes' rows (the
+# first-dim heuristic) do; the clip at 1e9 keeps the gradients' scale at
+# exactly 1, so that the update is elementwise and must be bitwise
+Q8_ARCH, Q8_LAYERS, Q8_CLIP = "llama4-maverick-400b-a17b", 6, 1e9
+
+_Q8_RANK = """
+import dataclasses
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_config, reduced
+from repro_torch.models import build_model
+from repro_torch.models.layers import tree_items
+from repro_torch.sharding.rules import distribute_tree
+from repro_torch.train import optim
+from repro_torch.train.step import distribute_state, make_train_step
+mesh = init_device_mesh("cpu", {shape}, mesh_dim_names=("data", "model"))
+ins = torch.load(os.path.join(out_dir, "..", "q8_in.pt"))
+cfg = dataclasses.replace(reduced(get_config("{arch}")), num_layers={layers})
+model = build_model(cfg, device="cpu")
+oc = optim.OptConfig(m_dtype=torch.bfloat16, v_dtype="qint8",
+                     grad_clip={clip})
+tree = {{k: ((4, 16), torch.int32) for k in ("tokens", "labels")}}
+bundle = make_train_step(model, oc, tree, device="cpu", mesh=mesh)
+st = distribute_state(ins["state"], bundle)
+grads = distribute_tree(ins["grads"], bundle.state_shardings["params"])
+optim.adamw_update(grads, st["opt"], st["params"], oc)
+save({{k: [t.full_tensor() for _, t in tree_items(tree_)]
+       for k, tree_ in (("v", st["opt"]["v"]), ("m", st["opt"]["m"]),
+                        ("params", st["params"]))}}
+     | {{"split": [str(t.placements) for _, t in
+                   tree_items(st["opt"]["v"])]}})
+"""
+
+
+def _q8_grads(params, seed: int):
+    g = torch.Generator().manual_seed(seed)
+    return L.tree_map(lambda p: torch.randn(p.shape, generator=g) * 1e-2,
+                      params)
+
+
+def test_qint8_adamw_step_over_a_mesh_is_bitwise_one_device(tmp_path):
+    """A reduced qint8 AdamW step: the codes, the scales (so the decoded
+    v), m and the parameters over a (2, 2) mesh are bitwise the
+    one-device step's, the codes' rows split over "data" where the
+    parameter's leading dim is not."""
+    import dataclasses
+
+    cfg = dataclasses.replace(reduced(get_config(Q8_ARCH)),
+                              num_layers=Q8_LAYERS)
+    model = build_model(cfg, device="cpu")
+    oc = optim.OptConfig(m_dtype=torch.bfloat16, v_dtype="qint8",
+                         grad_clip=Q8_CLIP)
+    st = init_state(model, oc, 0, device="cpu")
+    optim.adamw_update(_q8_grads(st["params"], 1), st["opt"], st["params"],
+                       oc)
+    grads = _q8_grads(st["params"], 2)
+    torch.save({"state": st, "grads": grads}, tmp_path / "q8_in.pt")
+    optim.adamw_update(grads, st["opt"], st["params"], oc)
+    want = {k: [t for _, t in L.tree_items(tree)]
+            for k, tree in (("v", st["opt"]["v"]), ("m", st["opt"]["m"]),
+                            ("params", st["params"]))}
+    got = run_ranks(tmp_path, 4, _Q8_RANK.format(
+        shape=(2, 2), arch=Q8_ARCH, layers=Q8_LAYERS, clip=Q8_CLIP))
+    leading = [t.shape[0] for _, t in L.tree_items(st["params"])
+               if t.dim() > 2]
+    assert any(n % 2 for n in leading)
+    for r, g in enumerate(got):
+        assert any("Shard(dim=0)" in s for s in g["split"]), g["split"]
+        for k in ("v", "m", "params"):
+            assert len(g[k]) == len(want[k])
+            for a, b in zip(g[k], want[k]):
+                assert torch.equal(a, b), (r, k)
 
 
 _SERVE_RANK = """
@@ -127,9 +211,10 @@ from repro_torch.sharding.rules import distribute_tree
 mesh = init_device_mesh("cpu", {shape}, mesh_dim_names=("data", "model"))
 model = build_model(reduced(get_config("{arch}")), device="cpu")
 ins = torch.load(os.path.join(out_dir, "..", "serve_in.pt"))
-meta = {{"tokens": torch.empty(2, 1, dtype=torch.int32, device="meta"),
+meta = {{"tokens": torch.empty({batch}, 1, dtype=torch.int32,
+                             device="meta"),
         "cache_len": torch.empty((), dtype=torch.int32, device="meta")}}
-bundle = make_serve_step(model, mesh, meta, batch_size=2, max_len=32)
+bundle = make_serve_step(model, mesh, meta, batch_size={batch}, max_len=32)
 params = distribute_tree(ins["params"], bundle.param_shardings)
 with torch.no_grad():
     first, fresh = bundle.prefill_fn(
@@ -155,23 +240,29 @@ save({{"logits": logits, "placements": [str(t.placements) for _, t in
 
 # the cache's layout over "model": qwen's 4 kv heads split on (1, 2);
 # starcoder2's 2 kv heads do not divide 4, so (1, 4) splits the sequence
-# (the flash-decoding layout, the softmax combined over the ranks)
-SERVE_CASES = [("qwen1.5-0.5b", (1, 2), "Shard(dim=3)"),
-               ("starcoder2-7b", (1, 4), "Shard(dim=2)")]
+# (the flash-decoding layout, the softmax combined over the ranks);
+# rwkv6 at batch 1 on (2, 1) (long_500k's decode): one row cannot split
+# over "data", so its state stays whole while the activations' layout
+# splits the batch unevenly
+SERVE_CASES = [("qwen1.5-0.5b", (1, 2), "Shard(dim=3)", 2),
+               ("starcoder2-7b", (1, 4), "Shard(dim=2)", 2),
+               ("rwkv6-7b", (2, 1), "Replicate(), Replicate()", 1)]
 
 
-@pytest.mark.parametrize("arch,shape,split", SERVE_CASES,
-                         ids=["qwen_heads", "starcoder2_sequence"])
+@pytest.mark.parametrize("arch,shape,split,batch", SERVE_CASES,
+                         ids=["qwen_heads", "starcoder2_sequence",
+                              "rwkv6_batch1"])
 def test_serve_decode_over_a_mesh_matches_one_device(tmp_path, arch, shape,
-                                                     split):
+                                                     split, batch):
     model = build_model(reduced(get_config(arch)), device="cpu")
     params = init_model_params(model, 0, device="cpu")
     rng = np.random.default_rng(1)
-    prompt = torch.as_tensor(rng.integers(0, 256, (2, 8)), dtype=torch.int32)
-    toks = [torch.as_tensor(rng.integers(0, 256, (2, 1)), dtype=torch.int32)
-            for _ in range(3)]
+    prompt = torch.as_tensor(rng.integers(0, 256, (batch, 8)),
+                             dtype=torch.int32)
+    toks = [torch.as_tensor(rng.integers(0, 256, (batch, 1)),
+                            dtype=torch.int32) for _ in range(3)]
     with torch.no_grad():
-        empty = init_cache(model, 2, 32, device="cpu")
+        empty = init_cache(model, batch, 32, device="cpu")
         first, cache = model.prefill(params, {"tokens": prompt}, empty)
         torch.save({"params": params, "cache": cache, "tokens": toks,
                     "prompt": prompt, "empty": empty},
@@ -183,7 +274,7 @@ def test_serve_decode_over_a_mesh_matches_one_device(tmp_path, arch, shape,
                                                "cache_len": 8 + t}, cache)
             want.append(out)
     got = run_ranks(tmp_path, shape[0] * shape[1],
-                    _SERVE_RANK.format(arch=arch, shape=shape))
+                    _SERVE_RANK.format(arch=arch, shape=shape, batch=batch))
     for r, g in enumerate(got):
         assert any(split in p for p in g["placements"]), g["placements"]
         np.testing.assert_allclose(g["prefill"].numpy(), first.numpy(),
@@ -197,6 +288,58 @@ def test_serve_decode_over_a_mesh_matches_one_device(tmp_path, arch, shape,
         for a, (_, b) in zip(g["cache"], L.tree_items(cache)):
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
                                        atol=1e-6)
+
+
+_VL_RANK = """
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_config, reduced
+from repro_torch.models import build_model, init_cache
+from repro_torch.serve.step import make_serve_step
+from repro_torch.sharding.rules import distribute_tree
+mesh = init_device_mesh("cpu", (1, 2), mesh_dim_names=("data", "model"))
+model = build_model(reduced(get_config("qwen2-vl-2b")), device="cpu")
+ins = torch.load(os.path.join(out_dir, "..", "vl_in.pt"))
+meta = {{k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+        for k, v in ins["batch"].items()}}
+bundle = make_serve_step(model, mesh, meta, batch_size=2, max_len=16)
+with torch.no_grad():
+    out, _ = bundle.prefill_fn(
+        distribute_tree(ins["params"], bundle.param_shardings),
+        distribute_tree(ins["batch"], bundle.batch_shardings),
+        distribute_tree(init_cache(model, 2, 16, device="cpu"),
+                        bundle.cache_shardings))
+save({{"logits": out.full_tensor()}})
+"""
+
+
+def test_qwen2vl_prefill_with_patches_over_a_mesh_matches_one_device(
+        tmp_path):
+    """Reduced qwen2-vl's prefill with its patch embeddings on a (1, 2)
+    mesh, the vocabulary split over "model": the lookup runs on local
+    shards (`models/layers.py:_embed_local`). DTensor's own
+    vocabulary-parallel rule failed here on gloo ("MaskBuffer has been
+    materialized with conflicting data")."""
+    from repro_torch.configs import input_specs
+    from repro_torch.configs.base import ShapeSpec
+
+    cfg = reduced(get_config("qwen2-vl-2b"))
+    model = build_model(cfg, device="cpu")
+    params = init_model_params(model, 0, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    batch = {k: (torch.randn(tuple(v.shape), generator=g, dtype=v.dtype)
+                 if v.dtype.is_floating_point else
+                 torch.randint(0, 256, tuple(v.shape), generator=g,
+                               dtype=v.dtype))
+             for k, v in input_specs(cfg, ShapeSpec("p", 16, 2,
+                                                    "prefill")).items()}
+    assert "patch_emb" in batch
+    torch.save({"params": params, "batch": batch}, tmp_path / "vl_in.pt")
+    with torch.no_grad():
+        want, _ = model.prefill(params, batch,
+                                init_cache(model, 2, 16, device="cpu"))
+    for g_ in run_ranks(tmp_path, 2, _VL_RANK.format()):
+        np.testing.assert_allclose(g_["logits"].numpy(), want.numpy(),
+                                   rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture

@@ -21,9 +21,14 @@ With ``--pp`` it runs the reference's `launch/dryrun_pp.py` the same way
 
 With ``--compare`` it prints one markdown row a cell of the port's
 records (`python -m repro_torch.launch.dryrun --all --mesh both`):
-status, per-device FLOPs of both and their ratio, bytes of both (the
-port's unfused), collectives by kind, and the port's H100 roofline
-(dominant term, bound, MFU bound).
+status, trace seconds, per-device FLOPs of both and their ratio, the
+port's peak memory a device (with its arguments) and whether it fits
+one H100's 80 GB, the reference's XLA memory analysis (arguments,
+outputs, temporaries), collectives by kind, and the port's H100
+roofline (dominant term, bound). The two memories are different
+accountings: the port's is eager liveness through the step
+(`analysis/op_cost.py`), the reference's XLA's buffer assignment over
+the compiled program.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+H100_BYTES = 80e9        # one H100's 80 GB of device memory
 SHORT = {"all-reduce": "AR", "all-gather": "AG", "reduce-scatter": "RS",
          "all-to-all": "A2A", "collective-permute": "CP",
          "collective-broadcast": "BC", "send": "S", "recv": "R"}
@@ -90,45 +96,51 @@ def _load(path: Path) -> dict:
     return json.loads(path.read_text()) if path.is_file() else {}
 
 
+def _gib(n) -> str:
+    return f"{n / 2**30:.3g}"
+
+
 def compare(ref_dir: Path, port_dir: Path) -> None:
-    """One row an (arch, shape): single-pod and two-pod cells side by
-    side (FLOPs as port / reference per device), then the single-pod
-    cell's bytes, collectives and roofline."""
-    print("| arch | shape | status (single, multi) | FLOPs a device, port "
-          "(port / ref): single; multi | bytes, port / ref (single) | "
-          "collectives, port; ref (single) | dominant, bound ms, MFU "
-          "bound (single; multi) |")
-    print("| --- | --- | --- | --- | --- | --- | --- |")
-    cells = sorted({tuple(f.name.split("__")[:2])
-                    for f in port_dir.glob("*__*__*.json")})
-    for arch, shape in cells:
-        port = {m: _load(port_dir / f"{arch}__{shape}__{m}.json")
-                for m in ("single", "multi")}
-        ref = {m: _load(ref_dir / f"{arch}__{shape}__{m}.json")
-               for m in ("single", "multi")}
-        status = ", ".join(
-            p.get("status", "not run") if p.get("status") != "fail" else
-            "fail: " + p.get("error", "").split(":")[0]
-            for p in port.values())
-        flops, roof = [], []
-        for m in ("single", "multi"):
-            oc, hc = port[m].get("op_cost"), ref[m].get("hlo_cost")
-            if not oc:
-                flops.append("-")
-                roof.append("-")
-                continue
+    """One row a cell of the port's records: status, trace seconds,
+    per-device FLOPs (port / reference), memory of both and whether the
+    port's peak fits one H100 (`H100_BYTES`), collectives by kind and
+    the port's H100 roofline (dominant term, bound)."""
+    print("| arch | shape | mesh | status | trace s | FLOPs a device, port "
+          "(port / ref) | peak GiB, port (args) | fits 80 GB | ref GiB: "
+          "args + out + temp | collectives, port; ref | dominant, bound "
+          "ms |")
+    print("| --- | --- | --- | --- | --- | --- | --- | --- | --- | --- "
+          "| --- |")
+    cells = sorted({tuple(f.name.split("__")[:3])
+                    for f in port_dir.glob("*__*__*.json")},
+                   key=lambda c: (c[0], c[1], c[2] != "single"))
+    for arch, shape, mesh in cells:
+        mesh = mesh.removesuffix(".json")
+        port = _load(port_dir / f"{arch}__{shape}__{mesh}.json")
+        ref = _load(ref_dir / f"{arch}__{shape}__{mesh}.json")
+        status = port.get("status", "not run")
+        if status == "fail":
+            status = "fail: " + port.get("error", "").split(":")[0]
+        oc, hc = port.get("op_cost"), ref.get("hlo_cost")
+        mem, rmem = port.get("memory", {}), ref.get("memory", {})
+        flops = peak = fits = colls = roof = "-"
+        if oc:
             ratio = f" ({oc['flops'] / hc['flops']:.3f})" if hc else ""
-            flops.append(f"{oc['flops']:.3e}{ratio}")
-            rl = port[m]["roofline"]
-            roof.append(f"{rl['dominant'][:4]}, {rl['bound_s'] * 1e3:.4g}, "
-                        f"{rl['mfu_bound'] * 100:.1f}%")
-        oc, hc = port["single"].get("op_cost"), ref["single"].get("hlo_cost")
-        nbytes = (f"{oc['bytes']:.2e} / {hc['bytes']:.2e}" if oc and hc
-                  else "-")
-        colls = (f"{_colls(oc['collectives'])}; {_colls(hc['collectives'])}"
-                 if oc and hc else "-")
-        print(f"| {arch} | {shape} | {status} | {'; '.join(flops)} | "
-              f"{nbytes} | {colls} | {'; '.join(roof)} |")
+            flops = f"{oc['flops']:.4g}{ratio}"
+            colls = _colls(oc["collectives"]) + (
+                f"; {_colls(hc['collectives'])}" if hc else "")
+            rl = port["roofline"]
+            roof = f"{rl['dominant'][:4]}, {rl['bound_s'] * 1e3:.4g}"
+        if "peak_bytes" in mem:
+            peak = (f"{_gib(mem['peak_bytes'])} "
+                    f"({_gib(mem['argument_size_in_bytes'])})")
+            fits = "yes" if mem["peak_bytes"] <= H100_BYTES else "no"
+        rgib = (" + ".join(_gib(rmem.get(k, 0)) for k in (
+            "argument_size_in_bytes", "output_size_in_bytes",
+            "temp_size_in_bytes")) if rmem else "-")
+        print(f"| {arch} | {shape} | {mesh} | {status} | "
+              f"{port.get('trace_s', '-')} | {flops} | {peak} | {fits} | "
+              f"{rgib} | {colls} | {roof} |")
 
 
 def main(argv=None) -> int:
