@@ -4475,7 +4475,7 @@ def mesh_check(dev, card: str) -> dict:
 
     t_phase = time.perf_counter()
     made = not dist.is_initialized()
-    mesh = make_local_mesh(data=1, model=1)
+    mesh = make_local_mesh(data=1, model=1, device=dev)
     try:
         model = build_model(get_config(LM_ARCH), device=dev)
         params = init_model_params(model, 0, device=dev)
@@ -4796,7 +4796,7 @@ def phase_r(dev, card: str, t1_busy_ms=None, t1_time=None) -> dict:
 
     t_phase = time.perf_counter()
     made = not dist.is_initialized()
-    mesh = make_local_mesh(data=1, model=1)
+    mesh = make_local_mesh(data=1, model=1, device=dev)
     try:
         pipe = init_device_mesh("cuda", (1,), mesh_dim_names=("pipe",))
 

@@ -40,6 +40,14 @@ Counts:
     consecutive ranks (the reference's ``dcn_bytes``, there the groups
     that cross a pod).
 
+With ``by_op`` (`analyze(..., by_op=n)`, ``launch/dryrun.py --by-op
+N``) the record also holds the ``n`` largest entries of ``flops`` by
+product: the operation, its local operands' shapes and the innermost
+frame of the port that ran it (a backward product runs from the
+step's ``autograd.grad``), each with its FLOPs summed over the step.
+Where a cell's count is off, the product that takes the excess shows
+there with its shapes, which say which dim the rank ran whole.
+
 Memory, in the same run: the bytes this rank holds as the step runs.
 The arguments (parameters, optimizer state, batch, cache: their local
 shards) are live throughout; every tensor an operation makes is live
@@ -63,6 +71,7 @@ from __future__ import annotations
 import math
 import sys
 import weakref
+from typing import Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -154,12 +163,28 @@ def _in_sharding_propagation() -> bool:
     return False
 
 
+def _site() -> str:
+    """The innermost frame of the port outside this module and
+    `sharding/local.py` (whose caller ran the product), as
+    "models/mamba.py:160"."""
+    f = sys._getframe(2)
+    while f is not None:
+        name = f.f_code.co_filename.replace("\\", "/")
+        if "/repro_torch/" in name and not name.endswith(
+                ("/op_cost.py", "/sharding/local.py")):
+            return f"{name.rsplit('/repro_torch/', 1)[1]}:{f.f_lineno}"
+        f = f.f_back
+    return "?"
+
+
 class OpCounter(TorchDispatchMode):
     """Counts the local operations run under it (see the module's
-    docstring); ``record()`` gives `analyze`'s dict."""
+    docstring); ``record()`` gives `analyze`'s dict. With ``by_op`` it
+    also sums ``flops`` by (operation, operand shapes, site)."""
 
-    def __init__(self):
+    def __init__(self, by_op: bool = False):
         super().__init__()
+        self.by_op: Optional[dict] = {} if by_op else None
         self.flops = 0
         self.bytes = 0
         self.transcendentals = 0
@@ -236,7 +261,11 @@ class OpCounter(TorchDispatchMode):
             return out
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None:
-            self.flops += int(formula(*args, **kwargs, out_val=out))
+            n = int(formula(*args, **kwargs, out_val=out))
+            self.flops += n
+            if self.by_op is not None and n:
+                key = (name, tuple(tuple(t.shape) for t in ins), _site())
+                self.by_op[key] = self.by_op.get(key, 0) + n
         else:
             n = sum(t.numel() for t in outs)
             self.elementwise += n
@@ -261,17 +290,22 @@ class OpCounter(TorchDispatchMode):
         }
 
 
-def analyze(fn, *args) -> dict:
-    """The counts of one run of ``fn(*args)``, with its ``memory`` (see
-    the module's docstring); its result is dropped. The caller builds
-    the inputs: "meta" tensors, or ``DTensor``s on a (fake) process
-    group's mesh."""
-    counter = OpCounter()
+def analyze(fn, *args, by_op: int = 0) -> dict:
+    """The counts of one run of ``fn(*args)``, with its ``memory`` and,
+    with ``by_op``, its ``by_op`` largest products (see the module's
+    docstring); its result is dropped. The caller builds the inputs:
+    "meta" tensors, or ``DTensor``s on a (fake) process group's mesh."""
+    counter = OpCounter(by_op=by_op > 0)
     arg_bytes = local_bytes(args)
     counter.hold_arguments(_tensors(args), arg_bytes)
     with counter:
         out = fn(*args)
     rec = counter.record()
+    if by_op:
+        top = sorted(counter.by_op.items(), key=lambda kv: -kv[1])[:by_op]
+        rec["by_op"] = [{"op": op, "shapes": [list(s) for s in shapes],
+                         "site": site, "flops": f}
+                        for (op, shapes, site), f in top]
     rec["memory"] = {"argument_size_in_bytes": arg_bytes,
                      "output_size_in_bytes": local_bytes(out),
                      "temp_size_in_bytes": counter.peak - arg_bytes,

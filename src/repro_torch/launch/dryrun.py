@@ -28,7 +28,8 @@ Usage:
 Besides the reference's flags: ``--shape`` also takes KIND_BxS (e.g.
 ``train_8x256``, ``decode_4x1024``: a global batch of B sequences of S
 tokens), and ``--mesh`` also takes DxM, a (data, model) mesh of D x M
-ranks. Each record is ``{out}/{arch}__{shape}__{mesh}.json``.
+ranks, or PxDxM, a (pod, data, model) one. Each record is
+``{out}/{arch}__{shape}__{mesh}.json``.
 """
 from __future__ import annotations
 
@@ -58,7 +59,7 @@ __all__ = ["fake_mesh", "all_to_all_moves", "shape_spec", "lower_cell",
            "run_cell", "main"]
 
 _SHAPE_RE = re.compile(r"^(train|prefill|decode)_(\d+)x(\d+)$")
-_MESH_RE = re.compile(r"^(\d+)x(\d+)$")
+_MESH_RE = re.compile(r"^(\d+)x(\d+)(?:x(\d+))?$")
 
 
 def shape_spec(name: str) -> ShapeSpec:
@@ -75,15 +76,17 @@ def shape_spec(name: str) -> ShapeSpec:
 def fake_mesh(mesh_kind: str):
     """A ``DeviceMesh`` over a fresh fake process group of as many ranks
     as the mesh has (this process is rank 0): "single" (16 x 16 over
-    data, model), "multi" (2 x 16 x 16 over pod, data, model) or DxM.
-    The group serves "meta" tensors too. `destroy` it after the cell."""
+    data, model), "multi" (2 x 16 x 16 over pod, data, model), DxM over
+    (data, model) or PxDxM over (pod, data, model). The group serves
+    "meta" tensors too. `destroy` it after the cell."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     m = _MESH_RE.match(mesh_kind)
     if m:
-        names, shape = ("data", "model"), (int(m.group(1)), int(m.group(2)))
+        shape = tuple(int(g) for g in m.groups() if g is not None)
+        names = ("pod", "data", "model")[-len(shape):]
     else:
         if mesh_kind not in ("single", "multi"):
             raise ValueError(f"mesh {mesh_kind!r}")
@@ -179,7 +182,7 @@ def lower_cell(arch: str, shape_name: str, mesh, strategy: str = None,
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: Path,
              strategy: str = None, overrides: dict = None, tag: str = "",
-             config=None):
+             config=None, by_op: int = 0):
     import torch.distributed as dist
 
     t0 = time.time()
@@ -194,7 +197,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: Path,
             rec.update(meta)
             t1 = time.time()
             with all_to_all_moves():
-                rec["op_cost"] = analyze(fn, *args)
+                rec["op_cost"] = analyze(fn, *args, by_op=by_op)
             rec["trace_s"] = round(time.time() - t1, 1)
             rec["memory"] = rec["op_cost"].pop("memory")
             rec["roofline"] = cell_roofline(rec, active_param_count(arch))
@@ -215,6 +218,12 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: Path,
     extra = "" if status == "ok" else f"  !! {rec.get('error', '')[:160]}"
     print(f"[dryrun] {arch:28s} {shape_name:12s} {mesh_kind:6s} {status}"
           f"  ({rec['total_s']}s){extra}", flush=True)
+    if status == "ok" and by_op:
+        total = rec["op_cost"]["flops"]
+        for e in rec["op_cost"]["by_op"]:
+            print(f"  {e['flops']:.4e} {e['flops'] / total:6.1%} {e['op']} "
+                  f"{' @ '.join(map(str, e['shapes']))}  {e['site']}",
+                  flush=True)
     return rec
 
 
@@ -223,7 +232,7 @@ def main(argv=None):
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--mesh", default="single",
-                    help="single | multi | both | DxM")
+                    help="single | multi | both | DxM | PxDxM")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default="results/dryrun_torch")
     ap.add_argument("--skip-existing", action="store_true")
@@ -232,6 +241,10 @@ def main(argv=None):
     ap.add_argument("--set", action="append", default=[],
                     help="config override key=value (e.g. ssm.impl=matmul)")
     ap.add_argument("--tag", default="", help="suffix for the output file")
+    ap.add_argument("--by-op", type=int, default=0, metavar="N",
+                    help="print (and record) each cell's N largest "
+                         "products by FLOPs, with their local shapes and "
+                         "the port's frame that ran them")
     args = ap.parse_args(argv)
     overrides = {}
     for kv in args.set:
@@ -270,7 +283,7 @@ def main(argv=None):
                       flush=True)
                 continue
         rec = run_cell(arch, shape, mk, out_dir, args.strategy, overrides,
-                       args.tag)
+                       args.tag, by_op=args.by_op)
         n_fail += rec["status"] != "ok"
     print(f"[dryrun] done, {n_fail} failures", flush=True)
     return 1 if n_fail else 0

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 
-import torch
+from repro_torch.device import resolve_device
 
 __all__ = ["MeshShape", "make_production_mesh", "make_local_mesh",
            "mesh_axis_sizes"]
@@ -37,16 +37,17 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
     return MeshShape(("data", "model"), (16, 16))
 
 
-def make_local_mesh(*, data: int = 1, model: int = 1):
-    """A (data, model) ``DeviceMesh`` over the present devices: the cards
-    when there are any, else the CPU, one rank a device of the default
-    process group (started here with world size 1 and an in-memory store
-    when none is). Raises unless the world has exactly ``data * model``
-    ranks."""
+def make_local_mesh(*, data: int = 1, model: int = 1, device="cuda"):
+    """A (data, model) ``DeviceMesh`` over ``device``'s type (default the
+    cards; raises on a host without one unless given ``device="cpu"``),
+    one rank a device of the default process group (started here with
+    world size 1 and an in-memory store when none is: NCCL on the cards,
+    gloo on the CPU). Raises unless the world has exactly
+    ``data * model`` ranks."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
-    device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    device_type = resolve_device(device).type
     if not dist.is_initialized():      # one process, an in-memory store
         dist.init_process_group(
             "nccl" if device_type == "cuda" else "gloo",

@@ -26,6 +26,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.ctx import split_axis
+from repro_torch.sharding.local import local_call
+
 __all__ = ["P", "fanin_std", "stack_schema", "tree_map", "tree_items",
            "tree_from_items", "init_leaf", "init_params", "axes_tree",
            "abstract_params", "param_count",
@@ -236,17 +239,54 @@ def _embed_local(table, tokens):
                               stride=torch.empty(shape, device="meta").stride())
 
 
+def _unembed(x, table):
+    return torch.matmul(x.float(), table.float().t())
+
+
 def unembed(params, x):
     """Tied-embedding logits, in float32 for a stable softmax."""
-    return torch.matmul(x.float(), params["embedding"].float().t())
+    return _head(x, params["embedding"], 0, _unembed)
 
 
 def linear_head_schema(d: int, vocab: int):
     return {"w": P((d, vocab), ("embed", "vocab"), fanin_std(d))}
 
 
+def _linear_head(x, w):
+    return torch.matmul(x.float(), w.float())
+
+
 def linear_head(params, x):
-    return torch.matmul(x.float(), params["w"].float())
+    return _head(x, params["w"], 1, _linear_head)
+
+
+def _head(x, w, vocab_dim: int, fn):
+    """``fn(x, w)``, the logits. Where the mesh axis the installed "btv"
+    layout names does not divide the vocabulary (whisper's 51,865 over
+    16), the weight, whole on that axis by the rules, is cut into
+    ``DTensor``'s uneven chunks there (the first ranks ceil(V / n)
+    columns, as XLA pads the split) and each rank computes its columns
+    on local shards (`local_call`); the logits stay split so. Elsewhere
+    (a plain tensor, no such axis, or one that divides the vocabulary,
+    which ``DTensor``'s own rule splits) ``fn(x, w)`` as it is."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    axis = split_axis("btv", 2)
+    if axis is not None and isinstance(w, DTensor):
+        mesh = w.device_mesh
+        i = tuple(mesh.mesh_dim_names).index(axis)
+        if w.shape[vocab_dim] % mesh.size(i) and \
+                w.placements[i].is_replicate():
+            placements = list(w.placements)
+            placements[i] = Shard(vocab_dim)
+            # roles (rows, vocabulary); the weight gathered where ZeRO-3
+            # splits its width
+            local = local_call(fn, (x, w.redistribute(mesh, placements)),
+                               ((0, None), (None, vocab_dim)), ((0, 2),),
+                               gather=(1,))
+            if local is not None:
+                return local
+    return fn(x, w)
 
 
 # ---------------------------------------------------------------------------
@@ -360,6 +400,8 @@ def _cross_entropy_parallel(logits, labels, z_loss: float):
     batch's groups. Returns a replicated 0-d ``DTensor``."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
 
     mesh, last = logits.device_mesh, logits.ndim - 1
     vocab = [i for i, p in enumerate(logits.placements) if p.is_shard(last)]
@@ -379,7 +421,10 @@ def _cross_entropy_parallel(logits, labels, z_loss: float):
     if vocab:
         group = mesh.get_group(vocab[0])
         dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
-        idx = idx - mesh.get_local_rank(vocab[0]) * x.shape[-1]
+        # this rank's first column (the chunks may be uneven: the head's
+        # split of a vocabulary the axis does not divide)
+        idx = idx - compute_local_shape_and_global_offset(
+            logits.shape, mesh, logits.placements)[1][last]
     inside = (idx >= 0) & (idx < x.shape[-1])
     gold = torch.where(inside, torch.gather(
         x, -1, torch.clamp(idx, 0, x.shape[-1] - 1)[..., None])[..., 0], 0.0)

@@ -12,8 +12,11 @@ plain PyTorch, as the reference's model path runs it in plain jnp.
 
 Over a mesh both run on each rank's shards (`sharding.local.local_call`):
 batch rows and heads (channels, for the convolution) are independent,
-so the chunk loop dispatches no ``DTensor`` operation. On plain tensors
-they are the one-device code.
+so the chunk loop dispatches no ``DTensor`` operation. So do the block's
+two projections (`_project`): the input projection with its width split
+over "model" (its cotangent too, so that its weight's gradient is each
+rank's share), the output projection contracting over that split. On
+plain tensors they are the one-device code.
 """
 from __future__ import annotations
 
@@ -141,6 +144,19 @@ def ssd_chunked(xh, dt, A, B_, C_, s0, chunk: int):
     return y[:, :S_in], Sst
 
 
+def _project(x, w, dims, out_dims):
+    """``x @ w`` on each rank's shards (`local_call`: roles (rows, width),
+    ``w`` gathered where ZeRO-3 splits its other dim), so that neither
+    the product nor its gradients depend on the layout ``DTensor`` would
+    choose. On a three-axis mesh ``DTensor`` took the input projection's
+    cotangent whole over "model" (the split's gather hands it back so)
+    and ran the weight's gradient over the whole width on every model
+    rank. ``x @ w`` itself on a plain tensor or a layout that is not
+    local."""
+    local = local_call(torch.matmul, (x, w), dims, (out_dims,), gather=(1,))
+    return torch.matmul(x, w) if local is None else local
+
+
 def mamba_block(params, x, state, cfg, *, mode: str):
     """x: (B, S, d); state: dict(conv: (B, k-1, C), s: (B, H, P, N)).
     Returns (x + out, new state)."""
@@ -152,7 +168,9 @@ def mamba_block(params, x, state, cfg, *, mode: str):
     cd = x.dtype
 
     h = apply_norm(params["norm"], x, kind="rmsnorm", eps=cfg.norm_eps)
-    zxbcdt = torch.matmul(h, params["in_proj"].to(cd))
+    # roles (rows, width): the width split over "model" in the output
+    zxbcdt = _project(h, params["in_proj"].to(cd), ((0, None), (None, 1)),
+                      (0, 2))
     z, xr, B_, C_, dt = torch.split(zxbcdt, [d_in, d_in, N, N, H], dim=-1)
 
     conv_out, conv_state = causal_conv1d(
@@ -181,7 +199,9 @@ def mamba_block(params, x, state, cfg, *, mode: str):
     y = y * F.silu(z.float())
     var = torch.mean(torch.square(y), dim=-1, keepdim=True)
     y = y * torch.rsqrt(var + cfg.norm_eps) * params["gn_scale"].float()
-    out = torch.matmul(y.to(cd), params["out_proj"].to(cd))
+    # roles (rows, width): a sum over the split width, partial over "model"
+    out = _project(y.to(cd), params["out_proj"].to(cd), ((0, 2), (None, 0)),
+                   (0, None))
     return x + out, {"conv": conv_state, "s": s_fin}
 
 

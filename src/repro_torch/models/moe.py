@@ -81,6 +81,34 @@ def _shared_mlp(sp, x, act: str, cd):
     return torch.matmul(h, sp["w_out"].to(cd))
 
 
+def _dispatch(dispatch, xg, experts):
+    """The tokens gathered into their experts' slots: the one-hot
+    dispatch (G, sg, E, C) and the tokens (G, sg, d) give (E, G, C, d).
+    Over a mesh that splits the experts (where ``experts``, an expert
+    weight, is split on its first dim), each rank gathers its own
+    experts' slots on local shards (`local_call`: the dispatch, whole
+    there, is cut on its experts without communication), and the sum
+    over a group's tokens is a partial one where they are split. XLA
+    splits this product over the expert ranks; ``DTensor``'s own rule
+    ran it for every expert on each of them and cut the result after."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if isinstance(dispatch, DTensor) and isinstance(experts, DTensor) and \
+            experts.device_mesh == dispatch.device_mesh:
+        placements = [Shard(2) if type(e) is Shard and e.dim == 0 and
+                      p.is_replicate() else p
+                      for p, e in zip(dispatch.placements,
+                                      experts.placements)]
+        # roles (group, token, expert); the output's sum over the tokens
+        local = local_call(
+            lambda c, x: torch.einsum("gsec,gsd->egcd", c, x),
+            (dispatch.redistribute(dispatch.device_mesh, placements), xg),
+            ((0, 1, 2), (0, 1, None)), ((1, None, 0),))
+        if local is not None:
+            return local
+    return torch.einsum("gsec,gsd->egcd", dispatch, xg)
+
+
 def _combine(combine, eo):
     """The experts' outputs ``eo`` (E, G, C, d) gathered back to their
     tokens by the combine weights (G, sg, E, C): (G, sg, d). Over a mesh
@@ -138,7 +166,7 @@ def moe_layer(params, x, cfg):
     cd = cfg.compute_dtype
     dispatch = (combine > 0).to(cd)
     # dispatch -> every expert's FFN over its C slots -> combine
-    xin = torch.einsum("gsec,gsd->egcd", dispatch, xg.to(cd))
+    xin = _dispatch(dispatch, xg.to(cd), params["w_gate"])
     h = ACTS[cfg.act](torch.einsum("egcd,edf->egcf", xin,
                                    params["w_gate"].to(cd)))
     h = h * torch.einsum("egcd,edf->egcf", xin, params["w_in"].to(cd))

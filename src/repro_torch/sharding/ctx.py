@@ -20,7 +20,7 @@ from typing import Optional
 from repro_torch.launch.mesh import mesh_axis_sizes
 
 __all__ = ["make_activation_specs", "activation_sharding", "install",
-           "constrain", "pin"]
+           "constrain", "pin", "split_axis"]
 
 # (mesh, {kind: spec}) while a table is installed
 _STATE: Optional[tuple] = None
@@ -67,6 +67,17 @@ def install(mesh, strategy: str = "train") -> None:
         if mesh is not None else None
 
 
+def split_axis(kind: str, dim: int) -> Optional[str]:
+    """The one mesh axis the installed table splits dim ``dim`` of
+    ``kind`` over, else None (no table, the dim whole or over several
+    axes)."""
+    if _STATE is None:
+        return None
+    spec = _STATE[1].get(kind)
+    entry = spec[dim] if spec is not None else None
+    return entry if isinstance(entry, str) else None
+
+
 def constrain(x, kind: str):
     """``x`` redistributed to the installed ``kind``'s placements when it
     is a ``DTensor`` of that rank; else ``x`` itself."""
@@ -76,7 +87,7 @@ def constrain(x, kind: str):
     spec = specs.get(kind)
     if spec is None or x.ndim != len(spec):
         return x
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Shard
 
     from repro_torch.sharding.rules import placements_for
 
@@ -84,10 +95,13 @@ def constrain(x, kind: str):
         return x
     # a dim the mesh does not divide stays whole, as `rules.spec_for`
     # leaves it (DTensor cannot flatten an unevenly split dim: a batch of
-    # one over "data")
+    # one over "data"), unless the model split it so itself (the head's
+    # logits over a vocabulary "model" does not divide, `layers._head`)
     sizes = mesh_axis_sizes(mesh)
     spec = tuple(e if e is None or x.shape[d] % math.prod(
         sizes[a] for a in ((e,) if isinstance(e, str) else e)) == 0
+        or isinstance(e, str) and x.placements[
+            tuple(mesh.mesh_dim_names).index(e)] == Shard(d)
         else None for d, e in enumerate(spec))
     return pin(x, placements_for(spec, mesh))
 

@@ -128,8 +128,10 @@ def local_call(fn, args, dims, out_dims, *, gather=()):
             else:
                 shape[ds[r]] = sizes[r]
                 placements.append(Shard(ds[r]))
+        # the global stride given is the contiguous one: a permuted
+        # local result (an einsum's) is laid out so first
         wrapped.append(DTensor.from_local(
-            o, mesh, placements, run_check=False, shape=torch.Size(shape),
-            stride=_contiguous_stride(shape)))
+            o.contiguous(), mesh, placements, run_check=False,
+            shape=torch.Size(shape), stride=_contiguous_stride(shape)))
     return wrapped[0] if single else tuple(wrapped)
 

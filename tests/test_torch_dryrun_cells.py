@@ -16,9 +16,22 @@ to split the dims that failed at production size:
 * qwen2-vl prefill with its patch embeddings on (2, 2): the vocabulary
   split over "model" (prefill_32k: "aten::equal ... Meta tensors");
 * zamba2 train on (2, 4): the Mamba2 scans and convolutions on local
-  shards in a train step.
+  shards in a train step;
+* zamba2 train on (2, 2, 2), one layer of width 128: on a three-axis
+  mesh ``DTensor`` took the Mamba2 input projection's cotangent whole
+  over "model" and ran its weight gradient over the whole width on
+  every model rank (train_4k on two pods: 3.234 of the reference's
+  FLOPs; `models/mamba.py:_project`);
+* whisper decode with a vocabulary of 255 on (2, 2): "model" does not
+  divide it, and the head ran whole on every model rank (decode_32k:
+  51,865 over 16, 1.376; `models/layers.py:_head`);
+* deepseek-moe decode with 16 experts on (2, 4): the dispatch product
+  ran for every expert on each expert rank (`models/moe.py:_dispatch`),
+  and one group's tokens split over "data" (decode_32k);
+* whisper train with a vocabulary of 255 on (2, 2) (train_4k: 0.796).
 
-Each must give ``ok`` with the four memory fields, and its per-device
+The zamba2, whisper decode and MoE cells fail on the code before those
+repairs. Each must give ``ok`` with the four memory fields, and its per-device
 FLOPs must lie within 5% of the reference's `hlo_cost` on the same cut
 cell (its mesh built with Auto axes over forced host devices), once the
 named differences of the two counts are undone:
@@ -31,7 +44,20 @@ named differences of the two counts are undone:
 * XLA splits the backward of rwkv6's two low-rank mixing products, and
   the recomputed second one, over "model"; the port runs them whole on
   every model rank (`models/rwkv.py:_mixed_streams` mixes a rank's rows
-  with the mixing weights gathered).
+  with the mixing weights gathered);
+* where "model" does not divide the vocabulary, XLA runs the head's
+  input gradient over the whole vocabulary on every model rank (the
+  cotangent of its padded split gathered); the port over each rank's
+  chunk, as XLA runs the head's forward and its weight gradient. The
+  reference counts the rest, 2 x rows x d x (V - ceil(V / m)) a
+  position: at train_4k it and the chunk grid make whisper's 0.796;
+* in a decode whose group of tokens is split over the data ranks, XLA
+  runs the experts' output product over all of the group's capacity
+  slots on every data rank; ``DTensor`` splits the hidden activations'
+  slots over them first, so the port runs 1 / dp of that product (the
+  experts' gate and input products run over every slot in both). The
+  reference counts the rest: at decode_32k it is deepseek-moe's 0.733
+  (one pod) and 0.703 (two pods), where the dispatch repair left them.
 
 The guard on the scans: a reduced rwkv6 and zamba2 prefill dispatch as
 many ``DTensor`` operations at 16 chunks as at 4 (the chunk loops run on
@@ -41,15 +67,20 @@ gives its known peak, a reduced train step reads the same peak on
 `local_bytes` of the arguments.
 """
 import dataclasses
+import inspect
 import json
+import math
 
 import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced
+from repro_torch.models.moe import _capacity
 from test_torch_dryrun import _finish, _python, chunk_grid_flops
 
-# name: (arch, kind, batch, seq, (data, model), config overrides)
+# name: (arch, kind, batch, seq, mesh, config overrides); the mesh is
+# (data, model) or (pod, data, model), an override "moe.X" sets the MoE
+# config's X (`cut_config`)
 CELLS = {
     "rwkv6_train": ("rwkv6-7b", "train", 8, 64, (2, 2), {}),
     "rwkv6_decode_batch1": ("rwkv6-7b", "decode", 1, 64, (2, 1), {}),
@@ -57,12 +88,32 @@ CELLS = {
                            (2, 2), {"num_layers": 6}),
     "qwen2vl_prefill_patches": ("qwen2-vl-2b", "prefill", 8, 64, (2, 2), {}),
     "zamba2_train": ("zamba2-7b", "train", 8, 64, (2, 4), {}),
+    "zamba2_train_pods": ("zamba2-7b", "train", 8, 16, (2, 2, 2),
+                          {"num_layers": 1, "d_model": 128}),
+    "whisper_decode_vocab255": ("whisper-medium", "decode", 8, 64, (2, 2),
+                                {"vocab_size": 255}),
+    "moe_decode": ("deepseek-moe-16b", "decode", 16, 64, (2, 4),
+                   {"moe.num_experts": 16}),
+    "whisper_train_vocab255": ("whisper-medium", "train", 8, 64, (2, 2),
+                               {"vocab_size": 255}),
 }
 FLOPS_TOL = 0.05
 MEMORY_KEYS = ("argument_size_in_bytes", "output_size_in_bytes",
                "temp_size_in_bytes", "peak_bytes")
 # the dispatch guard: (arch, prefill sequence lengths) at chunk 8
 GUARD = (("rwkv6-7b", (32, 128)), ("zamba2-7b", (32, 128)))
+
+def cut_config(arch, over):
+    """`configs.reduced`'s cut of ``arch`` with ``over`` set on it (both
+    packages' configs: the subprocesses run this function's source)."""
+    cfg = reduced(get_config(arch))
+    moe = {k[4:]: v for k, v in over.items() if k.startswith("moe.")}
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe))
+    return dataclasses.replace(cfg, **{k: v for k, v in over.items()
+                                       if not k.startswith("moe.")})
+
 
 _REF = """
 import dataclasses, json, os
@@ -79,12 +130,13 @@ from repro.sharding.rules import Strategy
 from repro.train.step import make_train_step
 
 out = {}
-for name, (arch, kind, b, s, (d, m), over) in CELLS.items():
-    cfg = dataclasses.replace(reduced(get_config(arch)), **over)
+for name, (arch, kind, b, s, shape, over) in CELLS.items():
+    cfg = cut_config(arch, over)
     model = build_model(cfg)
     batch = input_specs(cfg, ShapeSpec(name, s, b, kind))
-    mesh = Mesh(np.array(jax.devices()[:d * m]).reshape(d, m),
-                ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    mesh = Mesh(np.array(jax.devices()[:int(np.prod(shape))]).reshape(shape),
+                ("pod", "data", "model")[-len(shape):],
+                axis_types=(AxisType.Auto,) * len(shape))
     with mesh:
         if kind == "train":
             bd = make_train_step(model, _opt_config_for(cfg), mesh, batch,
@@ -108,10 +160,10 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.launch.dryrun import fake_mesh, lower_cell, run_cell
 out_dir = Path(sys.argv[1])
 out = {}
-for name, (arch, kind, b, s, (d, m), over) in CELLS.items():
-    cfg = dataclasses.replace(reduced(get_config(arch)), **over)
-    out[name] = run_cell(arch, f"{kind}_{b}x{s}", f"{d}x{m}", out_dir,
-                         config=cfg)
+for name, (arch, kind, b, s, shape, over) in CELLS.items():
+    cfg = cut_config(arch, over)
+    out[name] = run_cell(arch, f"{kind}_{b}x{s}", "x".join(map(str, shape)),
+                         out_dir, config=cfg)
 for arch, seqs in GUARD:
     for s in seqs:
         rec = run_cell(arch, f"prefill_4x{s}", "2x2", out_dir,
@@ -119,8 +171,8 @@ for arch, seqs in GUARD:
         out[f"guard {arch} {s}"] = rec
 # the arguments' bytes as PR 28's record gave them
 name = "rwkv6_train"
-arch, kind, b, s, (d, m), over = CELLS[name]
-mesh = fake_mesh(f"{d}x{m}")
+arch, kind, b, s, shape, over = CELLS[name]
+mesh = fake_mesh("x".join(map(str, shape)))
 try:
     _, args, _ = lower_cell(arch, f"{kind}_{b}x{s}", mesh,
                             config=reduced(get_config(arch)))
@@ -136,7 +188,8 @@ def runs(tmp_path_factory):
     """The reference's counts (one subprocess) and the port's records
     (one), at once."""
     out = tmp_path_factory.mktemp("cells")
-    consts = f"CELLS = {CELLS!r}\nGUARD = {GUARD!r}\n"
+    consts = (f"CELLS = {CELLS!r}\nGUARD = {GUARD!r}\n"
+              + inspect.getsource(cut_config))
     procs = {"reference": _python(consts + _REF),
              "port": _python(consts + _PORT, str(out))}
     try:
@@ -150,17 +203,27 @@ def runs(tmp_path_factory):
 
 
 def _cut(name):
-    arch, kind, b, s, (d, m), over = CELLS[name]
-    return dataclasses.replace(reduced(get_config(arch)), **over)
+    arch, kind, b, s, shape, over = CELLS[name]
+    return cut_config(arch, over)
+
+
+def _moe_layers(cfg) -> int:
+    m = cfg.moe
+    return sum(1 for i in range(m.first_dense, cfg.num_layers)
+               if i % m.every_k_layers == m.every_k_layers - 1)
 
 
 def counted_apart(name) -> float:
     """The FLOPs a device that the port counts and the reference's
     `hlo_cost` does not, less those it counts and the port does not (see
     the module's docstring), for cut cell ``name``."""
-    arch, kind, b, s, (d, m), _ = CELLS[name]
+    arch, kind, b, s, shape, _ = CELLS[name]
     cfg = _cut(name)
-    rows = b / d if b % d == 0 else b
+    dp, m = math.prod(shape[:-1]), shape[-1]
+    rows = b / dp if b % dp == 0 else b
+    # the vocabulary a model rank holds: XLA pads an uneven split, the
+    # port's first ranks hold as many columns
+    vocab = math.ceil(cfg.vocab_size / m)
     extra = 0.0
     attn_layers = (cfg.num_layers // cfg.shared_attn_every
                    if cfg.shared_attn_every else
@@ -171,9 +234,23 @@ def counted_apart(name) -> float:
         extra += chunk_grid_flops(cfg, s, rows, heads, 4 if kind == "train"
                                   else 1) * attn_layers / cfg.num_layers
     if kind == "prefill":
-        vocab = cfg.vocab_size / m if cfg.vocab_size % m == 0 else \
-            cfg.vocab_size
         extra -= 2 * rows * (s - 1) * cfg.d_model * vocab
+    if kind == "train" and cfg.vocab_size % m:
+        # XLA: the head's input gradient over the whole vocabulary
+        extra -= 2 * rows * s * cfg.d_model * (cfg.vocab_size - vocab)
+    mo = cfg.moe
+    sg = min(mo.group_size, b) if mo else 1
+    while b % sg:
+        sg -= 1
+    if kind == "decode" and mo and (b // sg) % dp:
+        # a group's tokens split over the data ranks. XLA: the experts'
+        # output product over all of the group's slots on every data
+        # rank; the port: over 1 / dp of them
+        slots = b // sg * _capacity(sg, mo.top_k, mo.num_experts,
+                                    mo.capacity_factor)
+        product = 2 * mo.num_experts / m * slots * mo.d_ff_expert * \
+            cfg.d_model * _moe_layers(cfg)
+        extra -= product * (1 - 1 / dp)
     if kind == "train" and cfg.ssm and cfg.ssm.kind == "rwkv6":
         rank = 32                          # `rwkv_block_schema`'s lora_A
         product = 2 * rows * s * cfg.d_model * 5 * rank * cfg.num_layers
@@ -282,3 +359,29 @@ def test_tracker_reads_the_same_peak_on_meta_as_on_real_tensors():
         dist.destroy_process_group()
     assert mem["meta"] == mem["cpu"]
     assert mem["cpu"]["peak_bytes"] > mem["cpu"]["argument_size_in_bytes"]
+
+
+def test_by_op_names_the_largest_products_with_their_shapes():
+    """``analyze(..., by_op=n)``: the products summed by (operation,
+    operand shapes, the port's frame), largest first; two calls of one
+    product add up, and the entries sum to ``flops`` when all are
+    kept. It changes no count."""
+    from repro_torch.analysis.op_cost import analyze
+    from repro_torch.models.layers import _linear_head
+
+    x, w, v = (torch.ones(s, device="meta") for s in
+               ((4, 8), (8, 16), (16, 2)))
+
+    def fn(x, w, v):
+        h = _linear_head(x, w)
+        return _linear_head(x, w) + h, torch.matmul(h, v)
+
+    rec = analyze(fn, x, w, v, by_op=5)
+    assert rec["flops"] == analyze(fn, x, w, v)["flops"] == \
+        2 * (2 * 4 * 8 * 16) + 2 * 4 * 16 * 2
+    top = rec["by_op"]
+    assert [e["flops"] for e in top] == [2 * 2 * 4 * 8 * 16, 2 * 4 * 16 * 2]
+    assert top[0]["op"] == "mm" and top[0]["shapes"] == [[4, 8], [8, 16]]
+    assert top[0]["site"].startswith("models/layers.py:")
+    assert top[1]["site"] == "?"            # run from the test, not the port
+    assert analyze(fn, x, w, v, by_op=1)["by_op"] == top[:1]

@@ -292,14 +292,27 @@ def test_models_unchanged_with_a_context_installed(name):
 def local_mesh():
     import torch.distributed as dist
 
-    mesh = make_local_mesh(data=1, model=1)
+    mesh = make_local_mesh(data=1, model=1, device="cpu")
     yield mesh
     dist.destroy_process_group()
 
 
+def test_local_mesh_defaults_to_the_card_and_raises_without_one(
+        monkeypatch):
+    """``make_local_mesh()`` asks for the cards: on a host without one
+    it raises before it starts a process group, as every entry of the
+    port does, and never falls back to the CPU by itself."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        make_local_mesh()
+    assert not dist.is_initialized()
+
+
 def test_local_mesh_refuses_more_ranks_than_the_world(local_mesh):
     with pytest.raises(ValueError, match="needs 4 ranks"):
-        make_local_mesh(data=2, model=2)
+        make_local_mesh(data=2, model=2, device="cpu")
     assert mesh_axis_sizes(local_mesh) == {"data": 1, "model": 1}
 
 

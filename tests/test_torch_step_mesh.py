@@ -23,6 +23,7 @@ pinned (see ROADMAP C.8: both packages' float32 states agree to an ulp;
 what differs is a bfloat16 rounding of the step's WKV output, in both
 packages alike).
 """
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -45,6 +46,7 @@ from test_torch_train import (GRAD_TOL, LOSS_TOL, OPT, STEP_UPDATE_TOL,
 ROOT = Path(__file__).resolve().parents[1]
 
 _TRAIN_RANK = """
+import dataclasses
 from torch.distributed.device_mesh import init_device_mesh
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import build_model
@@ -56,9 +58,10 @@ from repro_torch.train.step import (distribute_state, init_state,
 from torch.distributed.tensor import distribute_tensor
 shape = {shape}
 mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
-model = build_model(reduced(get_config("{arch}")), device="cpu")
+cfg = dataclasses.replace(reduced(get_config("{arch}")), **{over})
+model = build_model(cfg, device="cpu")
 oc = optim.OptConfig(**{opt})
-toks = np.random.default_rng(0).integers(0, 256, (4, 17))
+toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 17))
 batch = {{"tokens": toks[:, :-1].astype(np.int32),
          "labels": toks[:, 1:].astype(np.int32)}}
 bundle = make_train_step(model, oc, {{k: (v.shape, torch.int32)
@@ -81,10 +84,11 @@ save({{"grads": grads, "metrics": {{k: float(v) for k, v in met.items()}},
 """
 
 
-def _one_device_train(arch):
-    model = build_model(reduced(get_config(arch)), device="cpu")
+def _one_device_train(arch, over):
+    cfg = dataclasses.replace(reduced(get_config(arch)), **over)
+    model = build_model(cfg, device="cpu")
     oc = optim.OptConfig(**OPT)
-    toks = np.random.default_rng(0).integers(0, 256, (4, 17))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 17))
     batch = {"tokens": toks[:, :-1].astype(np.int32),
              "labels": toks[:, 1:].astype(np.int32)}
     st = init_state(model, oc, 0, device="cpu")
@@ -101,21 +105,28 @@ def _one_device_train(arch):
 
 
 # qwen; rwkv6 and zamba2, whose scans, token shifts, mixed streams and
-# convolutions run on each rank's shards over a mesh; deepseek-moe, whose
-# combine product does (its sum over the experts a partial one)
-TRAIN_CASES = [pytest.param(arch, shape, id=f"{tag}{sid}")
+# convolutions run on each rank's shards over a mesh (zamba2's two
+# projections too); deepseek-moe, whose combine product does (its sum
+# over the experts a partial one); qwen with a vocabulary of 255, which
+# "model" does not divide: its tied head runs on uneven chunks of the
+# vocabulary and the loss reads each rank's offset into it
+TRAIN_CASES = [pytest.param(arch, shape, {}, id=f"{tag}{sid}")
                for arch, tag in (("qwen1.5-0.5b", ""), ("rwkv6-7b", "rwkv6_"),
                                  ("zamba2-7b", "zamba2_"),
                                  ("deepseek-moe-16b", "moe_"))
                for shape, sid in (((2, 1), "data2"),
-                                  ((1, 2), "data1_model2"))]
+                                  ((1, 2), "data1_model2"))] + [
+    pytest.param("qwen1.5-0.5b", (2, 2), {"vocab_size": 255},
+                 id="vocab255_data2_model2")]
 
 
-@pytest.mark.parametrize("arch,shape", TRAIN_CASES)
-def test_train_step_over_a_mesh_matches_one_device(tmp_path, arch, shape):
-    grads, met, old, new = _one_device_train(arch)
+@pytest.mark.parametrize("arch,shape,over", TRAIN_CASES)
+def test_train_step_over_a_mesh_matches_one_device(tmp_path, arch, shape,
+                                                   over):
+    grads, met, old, new = _one_device_train(arch, over)
     got = run_ranks(tmp_path, shape[0] * shape[1],
-                    _TRAIN_RANK.format(arch=arch, shape=shape, opt=OPT))
+                    _TRAIN_RANK.format(arch=arch, shape=shape, opt=OPT,
+                                       over=over))
     for r, g in enumerate(got):
         for k in ("loss", "ce", "grad_norm"):
             np.testing.assert_allclose(g["metrics"][k], met[k], **LOSS_TOL)
@@ -208,8 +219,10 @@ from repro_torch.models import build_model
 from repro_torch.models.layers import tree_items
 from repro_torch.serve.step import make_serve_step
 from repro_torch.sharding.rules import distribute_tree
+import dataclasses
 mesh = init_device_mesh("cpu", {shape}, mesh_dim_names=("data", "model"))
-model = build_model(reduced(get_config("{arch}")), device="cpu")
+model = build_model(dataclasses.replace(reduced(get_config("{arch}")),
+                                        **{over}), device="cpu")
 ins = torch.load(os.path.join(out_dir, "..", "serve_in.pt"))
 meta = {{"tokens": torch.empty({batch}, 1, dtype=torch.int32,
                              device="meta"),
@@ -230,7 +243,8 @@ with torch.no_grad():
                                 bundle.batch_shardings)
         out, cache = bundle.decode_fn(params, batch, cache)
         logits.append(out.full_tensor())
-save({{"logits": logits, "placements": [str(t.placements) for _, t in
+save({{"logits": logits, "logit_split": str(out.placements),
+      "placements": [str(t.placements) for _, t in
                                        tree_items(cache)],
       "cache": [t.full_tensor() for _, t in tree_items(cache)],
       "prefill": first.full_tensor(),
@@ -243,23 +257,28 @@ save({{"logits": logits, "placements": [str(t.placements) for _, t in
 # (the flash-decoding layout, the softmax combined over the ranks);
 # rwkv6 at batch 1 on (2, 1) (long_500k's decode): one row cannot split
 # over "data", so its state stays whole while the activations' layout
-# splits the batch unevenly
-SERVE_CASES = [("qwen1.5-0.5b", (1, 2), "Shard(dim=3)", 2),
-               ("starcoder2-7b", (1, 4), "Shard(dim=2)", 2),
-               ("rwkv6-7b", (2, 1), "Replicate(), Replicate()", 1)]
+# splits the batch unevenly; starcoder2 with a vocabulary of 255 on
+# (1, 2): its untied head runs on uneven chunks of the vocabulary and
+# its logits stay split so
+SERVE_CASES = [("qwen1.5-0.5b", (1, 2), "Shard(dim=3)", 2, {}),
+               ("starcoder2-7b", (1, 4), "Shard(dim=2)", 2, {}),
+               ("rwkv6-7b", (2, 1), "Replicate(), Replicate()", 1, {}),
+               ("starcoder2-7b", (1, 2), "Shard(dim=3)", 2,
+                {"vocab_size": 255})]
 
 
-@pytest.mark.parametrize("arch,shape,split,batch", SERVE_CASES,
+@pytest.mark.parametrize("arch,shape,split,batch,over", SERVE_CASES,
                          ids=["qwen_heads", "starcoder2_sequence",
-                              "rwkv6_batch1"])
+                              "rwkv6_batch1", "starcoder2_vocab255"])
 def test_serve_decode_over_a_mesh_matches_one_device(tmp_path, arch, shape,
-                                                     split, batch):
-    model = build_model(reduced(get_config(arch)), device="cpu")
+                                                     split, batch, over):
+    cfg = dataclasses.replace(reduced(get_config(arch)), **over)
+    model = build_model(cfg, device="cpu")
     params = init_model_params(model, 0, device="cpu")
     rng = np.random.default_rng(1)
-    prompt = torch.as_tensor(rng.integers(0, 256, (batch, 8)),
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, 8)),
                              dtype=torch.int32)
-    toks = [torch.as_tensor(rng.integers(0, 256, (batch, 1)),
+    toks = [torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, 1)),
                             dtype=torch.int32) for _ in range(3)]
     with torch.no_grad():
         empty = init_cache(model, batch, 32, device="cpu")
@@ -274,9 +293,12 @@ def test_serve_decode_over_a_mesh_matches_one_device(tmp_path, arch, shape,
                                                "cache_len": 8 + t}, cache)
             want.append(out)
     got = run_ranks(tmp_path, shape[0] * shape[1],
-                    _SERVE_RANK.format(arch=arch, shape=shape, batch=batch))
+                    _SERVE_RANK.format(arch=arch, shape=shape, batch=batch,
+                                       over=over))
     for r, g in enumerate(got):
         assert any(split in p for p in g["placements"]), g["placements"]
+        if cfg.vocab_size % shape[1]:
+            assert "Shard(dim=2)" in g["logit_split"], g["logit_split"]
         np.testing.assert_allclose(g["prefill"].numpy(), first.numpy(),
                                    rtol=1e-5, atol=1e-5)
         for a, b in zip(g["prefill_cache"], prefilled):
@@ -346,7 +368,7 @@ def test_qwen2vl_prefill_with_patches_over_a_mesh_matches_one_device(
 def local_mesh():
     import torch.distributed as dist
 
-    mesh = make_local_mesh(data=1, model=1)
+    mesh = make_local_mesh(data=1, model=1, device="cpu")
     yield mesh
     dist.destroy_process_group()
 
