@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.models.layers import P, fanin_std
 from repro_torch.sharding.ctx import pin
+from repro_torch.sharding.local import local_call
 
 __all__ = ["NEG_INF", "padded_heads", "head_mask", "attention_schema",
            "apply_rope", "blockwise_attention", "decode_attention",
@@ -532,7 +533,8 @@ def _write_prefix(cache, new):
     cache's length). A ``DTensor`` cache is written on each rank's
     shard: where the sequence is split, each rank writes the rows of
     ``new`` that fall in its slice (a slice assignment across a split
-    dim is not DTensor's to get right)."""
+    dim is not DTensor's to get right), or its own rows of ``new`` where
+    ``new`` is as long as the cache and split over the sequence alike."""
     from torch.distributed.tensor import DTensor, Replicate
 
     new = new.to(cache.dtype)
@@ -540,7 +542,8 @@ def _write_prefix(cache, new):
         cache[:, :new.shape[1]] = new
         return
     mesh = cache.device_mesh
-    seq = [i for i, p in enumerate(cache.placements) if p.is_shard(1)]
+    seq = [i for i, p in enumerate(cache.placements) if p.is_shard(1)
+           and (new.shape[1] != cache.shape[1] or new.placements[i] != p)]
     new = new.redistribute(mesh, [Replicate() if i in seq else p for
                                   i, p in enumerate(cache.placements)])
     new, cache = new.to_local(), cache.to_local()
@@ -582,6 +585,85 @@ def qkv_project(params, x, cfg):
             project(x, params["wv"], params.get("bv")))
 
 
+def _rope(t, positions, cfg):
+    return apply_rope(t, positions, theta=cfg.rope_theta,
+                      style=cfg.rope_style, sections=cfg.mrope_sections)
+
+
+def _kv_on_rows(params, x, positions, cfg, k_cache):
+    """A prefill's K and V (RoPE applied) projected on each rank's share
+    of the positions, split over the sequence (dim 1) on the mesh dim
+    that splits the ``DTensor`` cache ``k_cache`` so, where the mesh dim
+    does not split ``wk``'s kv heads (they do not divide it: the rules'
+    fallback); else None. ``x`` (whole over that dim) and the positions
+    are sliced locally, with no communication. The replicated weights
+    would otherwise run over every position on every rank of that dim,
+    which keeps only its slice."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(k_cache, DTensor):
+        return None
+    wk = params["wk"]
+    seq = [i for i, p in enumerate(k_cache.placements)
+           if p.is_shard(1) and not wk.placements[i].is_shard(1)]
+    if not seq:
+        return None
+    xs = pin(x, [Shard(1) if i == seq[0] else p
+                 for i, p in enumerate(x.placements)])
+    biases = [params[n] for n in ("bk", "bv") if n in params]
+
+    def rows(x, pos, wk, wv, *b):
+        return (_rope(project(x, wk, b[0] if b else None), pos, cfg),
+                project(x, wv, b[1] if b else None))
+
+    # roles: 0 the batch, 1 the sequence, 2 the kv heads
+    return local_call(rows, (xs, positions, wk, params["wv"], *biases),
+                      [(0, 1, None), (0, 1, None), (None, None, 1),
+                       (None, None, 1)] + [(None, None, 0)] * len(biases),
+                      [(0, 1, 2), (0, 1, 2)])
+
+
+def _whole_seq(t):
+    """A ``DTensor`` split over its sequence (dim 1) gathered there."""
+    from torch.distributed.tensor import Replicate
+
+    return pin(t, [Replicate() if p.is_shard(1) else p for p in t.placements])
+
+
+def _heads_as_queries(t, q):
+    """K or V of `_kv_on_rows` (split over the sequence on one mesh dim,
+    of size M) made whole over the sequence, each rank holding only the
+    kv heads its query heads read: each of the KV heads is repeated r =
+    M / gcd(KV, M) times (kv-major, as the query heads are padded), so
+    that the KV r heads split over that dim as q's Hp heads do, G / r
+    query heads to one, and an all-to-all takes the sequence split to
+    the heads. A rank receives 1 / gcd(KV, M) of the gather's bytes.
+    Where q's heads are not split over that dim, or KV r does not divide
+    Hp, it is gathered over the sequence instead."""
+    from torch.distributed.tensor import Shard
+
+    m = next(i for i, p in enumerate(t.placements) if p.is_shard(1))
+    B, S, KV, dh = t.shape
+    r = t.device_mesh.size(m) // math.gcd(KV, t.device_mesh.size(m))
+    if not q.placements[m].is_shard(2) or q.shape[2] % (KV * r):
+        return _whole_seq(t)
+    t = t[:, :, :, None].expand(B, S, KV, r, dh).reshape(B, S, KV * r, dh)
+    return pin(t, [Shard(2) if i == m else p
+                   for i, p in enumerate(t.placements)])
+
+
+def _as_cache(t, cache):
+    """``t`` of `_heads_as_queries` (or anything with the cache's kv
+    heads, as it is), as long as ``cache``, laid out as the cache is:
+    an all-to-all from the heads back to the sequence, then one of each
+    kv head's r copies."""
+    KV = cache.shape[2]
+    if t.shape[2] == KV:
+        return t
+    B, S, H, dh = t.shape
+    return pin(t, cache.placements).view(B, S, KV, H // KV, dh)[:, :, :, 0]
+
+
 def out_project(params, o, x_dtype, cfg):
     """o: (B, S, Hp, dh) -> (B, S, d). Padded heads are zeroed first (the
     multiply is skipped where there is no padding: a mask of ones)."""
@@ -615,6 +697,11 @@ def attention_block(params, x, *, cfg, positions, causal=True, cross_kv=None,
       * ``cross_kv`` = (k, v), precomputed (B, S_enc, KV, dh) encoder keys
         and values: cross-attention of x's queries over them, unmasked,
         returning (out, None).
+
+    Over a mesh, a prefill into a cache split over the sequence on a mesh
+    dim that does not split the kv heads projects K and V on each rank's
+    positions and moves to each rank the kv heads its query heads read
+    (`_kv_on_rows`, `_heads_as_queries`).
     """
     if cross_kv is not None:
         k, v = cross_kv
@@ -623,12 +710,17 @@ def attention_block(params, x, *, cfg, positions, causal=True, cross_kv=None,
                                 kv_chunk=cfg.kv_chunk)
         return out_project(params, o, x.dtype, cfg), None
 
-    q, k, v = qkv_project(params, x, cfg)
-    if cfg.rope_style != "none":
-        q = apply_rope(q, positions, theta=cfg.rope_theta,
-                       style=cfg.rope_style, sections=cfg.mrope_sections)
-        k = apply_rope(k, positions, theta=cfg.rope_theta,
-                       style=cfg.rope_style, sections=cfg.mrope_sections)
+    # a prefill into a cache split over the sequence projects K and V
+    # on each rank's own positions, then moves the heads each rank reads
+    rows = _kv_on_rows(params, x, positions, cfg, cache[0]) \
+        if cache is not None and x.shape[1] > 1 else None
+    if rows is None:
+        q, k, v = qkv_project(params, x, cfg)
+        k = _rope(k, positions, cfg)
+    else:
+        q = project(x, params["wq"], params.get("bq"))
+        k, v = (_heads_as_queries(t, q) for t in rows)
+    q = _rope(q, positions, cfg)
 
     if cache is not None and x.shape[1] == 1:  # decode
         k_cache, v_cache = cache
@@ -665,11 +757,15 @@ def attention_block(params, x, *, cfg, positions, causal=True, cross_kv=None,
             tail_k, tail_v, shift = k[:, -W:], v[:, -W:], (S - W) % W
         else:
             tail_k, tail_v, shift = _pad_seq(k, W), _pad_seq(v, W), 0
-        _write_prefix(k_cache, torch.roll(tail_k, shift, dims=1))
-        _write_prefix(v_cache, torch.roll(tail_v, shift, dims=1))
+        new = [_as_cache(torch.roll(t, shift, dims=1), k_cache)
+               for t in (tail_k, tail_v)]
+    elif rows is not None:
+        # each rank's own rows where they are its rows of the cache
+        new = rows if S == S_cache else [_whole_seq(t) for t in rows]
     else:
-        _write_prefix(k_cache, k)
-        _write_prefix(v_cache, v)
+        new = k, v
+    _write_prefix(k_cache, new[0])
+    _write_prefix(v_cache, new[1])
     return out_project(params, o, x.dtype, cfg), (k_cache, v_cache)
 
 

@@ -139,18 +139,29 @@ def runs(tmp_path_factory):
 
 def chunk_grid_flops(cfg, seq: int, seqs: float, heads: float,
                      passes: int) -> float:
-    """The attention FLOPs a causal chunk grid runs beyond half its pairs:
-    n(n + 1) / 2 live pairs of n^2 against the n^2 / 2 that `hlo_cost`
-    counts (each pair's QK^T and PV, 2 x 2 qc^2 dh, over ``seqs``
-    sequences and ``heads`` heads a device, every layer, ``passes``
-    times: forward 1, a rematerialised train step 4)."""
-    qc = min(cfg.q_chunk, seq)
-    n = seq // qc
-    if n == 1:                 # XLA folds the one pair's cond
+    """The attention FLOPs the port's chunk grid runs beyond the ones
+    `hlo_cost` counts. Of the n_q x n_k (q chunk, kv chunk) pairs (chunks
+    of qc = q_chunk and kc = kv_chunk rows, n_q = seq / qc, n_k = seq /
+    kc) the port runs the live ones: pair (i, j) where the causal mask
+    leaves it, j kc <= i qc + qc - 1, and a sliding window W leaves it,
+    i qc - j kc <= W + kc - 2 (n(n + 1) / 2 of n^2 without a window;
+    with qc = kc = c, sum over i of min(i + 1, floor((W + c - 2) / c) +
+    1)). `hlo_cost` counts every pair's cond at 0.5, n_q n_k / 2. Each
+    pair's QK^T and PV is 2 x 2 qc kc dh, over ``seqs`` sequences and
+    ``heads`` heads a device, every layer, ``passes`` times (forward 1, a
+    rematerialised train step 4). Negative where a window leaves fewer
+    than half the pairs live."""
+    qc, kc = min(cfg.q_chunk, seq), min(cfg.kv_chunk, seq)
+    nq, nk = seq // qc, seq // kc
+    if nq * nk == 1:           # XLA folds the one pair's cond
         return 0.0
-    pair = 2 * 2 * qc * qc * cfg.hd
-    return (n * (n + 1) / 2 - n * n / 2) * pair * seqs * heads * \
-        cfg.num_layers * passes
+    w = cfg.sliding_window
+    live = sum(1 for i in range(nq) for j in range(nk)
+               if j * kc <= i * qc + qc - 1
+               and (not w or i * qc - j * kc <= w + kc - 2))
+    pair = 2 * 2 * qc * kc * cfg.hd
+    return (live - nq * nk / 2) * pair * seqs * heads * cfg.num_layers * \
+        passes
 
 
 @pytest.mark.parametrize("name", ASSIGNED)

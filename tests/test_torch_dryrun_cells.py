@@ -28,17 +28,23 @@ to split the dims that failed at production size:
 * deepseek-moe decode with 16 experts on (2, 4): the dispatch product
   ran for every expert on each expert rank (`models/moe.py:_dispatch`),
   and one group's tokens split over "data" (decode_32k);
-* whisper train with a vocabulary of 255 on (2, 2) (train_4k: 0.796).
+* whisper train with a vocabulary of 255 on (2, 2) (train_4k: 0.796);
+* starcoder2 and h2o prefill on (2, 4): 2 kv heads, which "model" does
+  not divide, so the cache's sequence is split over it; the K and V
+  projections ran over every position on every model rank, which kept
+  only its slice (prefill_32k: deepseek-coder 1.275, llama4 1.210,
+  starcoder2 1.159, qwen2-vl 1.045; `models/attention.py:_kv_on_rows`).
 
-The zamba2, whisper decode and MoE cells fail on the code before those
-repairs. Each must give ``ok`` with the four memory fields, and its per-device
-FLOPs must lie within 5% of the reference's `hlo_cost` on the same cut
-cell (its mesh built with Auto axes over forced host devices), once the
-named differences of the two counts are undone:
+The zamba2, whisper decode, MoE and the two kv2 prefill cells fail on
+the code before those repairs. Each must give ``ok`` with the four
+memory fields, and its per-device FLOPs must lie within 5% of the
+reference's `hlo_cost` on the same cut cell (its mesh built with Auto
+axes over forced host devices), once the named differences of the two
+counts are undone:
 
 * the reference weighs each branch of a ``lax.cond`` by 0.5, so it
-  counts half of a causal chunk grid's pairs
-  (`test_torch_dryrun.chunk_grid_flops`);
+  counts half of a chunk grid's pairs, where the port runs the causal
+  ones inside the sliding window (`test_torch_dryrun.chunk_grid_flops`);
 * its prefill runs the head over every position and slices the last
   (``logits[:, -1:]``); the port runs it on the last position only;
 * XLA splits the backward of rwkv6's two low-rank mixing products, and
@@ -57,7 +63,14 @@ named differences of the two counts are undone:
   slots over them first, so the port runs 1 / dp of that product (the
   experts' gate and input products run over every slot in both). The
   reference counts the rest: at decode_32k it is deepseek-moe's 0.733
-  (one pod) and 0.703 (two pods), where the dispatch repair left them.
+  (one pod) and 0.703 (two pods), where the dispatch repair left them;
+* in a prefill into a ring cache (a sliding window shorter than the
+  sequence) whose KV kv heads "model" (m) does not divide, XLA runs the
+  K and V projections over the kv heads split gcd(KV, m) ways, each
+  head on m / gcd(KV, m) ranks, where the port runs them over each
+  rank's 1 / m of the positions. The reference counts the rest, 2 x 2
+  rows s d KV dh (1 / gcd(KV, m) - 1 / m) over the layers: h2o's
+  prefill_32k with the windowed chunk grid and the head.
 
 The guard on the scans: a reduced rwkv6 and zamba2 prefill dispatch as
 many ``DTensor`` operations at 16 chunks as at 4 (the chunk loops run on
@@ -96,6 +109,8 @@ CELLS = {
                    {"moe.num_experts": 16}),
     "whisper_train_vocab255": ("whisper-medium", "train", 8, 64, (2, 2),
                                {"vocab_size": 255}),
+    "starcoder2_prefill_kv2": ("starcoder2-7b", "prefill", 8, 64, (2, 4), {}),
+    "h2o_prefill_kv2": ("h2o-danube-3-4b", "prefill", 8, 64, (2, 4), {}),
 }
 FLOPS_TOL = 0.05
 MEMORY_KEYS = ("argument_size_in_bytes", "output_size_in_bytes",
@@ -235,6 +250,13 @@ def counted_apart(name) -> float:
                                   else 1) * attn_layers / cfg.num_layers
     if kind == "prefill":
         extra -= 2 * rows * (s - 1) * cfg.d_model * vocab
+    kv = cfg.num_kv_heads
+    if kind == "prefill" and attn_layers and kv % m and \
+            cfg.sliding_window and cfg.sliding_window < s:
+        # XLA: the ring's K and V projections over the kv heads
+        share = 1 / math.gcd(kv, m) - 1 / m
+        extra -= 2 * 2 * rows * s * cfg.d_model * kv * cfg.hd * share * \
+            attn_layers
     if kind == "train" and cfg.vocab_size % m:
         # XLA: the head's input gradient over the whole vocabulary
         extra -= 2 * rows * s * cfg.d_model * (cfg.vocab_size - vocab)

@@ -10,11 +10,17 @@ the update within ``STEP_UPDATE_TOL`` of the one-device step's (the same
 bounds the port is held to against the reference). The serve step:
 reduced qwen's prefill and decode on a (1, 2) mesh through
 `make_serve_step` (its kv heads split) and reduced starcoder2's on
-(1, 4) (its 2 kv heads repeated over the query heads in the prefill, its
-cache's sequence split in the decode) against the one-device prefill
-and decode (the mesh decodes from the one-device prefill's cache); on a one-rank
-mesh its prefill and decode are bitwise ``model.prefill`` /
-``model.decode``.
+(1, 4) (its K and V projected on each rank's positions, each rank's
+kv heads moved to it by an all-to-all, its cache's sequence split in
+the decode), and reduced h2o's on (1, 4) with a window of 4 (the same
+split, the prefill's ring written from the heads moved back to the
+sequence split, the decodes wrapping round it) against the one-device
+prefill and decode (the mesh decodes from the one-device prefill's
+cache); reduced qwen2-vl's prefill into a cache as long as its prompt on
+(1, 4), each rank writing its own rows; the sequence-split prefills of
+reduced h2o and starcoder2 against the reference's serve prefill over
+the same (1, 4) mesh of forced host devices; on a one-rank mesh its
+prefill and decode are bitwise ``model.prefill`` / ``model.decode``.
 
 C.8: per layer and decode step, rwkv6's state leaves after prefill +
 decode against those of a prefill over the extended sequence, and the
@@ -259,17 +265,21 @@ save({{"logits": logits, "logit_split": str(out.placements),
 # over "data", so its state stays whole while the activations' layout
 # splits the batch unevenly; starcoder2 with a vocabulary of 255 on
 # (1, 2): its untied head runs on uneven chunks of the vocabulary and
-# its logits stay split so
+# its logits stay split so; h2o with a window of 4 on (1, 4): a ring of
+# one row a rank, the 8-token prompt's last 4 keys
 SERVE_CASES = [("qwen1.5-0.5b", (1, 2), "Shard(dim=3)", 2, {}),
                ("starcoder2-7b", (1, 4), "Shard(dim=2)", 2, {}),
                ("rwkv6-7b", (2, 1), "Replicate(), Replicate()", 1, {}),
                ("starcoder2-7b", (1, 2), "Shard(dim=3)", 2,
-                {"vocab_size": 255})]
+                {"vocab_size": 255}),
+               ("h2o-danube-3-4b", (1, 4), "Shard(dim=2)", 2,
+                {"sliding_window": 4})]
 
 
 @pytest.mark.parametrize("arch,shape,split,batch,over", SERVE_CASES,
                          ids=["qwen_heads", "starcoder2_sequence",
-                              "rwkv6_batch1", "starcoder2_vocab255"])
+                              "rwkv6_batch1", "starcoder2_vocab255",
+                              "h2o_ring_sequence"])
 def test_serve_decode_over_a_mesh_matches_one_device(tmp_path, arch, shape,
                                                      split, batch, over):
     cfg = dataclasses.replace(reduced(get_config(arch)), **over)
@@ -312,35 +322,148 @@ def test_serve_decode_over_a_mesh_matches_one_device(tmp_path, arch, shape,
                                        atol=1e-6)
 
 
+_PREFILL_RANK = """
+import dataclasses, pickle
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_config, reduced
+from repro_torch.models import build_model, init_cache, params_from_numpy
+from repro_torch.models.layers import tree_items
+from repro_torch.serve.step import make_serve_step
+from repro_torch.sharding.rules import distribute_tree
+with open(os.path.join(out_dir, "..", "prefill_in.pkl"), "rb") as f:
+    ins = pickle.load(f)
+mesh = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+model = build_model(dataclasses.replace(reduced(get_config(ins["arch"])),
+                                        **ins["over"]), device="cpu")
+prompt = torch.as_tensor(ins["prompt"])
+B, n = prompt.shape[0], ins["max_len"]
+bundle = make_serve_step(
+    model, mesh, {"tokens": torch.empty(tuple(prompt.shape),
+                                        dtype=torch.int32, device="meta")},
+    batch_size=B, max_len=n)
+with torch.no_grad():
+    out, cache = bundle.prefill_fn(
+        distribute_tree(params_from_numpy(model, ins["params"],
+                                          device="cpu"),
+                        bundle.param_shardings),
+        distribute_tree({"tokens": prompt}, bundle.batch_shardings),
+        distribute_tree(init_cache(model, B, n, device="cpu"),
+                        bundle.cache_shardings))
+save({"logits": out.full_tensor(),
+      "placements": [str(t.placements) for _, t in tree_items(cache)],
+      "cache": [t.full_tensor() for _, t in tree_items(cache)]})
+"""
+
+# the reference's serve prefill over a (1, 4) mesh of forced host devices
+_REF_PREFILL = """
+import dataclasses, pickle, sys
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import AxisType, Mesh
+from repro.configs import get_config, reduced
+from repro.models import build_model, init_cache
+from repro.serve.step import make_serve_step
+with open(sys.argv[1], "rb") as f:
+    ins = pickle.load(f)
+model = build_model(dataclasses.replace(reduced(get_config(ins["arch"])),
+                                        **ins["over"]))
+prompt = jnp.asarray(ins["prompt"], jnp.int32)
+B, n = prompt.shape[0], ins["max_len"]
+mesh = Mesh(np.array(jax.devices()[:4]).reshape(1, 4), ("data", "model"),
+            axis_types=(AxisType.Auto,) * 2)
+with mesh:
+    bd = make_serve_step(model, mesh, {"tokens": jax.ShapeDtypeStruct(
+        prompt.shape, jnp.int32)}, batch_size=B, max_len=n)
+    out, cache = bd.prefill_fn(jax.tree.map(jnp.asarray, ins["params"]),
+                               {"tokens": prompt}, init_cache(model, B, n))
+with open(sys.argv[2], "wb") as f:
+    pickle.dump({"logits": np.asarray(out),
+                 "cache": jax.tree.map(np.asarray, cache)}, f)
+"""
+
+# reduced h2o with a window of 4: the ring written from the heads moved
+# back to the cache's sequence split; reduced starcoder2 into a cache as
+# long as its prompt: each rank writes its own rows
+REF_PREFILL_CASES = {"h2o_ring": ("h2o-danube-3-4b", {"sliding_window": 4},
+                                  32),
+                     "starcoder2_own_rows": ("starcoder2-7b", {}, 8)}
+
+
+@pytest.mark.parametrize("case", list(REF_PREFILL_CASES))
+def test_sequence_split_prefill_matches_the_reference_on_its_mesh(tmp_path,
+                                                                  case):
+    """The port's serve prefill over (1, 4), the cache's sequence split
+    (2 kv heads: K and V projected on each rank's positions and each
+    rank's kv heads moved to it), against the reference's serve prefill
+    over the same mesh of forced host devices, on the same weights (the
+    port's seed 0) and an 8-token prompt of 2 rows: logits and cache
+    within the bounds the port's model is held to against the
+    reference's (`test_torch_models.LOGIT_TOL` and ``FN_TOL``)."""
+    import pickle
+
+    from test_torch_dryrun import _finish, _python
+    from test_torch_models import FN_TOL, LOGIT_TOL
+
+    arch, over, max_len = REF_PREFILL_CASES[case]
+    cfg = dataclasses.replace(reduced(get_config(arch)), **over)
+    params = init_model_params(build_model(cfg, device="cpu"), 0,
+                               device="cpu")
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 8))
+    with open(tmp_path / "prefill_in.pkl", "wb") as f:
+        pickle.dump({"arch": arch, "over": over, "max_len": max_len,
+                     "prompt": prompt.astype(np.int32),
+                     "params": L.tree_map(lambda t: t.numpy(), params)}, f)
+    ref = _python(_REF_PREFILL, str(tmp_path / "prefill_in.pkl"),
+                  str(tmp_path / "ref.pkl"),
+                  env={"XLA_FLAGS":
+                       "--xla_force_host_platform_device_count=4"})
+    try:
+        got = run_ranks(tmp_path, 4, _PREFILL_RANK)
+        _finish(ref, timeout=240)
+    finally:
+        if ref.poll() is None:
+            ref.kill()
+            ref.wait()
+    with open(tmp_path / "ref.pkl", "rb") as f:
+        want = pickle.load(f)
+    for g in got:
+        assert any("Shard(dim=2)" in p for p in g["placements"]), \
+            g["placements"]
+        np.testing.assert_allclose(g["logits"].numpy(), want["logits"],
+                                   **LOGIT_TOL)
+        for a, (_, b) in zip(g["cache"], L.tree_items(want["cache"]),
+                             strict=True):
+            np.testing.assert_allclose(a.numpy(), b, **FN_TOL)
+
+
 _VL_RANK = """
 from torch.distributed.device_mesh import init_device_mesh
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import build_model, init_cache
 from repro_torch.serve.step import make_serve_step
+from repro_torch.models.layers import tree_items
 from repro_torch.sharding.rules import distribute_tree
-mesh = init_device_mesh("cpu", (1, 2), mesh_dim_names=("data", "model"))
+mesh = init_device_mesh("cpu", {shape}, mesh_dim_names=("data", "model"))
 model = build_model(reduced(get_config("qwen2-vl-2b")), device="cpu")
 ins = torch.load(os.path.join(out_dir, "..", "vl_in.pt"))
 meta = {{k: torch.empty(v.shape, dtype=v.dtype, device="meta")
         for k, v in ins["batch"].items()}}
 bundle = make_serve_step(model, mesh, meta, batch_size=2, max_len=16)
 with torch.no_grad():
-    out, _ = bundle.prefill_fn(
+    out, cache = bundle.prefill_fn(
         distribute_tree(ins["params"], bundle.param_shardings),
         distribute_tree(ins["batch"], bundle.batch_shardings),
         distribute_tree(init_cache(model, 2, 16, device="cpu"),
                         bundle.cache_shardings))
-save({{"logits": out.full_tensor()}})
+save({{"logits": out.full_tensor(),
+      "placements": [str(t.placements) for _, t in tree_items(cache)],
+      "cache": [t.full_tensor() for _, t in tree_items(cache)]}})
 """
 
 
-def test_qwen2vl_prefill_with_patches_over_a_mesh_matches_one_device(
-        tmp_path):
-    """Reduced qwen2-vl's prefill with its patch embeddings on a (1, 2)
-    mesh, the vocabulary split over "model": the lookup runs on local
-    shards (`models/layers.py:_embed_local`). DTensor's own
-    vocabulary-parallel rule failed here on gloo ("MaskBuffer has been
-    materialized with conflicting data")."""
+def _qwen2vl_prefill(tmp_path):
+    """Reduced qwen2-vl, its weights and a prefill batch of 2 x 16 with
+    patch embeddings, saved for the ranks; the one-device prefill's
+    logits and cache into 16 rows."""
     from repro_torch.configs import input_specs
     from repro_torch.configs.base import ShapeSpec
 
@@ -357,11 +480,42 @@ def test_qwen2vl_prefill_with_patches_over_a_mesh_matches_one_device(
     assert "patch_emb" in batch
     torch.save({"params": params, "batch": batch}, tmp_path / "vl_in.pt")
     with torch.no_grad():
-        want, _ = model.prefill(params, batch,
-                                init_cache(model, 2, 16, device="cpu"))
-    for g_ in run_ranks(tmp_path, 2, _VL_RANK.format()):
+        return model.prefill(params, batch,
+                             init_cache(model, 2, 16, device="cpu"))
+
+
+def test_qwen2vl_prefill_with_patches_over_a_mesh_matches_one_device(
+        tmp_path):
+    """Reduced qwen2-vl's prefill with its patch embeddings on a (1, 2)
+    mesh, the vocabulary split over "model": the lookup runs on local
+    shards (`models/layers.py:_embed_local`). DTensor's own
+    vocabulary-parallel rule failed here on gloo ("MaskBuffer has been
+    materialized with conflicting data")."""
+    want, _ = _qwen2vl_prefill(tmp_path)
+    for g_ in run_ranks(tmp_path, 2, _VL_RANK.format(shape=(1, 2))):
         np.testing.assert_allclose(g_["logits"].numpy(), want.numpy(),
                                    rtol=1e-5, atol=1e-5)
+
+
+def test_qwen2vl_prefill_into_a_sequence_split_cache_matches_one_device(
+        tmp_path):
+    """The same prefill on (1, 4), into a cache as long as the prompt:
+    its 2 kv heads do not divide 4, so the cache's sequence is split,
+    each rank projects K and V on its 4 positions (their M-RoPE
+    positions sliced alike) and writes them as its own cache rows, and
+    attention reads the kv head its query heads need, moved to it by an
+    all-to-all. Logits and cache match the one-device
+    prefill's, the cache within the logits' bound (a rank's product over
+    4 rows rounds otherwise than one over 16: 1.07e-6 at most here)."""
+    want, cache = _qwen2vl_prefill(tmp_path)
+    for g_ in run_ranks(tmp_path, 4, _VL_RANK.format(shape=(1, 4))):
+        assert any("Shard(dim=2)" in p for p in g_["placements"]), \
+            g_["placements"]
+        np.testing.assert_allclose(g_["logits"].numpy(), want.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        for a, (_, b) in zip(g_["cache"], L.tree_items(cache), strict=True):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                       atol=1e-5)
 
 
 @pytest.fixture
