@@ -8,6 +8,7 @@ NVIDIA GPU.
     python3 chip_smoke.py --phase-t  # phase T alone (no build, no result)
     python3 chip_smoke.py --phase-u  # phases U and E alone (no result)
     python3 chip_smoke.py --phase-d  # phase D alone (no result)
+    python3 chip_smoke.py --phase-c  # phase C's column deals (no result)
     python3 chip_smoke.py --phase-q  # phase Q and the mesh check (no result)
     python3 chip_smoke.py --phase-r  # phase R alone (no build, no result)
 
@@ -62,6 +63,14 @@ C. the column paths on the same day, each bitwise equal to phase 3's
    launch a column), `BiosignalStream` with ``n_columns=4`` at
    batch_windows 8 kernel-framed, host-framed and with
    ``column_weights=(1, 1, 2, 4)`` (one launch per column a dispatch),
+   all of these again with the column mesh ``(cuda:0,) * 4`` (each
+   column on a CUDA stream of its own; bitwise, the same launches) and,
+   where `column_mesh(4)` gives four cards (it must be None on fewer),
+   on those cards, printing the host ms a dispatch of the serial columns
+   and of each mesh in one line, the two entries' warm medians (five
+   synchronised calls after the first) in another, and, over four cards,
+   whether every pair has peer access and what one column's outputs take
+   to copy back to card 0 alone;
    and `FaultTolerantColumnRunner(n_columns=4)` in batch mode fault-free,
    with column 1 killed at its 170th dispatch (the run fails unless it
    requeued) and with two transient faults on column 2, and in resident
@@ -232,7 +241,10 @@ D. (run after phase A2) bfloat16 and float16 signals through both graph
    each bitwise the float32 kernel on the widened signal (``filtered``
    rounded to the dtype) with its launches counted, the one call against
    the plain version over the whole signal (class exact, ``filtered``
-   bitwise); int16 and float64 refused at the launchers; each entry's
+   bitwise); int16 and int32 signals near full scale (``filtered``
+   saturates) at the stream, frames and ring entries of both graphs,
+   each bitwise the float32 kernel on the widened signal and against the
+   plain version; int8 and float64 refused at the launchers; each entry's
    device time per dtype beside float32's and the dtype's bound;
 Q. `launch.quickstart.main` and `launch.asr_frontend.main` as a user runs
    them (their examples' checks), each with its launches counted (the
@@ -1720,11 +1732,13 @@ def logged_dispatches(runner) -> list:
     return log
 
 
-def column_paths(app, sig, day_ref: dict, n: int, card: str) -> dict:
-    """Phase C: the multi-column deal and the fault-tolerant runner over
-    the day, each run bitwise equal to phase 3's single-column output
-    (``day_ref``, all four outputs) with its launch count checked; returns
-    launches, walls and the runners' per-column busy seconds."""
+def column_paths(app, sig, day_ref: dict, n: int, card: str,
+                 runners: bool = True) -> dict:
+    """Phase C: the multi-column deal and (with ``runners``) the
+    fault-tolerant runner over the day, each run bitwise equal to phase
+    3's single-column output (``day_ref``, all four outputs) with its
+    launch count checked; returns launches, walls and the runners'
+    per-column busy seconds."""
     import torch
 
     from repro_torch.kernels.pipeline.kernel import OUTPUTS
@@ -1734,12 +1748,12 @@ def column_paths(app, sig, day_ref: dict, n: int, card: str) -> dict:
         FaultTolerantColumnRunner
     from repro_torch.serve.resident import ResidentConfig
     from repro_torch.serve.stream import (BiosignalStream, StreamConfig,
-                                          frame_signal)
+                                          column_mesh, frame_signal)
 
     D, B = COLUMNS, 8
     dispatches = -(-n // (B * D))
     res = {"launches": {}, "host_ms": {}, "busy": {}, "dispatches": {},
-           "dispatch_log": {}, "gc_ms": {}}
+           "dispatch_log": {}, "gc_ms": {}, "warm_ms": {}}
 
     def timed(tag, fn, want):
         t = time.perf_counter()
@@ -1754,34 +1768,115 @@ def column_paths(app, sig, day_ref: dict, n: int, card: str) -> dict:
         res["host_ms"][tag] = wall
         return out
 
-    # the entries: one launch per column over the whole day
-    timed("pipeline_stream_sharded", lambda: pipeline_stream_sharded(
-        sig, app.fir_taps, app.svm_w, app.svm_b, window=WINDOW, hop=HOP,
-        n_columns=D), {("biosignal_graph", "stream"): D})
-    frames = frame_signal(sig, WINDOW, HOP)
-    timed("pipeline_sharded", lambda: pipeline_sharded(
-        frames, app.fir_taps, app.svm_w, app.svm_b, n_columns=D),
-        {("biosignal_graph", "frames"): D})
-    del frames
-    # the stream, dealt: every dispatch's 32 frames (the tail's padded)
-    # give each column a non-zero share, one launch each
-    for tag, kw, entry in (
-            ("stream n_columns=4", {}, "stream"),
-            ("stream n_columns=4 host-framed", {"framing": "host"},
-             "frames"),
-            (f"stream n_columns=4 weights={COLUMN_WEIGHTS}",
-             {"column_weights": COLUMN_WEIGHTS}, "stream")):
-        cfg = StreamConfig(window=WINDOW, hop=HOP, batch_windows=B,
-                           n_columns=D, **kw)
-        stream = BiosignalStream(app, cfg)
-        timed(tag, lambda: stream.process(sig),
-              {("biosignal_graph", entry): dispatches * D})
-        res["dispatches"][tag] = dispatches
-        print(f"column deal {tag}: bitwise equal to the single-column "
-              f"stream, {dispatches} dispatches x {D} launches, "
-              f"{res['host_ms'][tag]:.1f} ms wall, "
-              f"{res['host_ms'][tag] / dispatches:.4f} ms a dispatch "
-              f"[{card}]")
+    # the column mesh: serial columns, then every column on a CUDA stream
+    # of its own on this card, then (on a host with D cards) each on its
+    # own card, as the reference's shard_map puts column d on device d
+    cards = column_mesh(D)
+    if torch.cuda.device_count() < D:
+        if cards is not None:
+            raise AssertionError(f"column_mesh({D}) = {cards} on "
+                                 f"{torch.cuda.device_count()} cards")
+    elif cards is None or len(set(cards)) != D:
+        raise AssertionError(f"column_mesh({D}) = {cards}")
+    meshes = [("", None), (" mesh=streams", (sig.device,) * D)] + (
+        [(" mesh=cards", cards)] if cards is not None else [])
+    stream_tags = ("stream n_columns=4", "stream n_columns=4 host-framed",
+                   f"stream n_columns=4 weights={COLUMN_WEIGHTS}")
+    for label, mesh in meshes:
+        if mesh is not None:     # each device's module loaded, its streams
+            pipeline_stream_sharded(    # made, before any timing
+                sig[: (D - 1) * HOP + WINDOW], app.fir_taps, app.svm_w,
+                app.svm_b, window=WINDOW, hop=HOP, n_columns=D, mesh=mesh)
+        # the entries: one launch per column over the whole day; the first
+        # call of each checked, then the median of five more, synchronised
+        frames = frame_signal(sig, WINDOW, HOP)
+        entries = {
+            "pipeline_stream_sharded": (lambda: pipeline_stream_sharded(
+                sig, app.fir_taps, app.svm_w, app.svm_b, window=WINDOW,
+                hop=HOP, n_columns=D, mesh=mesh), "stream"),
+            "pipeline_sharded": (lambda: pipeline_sharded(
+                frames, app.fir_taps, app.svm_w, app.svm_b, n_columns=D,
+                mesh=mesh), "frames")}
+        for base, (fn, entry) in entries.items():
+            timed(base + label, fn, {("biosignal_graph", entry): D})
+            walls = []
+            for _ in range(5):
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t) * 1e3)
+            res["warm_ms"][base + label] = sorted(walls)[2]
+        del frames, entries
+        # the stream, dealt: every dispatch's 32 frames (the tail's padded)
+        # give each column a non-zero share, one launch each
+        for base, kw, entry in zip(stream_tags, (
+                {}, {"framing": "host"},
+                {"column_weights": COLUMN_WEIGHTS}),
+                ("stream", "frames", "stream")):
+            tag = base + label
+            cfg = StreamConfig(window=WINDOW, hop=HOP, batch_windows=B,
+                               n_columns=D, **kw)
+            stream = BiosignalStream(app, cfg)
+            if stream.mesh != cards:
+                raise AssertionError(f"{tag}: stream mesh {stream.mesh}")
+            stream.mesh = mesh
+            timed(tag, lambda: stream.process(sig),
+                  {("biosignal_graph", entry): dispatches * D})
+            res["dispatches"][tag] = dispatches
+            print(f"column deal {tag}: bitwise equal to the single-column "
+                  f"stream, {dispatches} dispatches x {D} launches, "
+                  f"{res['host_ms'][tag]:.1f} ms wall, "
+                  f"{res['host_ms'][tag] / dispatches:.4f} ms a dispatch "
+                  f"[{card}]")
+    res["mesh_ms_a_dispatch"] = {
+        base: {(label.strip() or "serial"):
+               res["host_ms"][base + label] / dispatches
+               for label, _ in meshes}
+        for base in stream_tags}
+    res["mesh_ms_a_dispatch"].update({
+        base: {(label.strip() or "serial"): res["host_ms"][base + label]
+               for label, _ in meshes}
+        for base in ("pipeline_stream_sharded", "pipeline_sharded")})
+    print(f"column mesh: column_mesh({D}) = "
+          + (f"{[str(d) for d in cards]}" if cards is not None else
+             f"None ({torch.cuda.device_count()} card(s))")
+          + "; host ms a dispatch, serial / "
+          + " / ".join(label.strip() for label, _ in meshes[1:]) + ": "
+          + "; ".join(f"{base} " + " / ".join(
+              f"{v:.4f}" for v in row.values())
+              for base, row in res["mesh_ms_a_dispatch"].items())
+          + f" (the entries: one dispatch over the day) [{card}]")
+    print("column mesh, the entries warm (the median of five synchronised "
+          "calls after the first), host ms serial / "
+          + " / ".join(label.strip() for label, _ in meshes[1:]) + ": "
+          + "; ".join(f"{base} " + " / ".join(
+              f"{res['warm_ms'][base + label]:.4f}" for label, _ in meshes)
+              for base in ("pipeline_stream_sharded", "pipeline_sharded"))
+          + f" [{card}]")
+    if cards is not None:
+        # what a column off the input's card pays alone: its outputs' copy
+        # back to card 0, against the cards' warm entry above
+        peer = all(torch.cuda.can_device_access_peer(a.index, b.index)
+                   for a in cards for b in cards if a != b)
+        rows = -(-n // D)
+        far = {k: v[:rows].to(cards[1]) for k, v in day_ref.items()}
+        nbytes = sum(v.numel() * v.element_size() for v in far.values())
+        walls = []
+        for _ in range(6):
+            t = time.perf_counter()
+            back = {k: v.to(sig.device) for k, v in far.items()}
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+            del back
+        res["copy_back_ms"] = sorted(walls[1:])[2]
+        res["peer_access"] = peer
+        print(f"column mesh over cards: peer access between every pair "
+              f"{peer}; one column's outputs ({nbytes / 1e6:.1f} MB) card 1 "
+              f"-> card 0 alone {res['copy_back_ms']:.4f} ms (the median "
+              f"of five synchronised copies after the first) [{card}]")
+        del far
+    if not runners:
+        return res
     # the fault-tolerant runner: fault-free (before and after the others:
     # host time drifts), a kill, two transients, a resident kill
     cfg = StreamConfig(window=WINDOW, hop=HOP, batch_windows=B)
@@ -4161,6 +4256,41 @@ def phase_e(dev, card: str) -> dict:
 
 
 D_DTYPES = ("bfloat16", "float16")
+I_DTYPES = ("int16", "int32")
+I_FRAMES = 512          # the integer runs' frames at each entry
+
+
+def full_scale(x, dtype):
+    """``x`` (a float signal) plus a square wave of period 74 samples,
+    scaled to twice the integer ``dtype``'s range and saturated into it:
+    the graphs' filters overshoot past the range at the square's edges,
+    so ``filtered`` saturates."""
+    import torch
+
+    from repro_torch.kernels.pipeline.graph import cast_output
+
+    top = float(torch.iinfo(dtype).max)
+    square = torch.where(torch.arange(x.numel(), device=x.device) // 37 % 2
+                         == 0, 0.5, -0.5)
+    return cast_output((0.5 * x / x.abs().max() + square) * 2.0 * top,
+                       dtype)
+
+
+def oracle_units(name: str, logmel, asr_app, x, window: int,
+                 hop: int) -> float:
+    """The largest |logmel - oracle| over ``x``'s frames in units of the
+    float64 oracle's per-element limit (`asr_oracle64`); raises past 1."""
+    import numpy as np
+
+    from repro_torch.kernels.pipeline.asr import asr_oracle64
+
+    want, limit = asr_oracle64(asr_app, x.cpu(), window=window, hop=hop)
+    got = logmel.cpu().double().numpy()
+    units = float((np.abs(got - want) / limit).max())
+    if not units < 1.0:
+        raise AssertionError(f"{name}: logmel {units:.3f} x the float64 "
+                             f"oracle's limit")
+    return units
 
 
 def check_dtype_run(name: str, got: dict, want: dict) -> float:
@@ -4193,7 +4323,8 @@ def widened_reference(run32, dtype) -> dict:
 
 def phase_d(dev, card: str, app, sig, asr_app, audio, day_steps: int = 2048,
             hour_steps: int = 8192) -> dict:
-    """Phase D: bfloat16 and float16 signals through both graph kernels.
+    """Phase D: bfloat16, float16, int16 and int32 signals through both
+    graph kernels.
 
     For each dtype, the biosignal day (`sig` narrowed) at B=8 raw stream
     and host-framed, resident (ring depth 4), in one call and over 4
@@ -4201,18 +4332,24 @@ def phase_d(dev, card: str, app, sig, asr_app, audio, day_steps: int = 2048,
     output and its launches counted: every run bitwise the float32 kernel
     on the widened signal (``filtered`` rounded to the dtype), and the
     one-call output against the plain version on the 16-bit signal in
-    slices (class exact, ``filtered`` bitwise). Any other dtype (int16,
-    float64 at the launcher) raises before a launch. Then each entry's
-    device time at the main path's dispatch and over the whole signal with
-    ``filtered``, beside float32's and the bytes bound."""
+    slices (class exact, ``filtered`` bitwise). int16 and int32 signals
+    near full scale (`full_scale`: the filters pass the range, so
+    ``filtered`` saturates), `I_FRAMES` frames of each graph at the
+    stream, frames and ring entries: each bitwise the float32 kernel on
+    the widened signal (``filtered`` cast as the reference's astype) and
+    against the plain version (class exact, ``filtered`` bitwise). Any
+    other dtype (int8, float64 at the launcher) raises before a launch.
+    Then each entry's device time at the main path's dispatch and over the
+    whole signal with ``filtered``, per dtype beside float32's and the
+    bytes bound."""
     import torch
 
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.pipeline import cuda as pcuda
     from repro_torch.kernels.pipeline.graph import (
-        get_graph_factory, graph_frames_call, graph_ring_call,
-        graph_stream_call, graph_stream_plain, ring_chunk_samples,
-        stream_frame_count)
+        cast_output, get_graph_factory, graph_frames_call, graph_frames_plain,
+        graph_ring_call, graph_ring_plain, graph_stream_call,
+        graph_stream_plain, ring_chunk_samples, stream_frame_count)
     from repro_torch.kernels.pipeline.kernel import OUTPUTS
     from repro_torch.kernels.pipeline.ops import (app_pipeline_stream,
                                                   graph_pipeline_stream)
@@ -4239,7 +4376,7 @@ def phase_d(dev, card: str, app, sig, asr_app, audio, day_steps: int = 2048,
         "asr": lambda t: pcuda.launch_asr_graph(
             t, hann=None, twiddles=None, untangle=None, spans=None,
             **framing)}
-    for bad in (torch.int16, torch.float64):
+    for bad in (torch.int8, torch.float64):
         for gname, launcher in launchers.items():
             _cuda.reset_launches()
             try:
@@ -4250,7 +4387,7 @@ def phase_d(dev, card: str, app, sig, asr_app, audio, day_steps: int = 2048,
                 raise AssertionError(f"the {gname} launcher took {bad}")
             if any(v for e in _cuda.LAUNCHES.values() for v in e.values()):
                 raise AssertionError(f"{gname} {bad}: a kernel launched")
-    print("phase D: the graph launchers refuse int16 and float64 signals "
+    print("phase D: the graph launchers refuse int8 and float64 signals "
           "before any launch (the entries narrow float64 first)")
     for dname in D_DTYPES:
         dtype = getattr(torch, dname)
@@ -4337,17 +4474,97 @@ def phase_d(dev, card: str, app, sig, asr_app, audio, day_steps: int = 2048,
               f"call bitwise the float32 kernel on the widened hour; vs "
               f"plain: filtered bitwise, logmel max |diff| {worst:.3e}")
         del want, xa
+    # ---- integer signals near full scale at the three entries of both
+    # graphs
+    for dname in I_DTYPES:
+        dtype = getattr(torch, dname)
+        top = float(torch.iinfo(dtype).max)
+        for gname, g, g_ops, w, h, base in (
+                ("biosignal", graph, operands, WINDOW, HOP, sig),
+                ("asr", asr_graph, asr_ops, ASR_WINDOW, ASR_HOP, audio)):
+            x = full_scale(base[: (I_FRAMES - 1) * h + w], dtype)
+            wide = graph_stream_call(x.float(), g_ops, graph=g, window=w,
+                                     hop=h)
+            if not (wide["filtered"].max() > top and
+                    wide["filtered"].min() < -top - 1):
+                raise AssertionError(f"D {dname} {gname}: the filter stays "
+                                     f"inside the range")
+            want = {k: cast_output(v, dtype) if k == "filtered" else v
+                    for k, v in wide.items()}
+            frames = frame_signal(x, w, h)
+            bw = 8
+            span = ring_chunk_samples(w, h, bw)
+            ring = x[: (I_FRAMES // bw - 1) * bw * h + span].as_strided(
+                (I_FRAMES // bw, span), (bw * h, 1))
+            kw = dict(graph=g)
+            runs = {
+                "stream": (lambda: graph_stream_call(
+                    x, g_ops, window=w, hop=h, **kw),
+                    lambda: graph_stream_plain(x, g_ops, window=w, hop=h,
+                                               **kw)),
+                "frames": (lambda: graph_frames_call(frames, g_ops, **kw),
+                           lambda: graph_frames_plain(frames, g_ops, **kw)),
+                "ring": (lambda: graph_ring_call(
+                    ring, g_ops, window=w, hop=h, **kw),
+                    lambda: graph_ring_plain(ring, g_ops, window=w, hop=h,
+                                             **kw))}
+            worst = 0.0
+            for entry, (fn, plain_fn) in runs.items():
+                out, got = counted(fn)
+                expect_launches(f"D {dname} {gname} {entry}", got,
+                                {(f"{gname}_graph", entry): 1})
+                flat = {k: v.reshape((I_FRAMES,) + v.shape[2:])
+                        if entry == "ring" else v for k, v in out.items()}
+                if flat["filtered"].dtype != dtype:
+                    raise AssertionError(f"D {dname} {gname} {entry}: "
+                                         f"filtered {flat['filtered'].dtype}")
+                check_equal(f"D {dname} {gname} {entry} == float32 on the "
+                            f"widened signal", flat, want)
+                plain = {k: v.reshape((I_FRAMES,) + v.shape[2:])
+                         if entry == "ring" else v
+                         for k, v in plain_fn().items()}
+                worst = max(worst, check_dtype_run(
+                    f"D {dname} {gname} {entry} vs plain", flat, plain))
+                report["runs"][f"{dname} {gname} {entry}"] = {
+                    "launches": {f"{gname}_graph.{entry}": 1}}
+            saturated = int((want["filtered"] == top).sum() +
+                            (want["filtered"] == -top - 1).sum())
+            report["runs"][f"{dname} {gname} max_abs_err"] = worst
+            report["runs"][f"{dname} {gname} saturated"] = saturated
+            oracle = ""
+            if gname == "asr":
+                # logmel at PCM scale against the float64 oracle's limit
+                # (ASR_LOGMEL_TOL is calibrated on audio in [-1, 1])
+                units = {who: oracle_units(name_run, v, asr_app, x, w, h)
+                         for who, name_run, v in (
+                             ("kernel", f"D {dname} asr kernel",
+                              want["logmel"]),
+                             ("plain", f"D {dname} asr plain",
+                              graph_stream_plain(x, g_ops, window=w, hop=h,
+                                                 **kw)["logmel"]))}
+                report["runs"][f"{dname} asr oracle units"] = units
+                oracle = ("; logmel vs the float64 oracle, in units of its "
+                          "limit: kernel {kernel:.4f}, plain {plain:.4f}"
+                          ).format(**units)
+            print(f"phase D {dname} {gname} ({I_FRAMES} frames near full "
+                  f"scale, {saturated} filtered samples saturated): stream, "
+                  f"frames and ring bitwise the float32 kernel on the "
+                  f"widened signal (filtered cast as astype); vs plain: "
+                  f"class exact, filtered bitwise, max |diff| {worst:.3e}"
+                  + oracle)
+            del x, wide, want, frames, ring
     # ---- device times: each entry at the main path's dispatch, and the
     # whole signal with `filtered`, per dtype beside float32's and the
-    # bytes bound of that dtype
+    # bytes bound of that dtype (the integer signals near full scale)
     feat = ("features", "margin", "class")
     span8 = ring_chunk_samples(WINDOW, HOP, 8)
     span32 = ring_chunk_samples(ASR_WINDOW, ASR_HOP, 32)
     mel_nnz = int((asr_app.mel_weights != 0).sum())
-    for dname in ("float32",) + D_DTYPES:
+    for dname in ("float32",) + D_DTYPES + I_DTYPES:
         dtype = getattr(torch, dname)
         elem = torch.empty((), dtype=dtype).element_size()
-        x, xa = sig.to(dtype), audio.to(dtype)
+        x, xa = (sig.to(dtype), audio.to(dtype)) if dtype.is_floating_point \
+            else (full_scale(sig, dtype), full_scale(audio, dtype))
         # this signal's candidate and extremum counts, for the bounds
         c, e = extremum_counts(graph_stream_call(
             x, operands, graph=graph, window=WINDOW, hop=HOP,
@@ -4839,6 +5056,11 @@ def main(argv=None) -> int:
     ap.add_argument("--phase-q", action="store_true",
                     help="the card's name, phase Q and the mesh check only "
                          "(kernels built at first use, no result lines)")
+    ap.add_argument("--phase-c", action="store_true",
+                    help="the card's name and phase C's column deals only, "
+                         "serial and over each column mesh, four cards' "
+                         "included on a host with four (the biosignal "
+                         "kernel built at first use, no result lines)")
     ap.add_argument("--phase-r", action="store_true",
                     help="the card's name and phase R only (no build, no "
                          "result lines)")
@@ -4917,6 +5139,20 @@ def main(argv=None) -> int:
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_d.json").write_text(
+            json.dumps(report, indent=1, default=str))
+        return 0
+    if args.phase_c:
+        dev = torch.device("cuda", 0)
+        app = make_app(device=dev)
+        sig = synthetic_respiration(1, DAY_SAMPLES, seed=0, device=dev)[0][0]
+        n = stream_frame_count(DAY_SAMPLES, WINDOW, HOP)
+        day_ref = BiosignalStream(app, StreamConfig(
+            window=WINDOW, hop=HOP, batch_windows=8)).process(sig)
+        report["phase_c"] = column_paths(app, sig, day_ref, n, card,
+                                         runners=False)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_c.json").write_text(
             json.dumps(report, indent=1, default=str))
         return 0
     if args.phase_r:

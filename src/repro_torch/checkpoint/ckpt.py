@@ -12,6 +12,9 @@ reference writes the `ml_dtypes` type, which the card's machine lacks):
 the port stores a bfloat16 leaf as its raw 16 bits, a uint16 `.npy` with
 ``"bfloat16"`` in `meta.json`, and restores it bitwise.
 
+`restore` places each leaf on one device, or with ``shardings`` lays it
+out on a ``DeviceMesh`` as a ``DTensor``, each rank keeping its shard.
+
 `save` copies every leaf to the host synchronously (the caller may
 update the state in place right after) and writes the files, on a thread
 when asked (``async_write``); a step's directory is written under
@@ -108,12 +111,19 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int, template, *, device="cuda"):
+def restore(ckpt_dir: str, step: int, template, shardings=None, *,
+            device="cuda"):
     """Step ``step`` of ``ckpt_dir`` in the structure of ``template`` (a
     tree whose leaves may be anything: only its nesting and names are
     read), each leaf a tensor on ``device`` (default the card) with the
-    dtype it was written in."""
-    dev = resolve_device(device)
+    dtype it was written in.
+
+    With ``shardings`` (a tree of `sharding.rules.NamedSharding`s on a
+    ``DeviceMesh``, matching ``template``) each leaf comes back as a
+    ``DTensor`` laid out by its sharding on the mesh's devices, every rank
+    keeping its own shard of the file (`sharding.rules.distribute_tree`):
+    the reference's reshard on restore. ``device`` is then not read."""
+    dev = resolve_device(device) if shardings is None else None
     d = Path(ckpt_dir) / f"step_{step:08d}"
     meta = json.loads((d / "meta.json").read_text())
     flat = {}
@@ -124,5 +134,10 @@ def restore(ckpt_dir: str, step: int, template, *, device="cuda"):
             t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(a)
-        flat[k] = t.to(dev)
+        flat[k] = t if dev is None else t.to(dev)
+    if shardings is not None:
+        from repro_torch.sharding.rules import distribute_tree
+
+        flat_s = _flatten(shardings)
+        flat = distribute_tree(flat, {k: flat_s[k] for k in flat})
     return _unflatten_into(flat, template)

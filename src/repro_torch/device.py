@@ -14,3 +14,11 @@ def resolve_device(device) -> torch.device:
             f"device {str(dev)!r} requested but torch.cuda.is_available() "
             f"is False; pass device='cpu' to run the plain PyTorch version")
     return dev
+
+
+def cuda_devices() -> list[torch.device]:
+    """Every CUDA device of the host; raises (via `resolve_device`) when
+    there is none."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return [resolve_device(f"cuda:{i}") for i in range(n)] or \
+        [resolve_device("cuda")]

@@ -42,6 +42,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.fft.kernel import device_stockham_table
 from repro_torch.kernels.pipeline import cuda
 from repro_torch.kernels.pipeline.graph import (OutputSpec, build_graph,
+                                                cast_output,
                                                 register_graph_factory,
                                                 stream_frame_count)
 from repro_torch.kernels.pipeline.kernel import _fft_tables, _packed_rfft
@@ -50,7 +51,8 @@ from repro_torch.kernels.pipeline.stages import register_stage
 __all__ = ["AsrFrontendApp", "make_asr_frontend", "mel_filterbank",
            "hann_window", "MelSpans", "span_table", "mel_spans",
            "asr_graph", "asr_reference", "asr_reference_frames",
-           "host_frames", "asr_staged", "ASR_LOGMEL_TOL"]
+           "asr_oracle64", "host_frames", "asr_staged", "ASR_LOGMEL_TOL",
+           "ASR_ORACLE_UNITS"]
 
 ASR_BLOCK_FRAMES = 8    # frames per CUDA block by default
 # What the kernel's logmel is held to against the plain version's: max
@@ -63,6 +65,16 @@ ASR_BLOCK_FRAMES = 8    # frames per CUDA block by default
 # short, read 0.2-1 of max |logmel| (chip_smoke.py measures both on every
 # run and fails unless this tolerance flags them).
 ASR_LOGMEL_TOL = 1e-5
+# What logmel is held to at any signal scale (16-bit PCM included), per
+# element, against the float64 oracle `asr_oracle64`: float32's eps times
+# ASR_ORACLE_UNITS x (M / (1 + m) + 1 + |logmel|), m the bin's mel power
+# and M the frame's largest. Rounding the frame's spectrum in float32 moves
+# every mel power by about eps x M, which log1p turns into eps x M / (1 + m)
+# on a weak bin of a loud frame; the rest is logmel's own rounding.
+# `tests/test_torch_kernel.py` measures the plain version against it at
+# int16 and int32 full scale and a mel product with 2^-11 relative error
+# above it.
+ASR_ORACLE_UNITS = 16.0
 
 
 # ---------------------------------------------------------------------------
@@ -272,7 +284,8 @@ class AsrFrontendApp(nn.Module):
         Xr, Xi = rfft_packed(filtered[:, :self.fft_size] * self.hann)
         logmel = torch.log1p(torch.matmul(Xr * Xr + Xi * Xi,
                                           self.mel_weights))
-        return {"filtered": filtered.to(frames.dtype), "logmel": logmel}
+        return {"filtered": cast_output(filtered, frames.dtype),
+                "logmel": logmel}
 
 
 def make_asr_frontend(device="cuda", **kw) -> AsrFrontendApp:
@@ -351,6 +364,30 @@ def asr_reference_frames(app: AsrFrontendApp, frames) -> dict:
     power = np.abs(np.fft.rfft(windowed, axis=-1)) ** 2
     logmel = np.log1p(power.astype(np.float32) @ _np(app.mel_weights))
     return {"filtered": filt, "logmel": logmel.astype(np.float32)}
+
+
+def asr_oracle64(app: AsrFrontendApp, signal, *, window: int,
+                 hop: int) -> tuple:
+    """(logmel, limit): the front-end over a raw 1-D signal in float64
+    (the signal widened to float32, as the kernels read it, then every
+    step in float64), and the per-element limit of `ASR_ORACLE_UNITS`
+    that a float32 logmel is held to. Numpy in, numpy out."""
+    x = host_frames(np.asarray(_np(signal), np.float32).astype(np.float64),
+                    window, hop)
+    taps = _np(app.fir_taps).astype(np.float64)
+    k = len(taps)
+    xp = np.pad(x, ((0, 0), (k - 1, 0)))
+    filt = sum(taps[i] * xp[:, k - 1 - i: k - 1 - i + window]
+               for i in range(k))
+    windowed = filt[:, :app.fft_size] * _np(app.hann).astype(np.float64)
+    power = np.abs(np.fft.rfft(windowed, axis=-1)) ** 2
+    mel = power @ _np(app.mel_weights).astype(np.float64)
+    logmel = np.log1p(mel)
+    top = mel.max(axis=-1, keepdims=True) if mel.size else mel
+    eps = float(np.finfo(np.float32).eps)
+    limit = ASR_ORACLE_UNITS * eps * (top / (1.0 + mel) + 1.0 +
+                                      np.abs(logmel))
+    return logmel, limit
 
 
 def host_frames(signal, window: int, hop: int) -> np.ndarray:

@@ -71,20 +71,23 @@
 // segment mean and the band sums reduce in another order. No fast-math:
 // sqrtf, division and log1pf stay IEEE.
 //
-// The signal may be float32, bfloat16 or float16 (the kernel is
-// instantiated per element type, In). A 16-bit frame is widened to float32
-// as it is staged (8-byte loads of 4 samples where the frame lies on 8
-// bytes, 2-byte loads elsewhere), as the reference stages it, so every step
-// after the load is the float32 one; `filtered` is stored in the signal's
-// own type, rounded to nearest even, which is the plain version's
-// .to(dtype). A 16-bit signal halves the bytes the frame loads and the
-// `filtered` stores move.
+// The signal may be float32, bfloat16, float16, int16 or int32 (the kernel
+// is instantiated per element type, In). A frame of any other type than
+// float32 is widened to float32 as it is staged (loads of 4 samples where
+// the frame lies on 4 samples' bytes, of 1 elsewhere), as the reference
+// stages it, so every step after the load is the float32 one; `filtered`
+// is stored in the signal's own type: rounded to nearest even for a
+// 16-bit float, truncated toward zero and saturated for an integer, which
+// is the plain version's cast. A 16-bit signal halves the bytes the frame
+// loads and the `filtered` stores move.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -109,11 +112,20 @@ constexpr int kOutClass = 8;
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
 constexpr int kFloat16 = 2;
+constexpr int kInt16 = 3;
+constexpr int kInt32 = 4;
 
-// ---- the signal's element type In: loads widen to float32, stores of
-// `filtered` round back to nearest even. ld4/st4 take 4 samples that lie
-// on 4 * sizeof(In) bytes. (The same helpers as asr_graph.cu's: each
+// ---- the signal's element type In: loads widen to float32; stores of
+// `filtered` round back to nearest even (bfloat16, float16) or, for an
+// integer type (int16_t, int32_t), truncate toward zero, saturated at the
+// type's range with NaN to 0, as the plain version's cast and the
+// reference's astype do. The clamp is explicit: a C++ cast of a float
+// outside the integer's range is undefined. ld4/st4 take 4 samples that
+// lie on 4 * sizeof(In) bytes. (The same helpers as asr_graph.cu's: each
 // source builds alone.)
+template <class In>
+constexpr bool kHalfFloat = std::is_same<In, __nv_bfloat16>::value ||
+                            std::is_same<In, __half>::value;
 template <class In>
 __device__ __forceinline__ float widen(unsigned short b);
 template <>
@@ -134,40 +146,73 @@ template <>
 __device__ __forceinline__ unsigned short narrow<__half>(float v) {
   return __half_as_ushort(__float2half_rn(v));
 }
+template <class I>
+__device__ __forceinline__ I saturate(float v) {
+  constexpr float lo = sizeof(I) == 2 ? -32768.f : -2147483648.f;
+  constexpr I lowest = sizeof(I) == 2 ? I(-32768) : I(-2147483647 - 1);
+  constexpr I highest = sizeof(I) == 2 ? I(32767) : I(2147483647);
+  if (v != v) return I(0);
+  if (v >= -lo) return highest;
+  if (v <= lo) return lowest;
+  return static_cast<I>(v);   // |v| < 2^15 or 2^31: truncates toward zero
+}
 template <class In>
 __device__ __forceinline__ float ld1(const In* p) {
-  if constexpr (sizeof(In) == 4) {
+  if constexpr (std::is_same<In, float>::value) {
     return __ldg(p);
-  } else {
+  } else if constexpr (kHalfFloat<In>) {
     return widen<In>(__ldg(reinterpret_cast<const unsigned short*>(p)));
+  } else {
+    return static_cast<float>(__ldg(p));
   }
 }
 template <class In>
 __device__ __forceinline__ float4 ld4(const In* p) {
-  if constexpr (sizeof(In) == 4) {
+  if constexpr (std::is_same<In, float>::value) {
     return __ldg(reinterpret_cast<const float4*>(p));
-  } else {
+  } else if constexpr (kHalfFloat<In>) {
     const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
     return make_float4(widen<In>(u.x & 0xffffu), widen<In>(u.x >> 16),
                        widen<In>(u.y & 0xffffu), widen<In>(u.y >> 16));
+  } else if constexpr (sizeof(In) == 4) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(p));
+    return make_float4(static_cast<float>(q.x), static_cast<float>(q.y),
+                       static_cast<float>(q.z), static_cast<float>(q.w));
+  } else {
+    const short4 q = __ldg(reinterpret_cast<const short4*>(p));
+    return make_float4(static_cast<float>(q.x), static_cast<float>(q.y),
+                       static_cast<float>(q.z), static_cast<float>(q.w));
   }
 }
 template <class In>
 __device__ __forceinline__ void st1(In* p, float v) {
-  if constexpr (sizeof(In) == 4) {
+  if constexpr (std::is_same<In, float>::value) {
     *p = v;
-  } else {
+  } else if constexpr (kHalfFloat<In>) {
     *reinterpret_cast<unsigned short*>(p) = narrow<In>(v);
+  } else {
+    *p = saturate<In>(v);
   }
 }
 template <class In>
 __device__ __forceinline__ void st4(In* p, const float (&y)[4]) {
-  if constexpr (sizeof(In) == 4) {
+  if constexpr (std::is_same<In, float>::value) {
     __stcs(reinterpret_cast<float4*>(p), make_float4(y[0], y[1], y[2], y[3]));
-  } else {
+  } else if constexpr (kHalfFloat<In>) {
     __stcs(reinterpret_cast<uint2*>(p),
            make_uint2(narrow<In>(y[0]) | (unsigned(narrow<In>(y[1])) << 16),
                       narrow<In>(y[2]) | (unsigned(narrow<In>(y[3])) << 16)));
+  } else if constexpr (sizeof(In) == 4) {
+    __stcs(reinterpret_cast<int4*>(p),
+           make_int4(saturate<In>(y[0]), saturate<In>(y[1]),
+                     saturate<In>(y[2]), saturate<In>(y[3])));
+  } else {
+    const auto bits = [](float v) {
+      return unsigned(static_cast<unsigned short>(saturate<In>(v)));
+    };
+    __stcs(reinterpret_cast<uint2*>(p),
+           make_uint2(bits(y[0]) | (bits(y[1]) << 16),
+                      bits(y[2]) | (bits(y[3]) << 16)));
   }
 }
 
@@ -569,15 +614,15 @@ biosignal_graph_kernel(const Params p) {
 
     // ---- stage 1: the frame to shared memory, as float32: by cp.async
     // for a float32 signal (16 bytes a copy where the frame lies on 16
-    // bytes, else 4), all of it in flight at once; a 16-bit one loaded 4
-    // samples (8 bytes) a thread where it lies on 8 bytes, else 1, and
+    // bytes, else 4), all of it in flight at once; any other loaded 4
+    // samples a thread where it lies on 4 samples' bytes, else 1, and
     // widened. The tables' copies once the first frame is in
     const int nv = (S + 3) / 4;              // 4-sample vectors a frame
     const int rounds = (nv + T - 1) / T;     // vector v = i + T j in round j
     const bool vec_in =
         (reinterpret_cast<uintptr_t>(src) & (4 * sizeof(In) - 1)) == 0 &&
         (S & 3) == 0;
-    if constexpr (sizeof(In) == 4) {
+    if constexpr (std::is_same<In, float>::value) {
       if (vec_in) {
         for (int v = i; v < nv; v += T)
           copy_async16(filt + 4 * v, src + 4 * v);
@@ -1040,8 +1085,8 @@ const char* biosignal_graph_error_string(int code) {
 // launch (0 on success). Allocates nothing and does not synchronise.
 // `bands` is a host array of 7 band edges. When `retired` is not null the
 // kernel adds to it the frames it wrote among the first `valid_rows`.
-// `dtype` is the element type of x and out_filtered: kFloat32, kBFloat16
-// or kFloat16.
+// `dtype` is the element type of x and out_filtered: kFloat32, kBFloat16,
+// kFloat16, kInt16 or kInt32.
 int biosignal_graph_launch(
     const void* x, int dtype, long long slot_stride, long long frame_stride,
     int n_slots, int n_frames, int window, int block_frames,
@@ -1056,7 +1101,7 @@ int biosignal_graph_launch(
       n_classes > kMaxClasses || n_features != kFeatures || n_slots < 1 ||
       n_slots > 65535 || n_frames < 1 || block_frames < 1 || window < 2 ||
       window > kMaxWindow || fft_size < 4 || fft_size > window ||
-      (m & (m - 1)) != 0 || dtype < kFloat32 || dtype > kFloat16)
+      (m & (m - 1)) != 0 || dtype < kFloat32 || dtype > kInt32)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.x = x;
@@ -1098,7 +1143,9 @@ int biosignal_graph_launch(
   return static_cast<int>(
       dtype == kFloat32    ? launch_taps<float>(p, smem, n_slots, st)
       : dtype == kBFloat16 ? launch_taps<__nv_bfloat16>(p, smem, n_slots, st)
-                           : launch_taps<__half>(p, smem, n_slots, st));
+      : dtype == kFloat16  ? launch_taps<__half>(p, smem, n_slots, st)
+      : dtype == kInt16    ? launch_taps<int16_t>(p, smem, n_slots, st)
+                           : launch_taps<int32_t>(p, smem, n_slots, st));
 }
 
 }  // extern "C"

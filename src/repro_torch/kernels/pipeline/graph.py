@@ -24,11 +24,13 @@ stride of a ring. Every entry runs the same per-frame code, each frame
 filtered with zero history before its first sample, so on one device
 stream == framed == ring slot to the last bit.
 
-The kernels take a float32, bfloat16 or float16 signal and widen it to
-float32 at the load, as the plain version does; ``filtered`` keeps the
-signal's dtype. A float64 signal is narrowed to float32 at every entry
-(`staged_signal`), as the reference's ``jnp.asarray`` makes it with x64
-off.
+The kernels take a float32, bfloat16, float16, int16 or int32 signal and
+widen it to float32 at the load, as the plain version does; ``filtered``
+keeps the signal's dtype, through `cast_output`: an integer ``filtered``
+is truncated toward zero and saturated at its dtype's range, as the
+reference's ``astype`` stores it. A float64 signal is narrowed to float32
+at every entry (`staged_signal`), as the reference's ``jnp.asarray``
+makes it with x64 off.
 """
 from __future__ import annotations
 
@@ -51,7 +53,8 @@ __all__ = ["OutputSpec", "StageGraph", "build_graph", "stages_to_run",
            "graph_ring_call", "graph_frames_plain", "graph_stream_plain",
            "graph_ring_plain", "graph_alloc_outputs", "stream_frame_count",
            "min_stream_block_frames", "resolve_stream_block_frames",
-           "ring_chunk_samples", "block_frames_pool", "staged_signal"]
+           "ring_chunk_samples", "block_frames_pool", "staged_signal",
+           "cast_output"]
 
 
 # ---------------------------------------------------------------------------
@@ -62,6 +65,19 @@ def staged_signal(x: torch.Tensor) -> torch.Tensor:
     """``x`` as the entries stage it: float64 narrowed to float32 (the
     reference's ``jnp.asarray`` with x64 off), any other dtype kept."""
     return x.to(torch.float32) if x.dtype == torch.float64 else x
+
+
+def cast_output(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``v`` in ``dtype`` as the reference's ``astype`` stores it: a float
+    into an integer dtype truncates toward zero, saturates at the dtype's
+    range and takes NaN to 0 (``.to`` would wrap); any other cast is
+    ``.to``."""
+    if v.is_floating_point() and not dtype.is_floating_point and \
+            dtype != torch.bool:
+        info = torch.iinfo(dtype)
+        return v.double().nan_to_num(0.0).clamp(info.min, info.max) \
+            .trunc().to(dtype)
+    return v.to(dtype)
 
 
 def stream_frame_count(n_samples: int, window: int, hop: int) -> int:
@@ -367,8 +383,8 @@ def graph_frames_plain(frames: torch.Tensor, operands, *,
                        graph: StageGraph, outputs=None) -> dict:
     """The graph on (R, S) frames in plain PyTorch, on any device: the FIR
     stage, the map stages the selection needs, then the requested outputs
-    cast to their declared dtypes. The CPU path of the entries, and what
-    the kernel is held to on the card."""
+    cast to their declared dtypes (`cast_output`). The CPU path of the
+    entries, and what the kernel is held to on the card."""
     outputs = canonical_graph_outputs(graph, outputs)
     tables = dict(zip(graph.operands, operands))
     params = dict(graph.params)
@@ -377,7 +393,7 @@ def graph_frames_plain(frames: torch.Tensor, operands, *,
     for stage in stages_to_run(graph, outputs):
         state.update(stage.body(state, tables, params))
     specs = graph.output_specs
-    return {o: state[o].to(specs[o].torch_dtype(frames.dtype))
+    return {o: cast_output(state[o], specs[o].torch_dtype(frames.dtype))
             for o in outputs}
 
 

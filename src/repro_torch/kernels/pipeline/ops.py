@@ -9,15 +9,17 @@ The ``app_pipeline*`` trio takes a `core.biosignal.BiosignalApp`; the
 ``graph_pipeline*`` trio takes any registered graph by name. Every entry
 dispatches on the device of its input: CUDA launches the kernel, CPU runs
 the plain PyTorch version. ``n_columns > 1`` deals the biosignal entries'
-frames across column replicas (`shard.py`, the columns one after another
-on the input's device); the other graphs are single-column, as in the
-reference.
+frames across column replicas (`shard.py`): column d on ``mesh[d]`` of a
+column mesh (a tuple of devices, `serve.stream.column_mesh`), else the
+columns one after another on the input's device; the other graphs are
+single-column, as in the reference.
 
 ``autotune=True`` (with no explicit ``block_rows`` / ``block_frames``)
 times the kernel's candidate blocks on the call's own tensors
 (`core.autotune`) and caches the winner under the reference's key:
 ``"biosignal_pipeline[_stream]"`` for the biosignal entries (with the
-column count and the weighted deal's share signature) and
+column count and the weighted deal's share signature, never the mesh:
+the search times the path the call serves) and
 ``f"{graph}_pipeline[_stream]"`` for the graph entries, so winners never
 leak across graphs. The block changes the speed, never the result.
 """
@@ -96,20 +98,21 @@ def tune_stream_block(graph, signal, window: int, hop: int, outputs, run, *,
 def biosignal_pipeline(signal, taps, w, b, *, fft_size: int = 512,
                        block_rows: int | None = None,
                        autotune: bool = False, outputs=None,
-                       n_columns: int = 1) -> dict:
+                       n_columns: int = 1, mesh=None) -> dict:
     """The full MBioTracker pipeline on (R, S) windows in one fused launch
     (CUDA) or the plain version (CPU). Returns the staged app's output
     dict restricted to ``outputs`` (default: all four keys).
     ``n_columns > 1`` deals row blocks across column replicas
-    (`shard.pipeline_sharded`), one launch per column. ``autotune=True``
-    measures ``block_rows`` (`tune_frames_block`; the key carries D)."""
+    (`shard.pipeline_sharded`, on the column mesh ``mesh`` when given),
+    one launch per column. ``autotune=True`` measures ``block_rows``
+    (`tune_frames_block`; the key carries D)."""
     outputs = canonical_outputs(outputs)
 
     def run(rb):
         if n_columns > 1:
             return pipeline_sharded(signal, taps, w, b, n_columns=n_columns,
-                                    fft_size=fft_size, block_rows=rb,
-                                    outputs=outputs)
+                                    mesh=mesh, fft_size=fft_size,
+                                    block_rows=rb, outputs=outputs)
         return pipeline_frames(signal, taps, w, b, fft_size=fft_size,
                                block_rows=rb, outputs=outputs)
     if autotune and block_rows is None:
@@ -123,12 +126,13 @@ def biosignal_pipeline_stream(signal, taps, w, b, *, window: int, hop: int,
                               fft_size: int = 512,
                               block_frames: int | None = None,
                               autotune: bool = False, outputs=None,
-                              n_columns: int = 1,
+                              n_columns: int = 1, mesh=None,
                               column_weights=None) -> dict:
     """The pipeline over a RAW 1-D signal with (window, hop) framing.
     Equals ``biosignal_pipeline`` on the host-framed windows, to the last
-    bit on one device. ``n_columns > 1`` deals hop-aligned chunks across
-    column replicas (`shard.pipeline_stream_sharded`); ``column_weights``
+    bit. ``n_columns > 1`` deals hop-aligned chunks across column replicas
+    (`shard.pipeline_stream_sharded`, on the column mesh ``mesh`` when
+    given); ``column_weights``
     (one per column) makes that deal non-uniform. ``autotune=True``
     measures ``block_frames`` (`tune_stream_block`; the key carries D and
     the weighted deal's shares)."""
@@ -145,8 +149,8 @@ def biosignal_pipeline_stream(signal, taps, w, b, *, window: int, hop: int,
         if n_columns > 1:
             return pipeline_stream_sharded(
                 signal, taps, w, b, window=window, hop=hop,
-                n_columns=n_columns, fft_size=fft_size, block_frames=rb,
-                outputs=outputs, weights=column_weights)
+                n_columns=n_columns, mesh=mesh, fft_size=fft_size,
+                block_frames=rb, outputs=outputs, weights=column_weights)
         return pipeline_stream(signal, taps, w, b, window=window, hop=hop,
                                fft_size=fft_size, block_frames=rb,
                                outputs=outputs)
@@ -224,26 +228,27 @@ def graph_pipeline_ring(name: str, app, ring, *, window: int, hop: int,
 
 def app_pipeline(app, signal, *, block_rows: int | None = None,
                  autotune: bool = False, outputs=None,
-                 n_columns: int = 1) -> dict:
+                 n_columns: int = 1, mesh=None) -> dict:
     """Fused execution of a `core.biosignal.BiosignalApp` on pre-framed
     windows."""
     return biosignal_pipeline(signal, app.fir_taps, app.svm_w, app.svm_b,
                               fft_size=app.fft_size, block_rows=block_rows,
                               autotune=autotune, outputs=outputs,
-                              n_columns=n_columns)
+                              n_columns=n_columns, mesh=mesh)
 
 
 def app_pipeline_stream(app, signal, *, window: int, hop: int,
                         block_frames: int | None = None,
                         autotune: bool = False, outputs=None,
-                        n_columns: int = 1, column_weights=None) -> dict:
+                        n_columns: int = 1, mesh=None,
+                        column_weights=None) -> dict:
     """Fused raw-signal streaming execution of a `BiosignalApp`."""
     return biosignal_pipeline_stream(signal, app.fir_taps, app.svm_w,
                                      app.svm_b, window=window, hop=hop,
                                      fft_size=app.fft_size,
                                      block_frames=block_frames,
                                      autotune=autotune, outputs=outputs,
-                                     n_columns=n_columns,
+                                     n_columns=n_columns, mesh=mesh,
                                      column_weights=column_weights)
 
 

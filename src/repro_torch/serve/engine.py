@@ -55,7 +55,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import cuda_devices, resolve_device
 from repro_torch.models.api import cast_params, init_cache
 from repro_torch.models.layers import (tree_from_items, tree_items,
                                        tree_map)
@@ -527,14 +527,6 @@ class PagedEngine(Engine):
         `serve.paged.PageTable.defrag`); safe mid-decode, and the
         continuation is bitwise the same."""
         return self.table.defrag()
-
-
-def cuda_devices() -> list[torch.device]:
-    """Every CUDA device of the host; raises (via `resolve_device`) when
-    there is none."""
-    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    return [resolve_device(f"cuda:{i}") for i in range(n)] or \
-        [resolve_device("cuda")]
 
 
 class ColumnScheduler:

@@ -12,11 +12,17 @@ dispatch records one `torch.cuda.Event`, and `_collect` waits on that
 batch's event — the retire point the telemetry measures.
 
 MULTI-COLUMN: ``n_columns > 1`` deals each dispatch's ``batch_windows *
-n_columns`` frames across column replicas, hop-aligned, the columns one
-after another on the stream's device (`kernels/pipeline/shard.py`);
-``column_weights`` makes the deal non-uniform. Outputs are bit-identical
-to one column. Independent streams can instead be pinned to distinct
-columns — what `serve.engine.ColumnScheduler` hands out.
+n_columns`` frames across column replicas, hop-aligned
+(`kernels/pipeline/shard.py`); ``column_weights`` makes the deal
+non-uniform. The stream's ``mesh`` (`column_mesh`: the host's first
+``n_columns`` cards when it has that many, as the reference builds its
+``data`` mesh over its local devices) puts column d on card d, each on a
+CUDA stream of its own; with no mesh (on the CPU, for one column, on too
+few cards) the columns run one after another on the stream's device.
+``mesh`` is a public attribute: ``(cuda:0,) * D`` runs the D columns on
+D streams of one card. Outputs are bit-identical to one column.
+Independent streams can instead be pinned to distinct columns — what
+`serve.engine.ColumnScheduler` hands out; a pinned stream has no mesh.
 
 FAULT HOOKS: an ``injector`` (`serve.fault.FaultInjector`) fires before
 every dispatch and may raise `TransientDispatchError`, retried through
@@ -44,7 +50,7 @@ from typing import Iterator
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import cuda_devices, resolve_device
 from repro_torch.kernels.pipeline.graph import (canonical_graph_outputs,
                                                 default_app,
                                                 get_graph_factory,
@@ -55,7 +61,8 @@ from repro_torch.kernels.pipeline.kernel import OUTPUTS
 from repro_torch.kernels.pipeline.ops import (tune_frames_block,
                                               tune_stream_block)
 from repro_torch.kernels.pipeline.shard import (graph_sharded,
-                                                graph_stream_sharded)
+                                                graph_stream_sharded,
+                                                mesh_operands)
 from repro_torch.runtime.fault import Supervisor, TransientDispatchError
 
 
@@ -118,6 +125,20 @@ def stream_signal(signal, device) -> torch.Tensor:
     if sig.ndim != 1:
         raise ValueError(f"signal must be 1-D, got {tuple(sig.shape)}")
     return sig.to(device)
+
+
+def column_mesh(n_columns: int, device="cuda"):
+    """The column mesh of a stream on ``device``: the host's first
+    ``n_columns`` cards, or None — on a CPU stream, for one column, and
+    when the host has fewer cards (the columns then run one after another
+    on the stream's device), as the reference's ``data`` mesh needs that
+    many local devices. A CUDA stream on a host without a card raises."""
+    if n_columns <= 1 or torch.device(device).type != "cuda":
+        return None
+    devs = cuda_devices()
+    if len(devs) < n_columns:
+        return None
+    return tuple(devs[:n_columns])
 
 
 def _check_stream_config(cfg: StreamConfig, fft_size: int) -> None:
@@ -303,7 +324,10 @@ class BiosignalStream:
     ``device`` is where the dispatches run (default: the app's device;
     with no app, ``"cuda"``); `repin` moves later dispatches to another
     device. Pinning a device is for column-pinned streams: with
-    ``cfg.n_columns > 1`` it is refused, as in the reference. ``telemetry``
+    ``cfg.n_columns > 1`` it is refused, as in the reference. ``mesh`` is
+    the stream's column mesh (`column_mesh` of its columns and device;
+    None for a pinned stream); setting it deals later dispatches over
+    other devices. ``telemetry``
     makes the stream report every batch retire under ``stream_id`` on
     ``column``. ``injector`` and ``retry`` are the fault hooks (module
     docstring).
@@ -334,6 +358,8 @@ class BiosignalStream:
         self._operands = operands
         if device is not None:
             self.repin(device)
+        self.mesh = column_mesh(self.cfg.n_columns, self.device)
+        self._mesh_held = None      # (mesh, operands, mesh_operands)
         self.telemetry = telemetry
         self.stream_id = stream_id if stream_id is not None else id(self)
         self.column = column
@@ -368,6 +394,20 @@ class BiosignalStream:
         cfg = self.cfg
         return (self.dispatch_windows - 1) * cfg.hop + cfg.window
 
+    def _column_operands(self):
+        """What the columns read: the operands on each device of
+        ``self.mesh`` (`mesh_operands`, made once a mesh), else on the
+        stream's device."""
+        if self.mesh is None or self.cfg.n_columns == 1:
+            return self._operands
+        held = self._mesh_held
+        if held is None or held[0] != self.mesh or \
+                held[1] is not self._operands:
+            held = (self.mesh, self._operands,
+                    mesh_operands(self._operands, self.mesh))
+            self._mesh_held = held
+        return held[2]
+
     def _retire_event(self):
         """One event per dispatch on a card (None on the CPU, where the
         plain version has finished when the dispatch returns)."""
@@ -383,16 +423,18 @@ class BiosignalStream:
 
     def _dispatch_chunk(self, chunk: torch.Tensor) -> dict:
         """Raw-chunk dispatch: the kernel cuts the frames itself, one
-        launch per column share. With ``cfg.autotune`` the block is
+        launch per column share, on ``self.mesh`` when set. With
+        ``cfg.autotune`` the block is
         measured after the injector fired (cached per shape)."""
         cfg = self.cfg
         weights = cfg.column_weights if cfg.n_columns > 1 else None
 
         def run(rb):
             return graph_stream_sharded(
-                chunk, self._operands, graph=self._graph, window=cfg.window,
-                hop=cfg.hop, n_columns=cfg.n_columns, weights=weights,
-                block_frames=rb, outputs=cfg.outputs)
+                chunk, self._column_operands(), graph=self._graph,
+                window=cfg.window, hop=cfg.hop, n_columns=cfg.n_columns,
+                weights=weights, block_frames=rb, outputs=cfg.outputs,
+                mesh=self.mesh)
 
         def launch():
             rb = cfg.block_rows
@@ -406,13 +448,14 @@ class BiosignalStream:
 
     def _dispatch_frames(self, frames: torch.Tensor) -> dict:
         """Pre-framed dispatch (reference path), one launch per column's
-        row block."""
+        row block, on ``self.mesh`` when set."""
         cfg = self.cfg
 
         def run(rb):
-            return graph_sharded(frames, self._operands, graph=self._graph,
+            return graph_sharded(frames, self._column_operands(),
+                                 graph=self._graph,
                                  n_columns=cfg.n_columns, block_rows=rb,
-                                 outputs=cfg.outputs)
+                                 outputs=cfg.outputs, mesh=self.mesh)
 
         def launch():
             rb = cfg.block_rows

@@ -337,3 +337,31 @@ def test_search_reads_every_candidate_on_one_clock(monkeypatch, case):
         assert len(set(sleeps)) == 1
     else:
         assert log["host_gaps"] and sleeps == []
+
+
+def test_mesh_autotune_key_carries_columns_not_mesh(apps, tmp_path):
+    """A call dealt over a column mesh tunes the path it serves under the
+    reference's key: D is in it, the mesh is not (the reference's keys
+    never name its mesh), so the serial and the mesh deal of the same
+    traffic share one entry; the tuned mesh call is the untuned
+    single-column one bitwise."""
+    japp, app = apps
+    raw = _raw(512 * 4, seed=17)
+    frames = np.stack([raw[i * 512: (i + 1) * 512] for i in range(4)])
+    cpu2 = (torch.device("cpu"),) * 2
+    jops.app_pipeline_stream(japp, raw, window=512, hop=256, autotune=True,
+                             n_columns=2, mesh=None)
+    jops.app_pipeline(japp, frames, autotune=True, n_columns=2, mesh=None)
+    for mesh in (cpu2, None):
+        got = ops.app_pipeline_stream(app, torch.as_tensor(raw), window=512,
+                                      hop=256, autotune=True, n_columns=2,
+                                      mesh=mesh)
+        _identical(got, ops.app_pipeline_stream(
+            app, torch.as_tensor(raw), window=512, hop=256))
+        got = ops.app_pipeline(app, torch.as_tensor(frames), autotune=True,
+                               n_columns=2, mesh=mesh)
+        _identical(got, ops.app_pipeline(app, torch.as_tensor(frames)))
+    keys = _same_keys()
+    assert len(keys) == 2
+    assert all(k[-1] == 2 for k in keys)
+    _crosses_over(tmp_path)

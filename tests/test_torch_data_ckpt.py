@@ -6,7 +6,11 @@ host_id, num_hosts), from the synthetic source and from a memmap token
 file. Checkpoints keep the reference's layout, so each package restores
 the other's: float32, int32 and int8 leaves bitwise, both ways. The
 port's own round trip is bitwise too, bfloat16 included (stored as its
-raw 16 bits: numpy has no bfloat16).
+raw 16 bits: numpy has no bfloat16). Restored with ``shardings`` on a
+(data 2, model 2) gloo mesh of four ranks, each leaf is a ``DTensor``
+whose local shard is, bitwise, that rank's slice of the unsharded
+restore and (float32, int32 and int8: ROADMAP C.2 keeps bfloat16 out of
+cross-package checks) of the reference's restored values.
 """
 import json
 
@@ -238,3 +242,76 @@ def test_restored_state_trains_on(tmp_path):
     _, m2 = step(back, b)
     assert all(torch.equal(m1[k], m2[k]) for k in m1)
     _equal_trees(back, state)
+
+
+_SHARDED_RESTORE = """
+from torch.distributed.tensor import DTensor
+from repro_torch.checkpoint import ckpt
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.sharding.rules import NamedSharding
+mesh = make_local_mesh(data=2, model=2, device="cpu")
+specs = {specs!r}
+back = ckpt.restore({ckpt_dir!r}, 1, {{k: None for k in specs}},
+                    {{k: NamedSharding(mesh, s) for k, s in specs.items()}})
+assert all(isinstance(v, DTensor) for v in back.values())
+save({{"coord": mesh.get_coordinate(),
+       "local": {{k: v.to_local().clone() for k, v in back.items()}},
+       "global": {{k: tuple(v.shape) for k, v in back.items()}}}})
+"""
+
+# leaf -> (the unsharded value, its spec on the (data, model) mesh)
+_SHARDED_LEAVES = {
+    "f32": (np.arange(24, dtype=np.float32).reshape(4, 6) / 7,
+            ("data", "model")),
+    "i8": (np.arange(-16, 16, dtype=np.int8).reshape(8, 4),
+           (("data", "model"), None)),
+    "i32": (np.arange(8, dtype=np.int32) * 1_000_003, ("model",)),
+    "bf16": (np.arange(8, dtype=np.float32).reshape(4, 2) / 3,
+             (None, "data")),
+}
+
+
+def _rank_slice(full: torch.Tensor, spec: tuple, coord: list):
+    """The rank's block of ``full`` under ``spec`` at mesh coordinate
+    ``coord`` (data, model): each split dim cut in equal chunks, a dim over
+    both axes data-major."""
+    index = {"data": coord[0], "model": coord[1]}
+    size = {"data": 2, "model": 2}
+    out = full
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        axes = axes if isinstance(axes, tuple) else (axes,)
+        n, c = 1, 0
+        for a in axes:
+            n, c = n * size[a], c * size[a] + index[a]
+        out = out.chunk(n, dim)[c]
+    return out
+
+
+def test_sharded_restore_lays_leaves_out_on_a_mesh(tmp_path):
+    from test_torch_gpipe import run_ranks
+
+    tree = {k: torch.as_tensor(v) for k, (v, _) in _SHARDED_LEAVES.items()}
+    tree["bf16"] = tree["bf16"].to(torch.bfloat16)
+    ckpt.save(tree, 1, str(tmp_path / "ck"))
+    whole = ckpt.restore(str(tmp_path / "ck"), 1, dict.fromkeys(tree),
+                         device="cpu")
+    ref = j_ckpt.restore(str(tmp_path / "ck"), 1,
+                         {k: 0 for k in ("f32", "i8", "i32")})
+    specs = {k: spec for k, (_, spec) in _SHARDED_LEAVES.items()}
+    ranks = run_ranks(tmp_path, 4, _SHARDED_RESTORE.format(
+        specs=specs, ckpt_dir=str(tmp_path / "ck")))
+    coords = sorted(tuple(r["coord"]) for r in ranks)
+    assert coords == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    for r in ranks:
+        for k, spec in specs.items():
+            local = r["local"][k]
+            assert r["global"][k] == tuple(tree[k].shape), k
+            assert local.dtype == tree[k].dtype, k
+            assert torch.equal(local, _rank_slice(whole[k], spec,
+                                                  r["coord"])), k
+            if k in ref:
+                want = _rank_slice(torch.as_tensor(np.array(ref[k])), spec,
+                                   r["coord"])
+                np.testing.assert_array_equal(local.numpy(), want.numpy())

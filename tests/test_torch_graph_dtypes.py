@@ -1,5 +1,5 @@
-"""bfloat16, float16 and float64 signals through the port's graph entries
-against the JAX package's, on the CPU.
+"""bfloat16, float16, int16, int32 and float64 signals through the port's
+graph entries against the JAX package's, on the CPU.
 
 The JAX side runs as its own tests run it here: the `ops.py` graph entries
 put the fused `pallas_call` in interpret mode. The port's entries get CPU
@@ -23,6 +23,16 @@ with x64 off, so every direct `graph_pipeline*` entry computes on it and
 returns ``filtered`` in float32; the port's entries do the same.
 Within the port, a 16-bit call equals the float32 call on the widened
 signal bitwise, ``filtered`` rounded to the dtype.
+
+An integer signal (16-bit PCM, a sensor's counts) is widened to float32
+where it is staged, as a 16-bit float one is. Its ``filtered`` is stored
+in the signal's dtype as the reference's ``astype`` stores it: truncated
+toward zero and saturated at the dtype's range. The signals here sit
+near full scale with sharp edges, so the FIR's overshoot passes the range
+(a wrapping cast would give the wrong sign there); ``filtered`` is exact
+wherever the two packages' float32 filters agree bitwise, and elsewhere
+apart by at most 1 more than those filters are (XLA's FMA contraction:
+below 1 at int16's scale, a few float32 steps at int32's).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -37,7 +47,7 @@ from repro_torch.core.biosignal import app_from_numpy
 from repro_torch.kernels.pipeline import ops
 from repro_torch.kernels.pipeline.asr import (ASR_LOGMEL_TOL,
                                               make_asr_frontend)
-from repro_torch.kernels.pipeline.graph import staged_signal
+from repro_torch.kernels.pipeline.graph import cast_output, staged_signal
 from repro_torch.serve.resident import ResidentConfig, ResidentStream
 from repro_torch.serve.stream import BiosignalStream, StreamConfig
 
@@ -46,6 +56,8 @@ GRAPHS = {"biosignal": 128, "asr": 160}       # graph -> hop
 N_FRAMES = 6
 DTYPES = {"bfloat16": (torch.bfloat16, jnp.bfloat16),
           "float16": (torch.float16, jnp.float16)}
+INT_DTYPES = {"int16": (torch.int16, jnp.int16),
+              "int32": (torch.int32, jnp.int32)}
 
 
 @pytest.fixture(scope="module")
@@ -257,3 +269,133 @@ def test_staged_signal_narrows_float64_only():
         assert staged_signal(x) is x
     assert staged_signal(torch.zeros(4, dtype=torch.float64)).dtype == \
         torch.float32
+
+
+# ------------------------------------------------------- integer signals
+
+def _full_scale(name: str, hop: int, dtype) -> torch.Tensor:
+    """``_signal`` plus a square wave of period 74 samples, scaled to
+    twice ``dtype``'s range and clipped at its ends: the FIR overshoots
+    past the range at the square's edges, in both graphs."""
+    info = torch.iinfo(dtype)
+    x = _signal(name, hop).astype(np.float64)
+    x = 0.5 * x / np.abs(x).max()
+    square = np.where((np.arange(x.shape[0]) // 37) % 2 == 0, 0.5, -0.5)
+    x = np.clip(np.round((x + square) * 2.0 * info.max), info.min,
+                info.max)
+    return torch.as_tensor(x.astype(str(dtype).replace("torch.", "")))
+
+
+@pytest.fixture(scope="module")
+def integers(apps):
+    """Per (graph, dtype): the full-scale signal, and the difference of
+    the two packages' float32 filters of its widened values."""
+    out = {}
+    for name, hop in GRAPHS.items():
+        japp, app = apps[name]
+        for dname, (tdt, _) in INT_DTYPES.items():
+            xi = _full_scale(name, hop, tdt)
+            wide = xi.float().numpy()
+            jf = np.asarray(jops.graph_pipeline_stream(
+                name, japp, wide, window=WINDOW, hop=hop,
+                outputs=("filtered",))["filtered"])
+            tf = ops.graph_pipeline_stream(
+                name, app, torch.as_tensor(wide), window=WINDOW, hop=hop,
+                outputs=("filtered",))["filtered"].numpy()
+            # float32 filters of full-scale values: XLA's FMA contraction
+            # moves them by float32 rounding at the signal's scale
+            np.testing.assert_allclose(tf, jf, rtol=0, atol=1e-6 * float(
+                np.abs(jf).max()))
+            info = torch.iinfo(tdt)
+            # the overshoot passes both ends of the dtype's range
+            assert tf.max() > info.max and tf.min() < info.min, name
+            out[name, dname] = (xi, np.abs(tf.astype(np.float64) - jf))
+    return out
+
+
+@pytest.mark.parametrize("entry", ["stream", "frames", "ring"])
+@pytest.mark.parametrize("dname", list(INT_DTYPES))
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_integer_entry_matches_reference(apps, integers, name, dname,
+                                         entry):
+    japp, app = apps[name]
+    hop = GRAPHS[name]
+    tdt, jdt = INT_DTYPES[dname]
+    xi, gap = integers[name, dname]
+    tin = torch.as_tensor(_inputs(name, hop, entry, xi.numpy()))
+    assert tin.dtype == tdt
+    want = _call(jops, name, japp, jnp.asarray(tin.numpy()), hop, entry)
+    got = _call(ops, name, app, tin, hop, entry)
+    assert got["filtered"].dtype == tdt
+    assert np.asarray(want["filtered"]).dtype == np.dtype(jdt)
+    g, w = _flat(got), _flat(want)
+    gf, wf = g.pop("filtered"), w.pop("filtered")
+    # saturated where the float32 filter passes the range
+    assert (wf == torch.iinfo(tdt).max).any() and \
+        (wf == torch.iinfo(tdt).min).any()
+    diff = np.abs(gf.astype(np.int64) - wf.astype(np.int64))
+    # truncation and the clamp move two floats' difference by less than 1
+    assert (diff <= np.floor(gap) + 1).all(), diff.max()
+    assert not diff[gap == 0].any()
+    assert_matches(g, w)
+
+
+@pytest.mark.parametrize("dname", list(INT_DTYPES))
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_integer_equals_float32_on_the_widened_signal(apps, integers, name,
+                                                      dname):
+    """An integer call is the float32 call on the widened signal,
+    ``filtered`` cast as the reference's astype casts."""
+    _, app = apps[name]
+    hop = GRAPHS[name]
+    tdt, _ = INT_DTYPES[dname]
+    xi, _ = integers[name, dname]
+    got = ops.graph_pipeline_stream(name, app, xi, window=WINDOW, hop=hop)
+    want = ops.graph_pipeline_stream(name, app, xi.float(), window=WINDOW,
+                                     hop=hop)
+    assert got["filtered"].dtype == tdt
+    for k, v in want.items():
+        assert torch.equal(got[k], cast_output(v, tdt) if k == "filtered"
+                           else v), k
+    wrapped = want["filtered"].to(tdt)
+    assert not torch.equal(got["filtered"], wrapped)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.uint8, torch.int16,
+                                   torch.int32, torch.bfloat16,
+                                   torch.float16])
+def test_cast_output_is_the_reference_astype(dtype):
+    x = np.array([40000.7, -40000.7, 1.9, -1.9, np.nan, np.inf, -np.inf,
+                  32767.9, -32768.9, 127.5, -128.5, 255.9, 3e9, -3e9,
+                  2147483520.0, 0.49, -0.49], np.float32)
+    jdt = jnp.dtype(str(dtype).replace("torch.", ""))
+    want = np.asarray(jnp.asarray(x).astype(jdt))
+    got = cast_output(torch.as_tensor(x), dtype)
+    assert got.dtype == dtype
+    if dtype.is_floating_point:
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      want.astype(np.float32))
+    else:
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_integer_stream_runtimes_equal_one_call(apps):
+    """The stream runtimes, resident ring and column deal included, keep
+    the int16 signal and give the one call's bits."""
+    _, app = apps["biosignal"]
+    x = _full_scale("biosignal", 128, torch.int16).repeat(3)
+    want = ops.app_pipeline_stream(app, x, window=WINDOW, hop=128)
+    cfg = StreamConfig(window=WINDOW, hop=128, batch_windows=4)
+    runs = [BiosignalStream(app, cfg),
+            BiosignalStream(app, StreamConfig(window=WINDOW, hop=128,
+                                              batch_windows=4,
+                                              framing="host")),
+            BiosignalStream(app, StreamConfig(window=WINDOW, hop=128,
+                                              batch_windows=2, n_columns=3,
+                                              column_weights=(1, 0, 2))),
+            ResidentStream(app, cfg, ResidentConfig(ring_depth=2))]
+    for run in runs:
+        got = run.process(x)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k

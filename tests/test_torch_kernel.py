@@ -16,10 +16,15 @@ The `cuda`-marked tests skip without a card. Tolerances on the card:
 * ASR: filtered exact (the same FIR); logmel within `ASR_LOGMEL_TOL` of
   max(1, its largest magnitude) (the FFT passes and the mel sums run in
   another order than the plain version's);
-* a bfloat16 or float16 signal on either graph: the same, with filtered
-  bitwise in the signal's dtype, and every output bitwise the float32
-  kernel's on the widened signal (filtered rounded to the dtype): the
-  kernels widen at the load and compute in float32 after it;
+* a bfloat16, float16, int16 or int32 signal on either graph: the same,
+  with filtered bitwise in the signal's dtype, and every output bitwise
+  the float32 kernel's on the widened signal (filtered rounded to the
+  dtype, or truncated and saturated for an integer one): the kernels
+  widen at the load and compute in float32 after it. At int16 and int32
+  full scale, where `ASR_LOGMEL_TOL` (calibrated on audio in [-1, 1])
+  does not hold, the ASR logmel of the kernel and of the plain version
+  is held per element to the float64 oracle's limit (`asr_oracle64`,
+  `ASR_ORACLE_UNITS`);
 * FIR: within 1e-5 in float32 and 2e-2 in bfloat16 (the kernel repeats
   the plain version's operations in its order, so they usually agree to
   the last bit);
@@ -44,12 +49,14 @@ from repro_torch.kernels.flash_attention import kernel as _flash  # noqa
 from repro_torch.kernels.pipeline import cuda
 from repro_torch.kernels.rope import kernel as _rope  # noqa: F401
 from repro_torch.kernels.shuffle import kernel as _shuffle  # noqa: F401
-from repro_torch.kernels.pipeline.asr import (ASR_LOGMEL_TOL, MelSpans,
+from repro_torch.kernels.pipeline.asr import (ASR_LOGMEL_TOL,
+                                              ASR_ORACLE_UNITS, MelSpans,
+                                              asr_oracle64,
                                               make_asr_frontend,
                                               mel_filterbank, mel_spans,
                                               span_table)
 from repro_torch.kernels.pipeline.graph import (
-    get_graph_factory, graph_frames_call, graph_frames_plain,
+    cast_output, get_graph_factory, graph_frames_call, graph_frames_plain,
     graph_ring_call, graph_ring_plain, graph_stream_call,
     graph_stream_plain, ring_chunk_samples)
 from repro_torch.kernels.pipeline.kernel import OUTPUTS
@@ -76,6 +83,12 @@ def test_binding_matches_the_source():
         for name, bit in bits.items():
             const = "kOut" + name.capitalize()
             assert re.search(rf"constexpr int {const} = {bit};", text), name
+        # the signal dtype codes the launchers pass
+        for dt, code in cuda.SIGNAL_DTYPES.items():
+            const = {torch.float32: "kFloat32", torch.bfloat16: "kBFloat16",
+                     torch.float16: "kFloat16", torch.int16: "kInt16",
+                     torch.int32: "kInt32"}[dt]
+            assert re.search(rf"constexpr int {const} = {code};", text), dt
     assert "-use_fast_math" not in _cuda.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
 
@@ -187,7 +200,7 @@ def test_kernel_refuses_what_it_does_not_take(card):
     graph, operands = get_graph_factory("biosignal")(app)
     sig = torch.zeros(4096, device=card)
     with pytest.raises(ValueError, match="float32"):
-        graph_stream_call(sig.to(torch.int16), operands, graph=graph,
+        graph_stream_call(sig.to(torch.int8), operands, graph=graph,
                           window=2048, hop=512)
     with pytest.raises(ValueError, match="contiguous"):
         graph_frames_call(sig.reshape(2, 2048).t().contiguous().t(),
@@ -499,6 +512,110 @@ def test_graph_kernels_take_16bit_signals_on_card(card, name, dtype):
                                stream[k][r * bw: r * bw + bw]), k
 
 
+def _full_scale(sig, dtype):
+    """``sig`` plus a square wave of period 74 samples at the integer
+    ``dtype``'s full scale, saturated into it: the filters overshoot past
+    the range at the square's edges."""
+    top = float(torch.iinfo(dtype).max)
+    square = torch.where(torch.arange(sig.numel(), device=sig.device) // 37
+                         % 2 == 0, 1.0, -1.0)
+    return cast_output((sig / sig.abs().max() + square) * top, dtype)
+
+
+def _oracle_units(logmel, oracle) -> float:
+    """The largest |logmel - oracle| in units of the oracle's limit (1 is
+    the limit: `ASR_ORACLE_UNITS`)."""
+    want, limit = oracle
+    got = logmel.detach().cpu().double().numpy()
+    assert got.shape == want.shape
+    return float((np.abs(got - want) / limit).max())
+
+
+@pytest.mark.parametrize("hop_extra", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def test_asr_oracle_limit_takes_plain_pcm_and_flags_a_coarser_mel(dtype,
+                                                                  hop_extra):
+    """The float64 oracle's limit at int16 and int32 full scale: the plain
+    version's logmel (float32) within it, and the oracle's own mel powers
+    moved by a relative 2^-11 (a 10-bit-mantissa product, as TF32 rounds)
+    or rounded to bfloat16 past it."""
+    app = make_asr_frontend(device="cpu")
+    graph, operands = get_graph_factory("asr")(app)
+    hop = 160 + hop_extra
+    x = _full_scale(_audio(40 * hop + 512 + 5, seed=3, device="cpu"), dtype)
+    oracle = asr_oracle64(app, x, window=512, hop=hop)
+    plain = graph_stream_plain(x, operands, graph=graph, window=512,
+                               hop=hop)["logmel"]
+    assert _oracle_units(plain, oracle) < 1.0
+    mel = np.expm1(oracle[0])
+    coarse = np.log1p(mel * (1.0 + 2.0 ** -11))
+    assert _oracle_units(torch.as_tensor(coarse), oracle) > 2.0
+    bf16 = torch.as_tensor(mel).to(torch.bfloat16).double()
+    assert _oracle_units(torch.log1p(bf16), oracle) > 2.0
+    assert ASR_ORACLE_UNITS > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hop_extra", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+@pytest.mark.parametrize("name", ["biosignal", "asr"])
+def test_graph_kernels_take_integer_signals_on_card(card, name, dtype,
+                                                    hop_extra):
+    """An int16 or int32 signal near full scale (its filter passes the
+    range) at all three entries, aligned and at an odd hop: every output
+    bitwise the float32 kernel's on the widened signal (filtered
+    truncated and saturated), filtered bitwise the plain version's, and
+    the biosignal graph's other outputs within `_close`. The ASR graph's
+    logmel, of the kernel and of the plain version, within the float64
+    oracle's limit (`asr_oracle64`): at 16-bit PCM scale the two differ
+    by up to 1.4e-5 of max |logmel| (weak bins of loud frames; ROADMAP
+    C.9), past `ASR_LOGMEL_TOL`, which is calibrated on audio in
+    [-1, 1]."""
+    operands, graph, sig, window, hop, close = _graph_case(name, card)
+    hop += hop_extra
+    top = float(torch.iinfo(dtype).max)
+    x = _full_scale(sig, dtype)
+    kw = dict(graph=graph)
+    stream = graph_stream_call(x, operands, window=window, hop=hop, **kw)
+    frames = frame_signal(x, window, hop)
+    framed = graph_frames_call(frames, operands, block_rows=3, **kw)
+    bw = 4
+    depth = min(3, frames.shape[0] // bw)
+    span, stride = ring_chunk_samples(window, hop, bw), bw * hop
+    ring = x[: (depth - 1) * stride + span].as_strided((depth, span),
+                                                       (stride, 1))
+    ringed = graph_ring_call(ring, operands, window=window, hop=hop, **kw)
+    assert stream["filtered"].dtype == dtype
+    plain = {"stream": graph_stream_plain(x, operands, window=window,
+                                          hop=hop, **kw),
+             "frames": graph_frames_plain(frames, operands, **kw),
+             "ring": graph_ring_plain(ring, operands, window=window, hop=hop,
+                                      **kw)}
+    for got, want in zip((stream, framed, ringed), plain.values()):
+        if name == "biosignal":
+            close(got, want)
+        assert torch.equal(got["filtered"], want["filtered"])
+    if name == "asr":
+        oracle = asr_oracle64(make_asr_frontend(device="cpu"), x.cpu(),
+                              window=window, hop=hop)
+        for got in (stream["logmel"], plain["stream"]["logmel"],
+                    plain["frames"]["logmel"]):
+            assert _oracle_units(got, oracle) < 1.0
+        rows = (oracle[0][: depth * bw], oracle[1][: depth * bw])
+        for got in (ringed["logmel"], plain["ring"]["logmel"]):
+            assert _oracle_units(got.reshape(depth * bw, -1), rows) < 1.0
+    wide = graph_stream_call(x.float(), operands, window=window, hop=hop,
+                             **kw)
+    assert wide["filtered"].max() > top
+    for k in stream:
+        want = cast_output(wide[k], dtype) if k == "filtered" else wide[k]
+        assert torch.equal(stream[k], want), k
+        assert torch.equal(framed[k], stream[k]), k
+        for r in range(depth):
+            assert torch.equal(ringed[k][r],
+                               stream[k][r * bw: r * bw + bw]), k
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["biosignal", "asr"])
 def test_graph_kernels_read_unaligned_16bit_frames_on_card(card, name):
@@ -525,12 +642,12 @@ def test_graph_kernels_read_unaligned_16bit_frames_on_card(card, name):
 
 @pytest.mark.cuda
 def test_graph_kernels_refuse_other_dtypes_on_card(card):
-    """Integer signals raise at the launcher, before any launch; float64
-    is narrowed to float32 by the entries, as the reference's jnp.asarray
-    does, and computes."""
+    """8-bit integer signals raise at the launcher, before any launch
+    (the kernels take int16 and int32); float64 is narrowed to float32 by
+    the entries, as the reference's jnp.asarray does, and computes."""
     operands, graph, sig, window, hop, _ = _graph_case("asr", card)
     _cuda.reset_launches()
-    for dt in (torch.int16, torch.int32):
+    for dt in (torch.int8, torch.uint8):
         with pytest.raises(ValueError, match="bfloat16"):
             graph_stream_call(sig.to(dt), operands, graph=graph,
                               window=window, hop=hop)

@@ -18,14 +18,35 @@
   `tests/test_torch_stream.py` (filtered atol 1e-6, time features exact,
   band powers rtol/atol 1e-5, margin rtol 1e-5 atol 1e-4).
 
+* A column mesh (``mesh=``, a tuple of one device per column) runs
+  column d on ``mesh[d]``; here ``(cpu,) * D``, one device, so the
+  columns take the serial path and these cases hold the mesh's plumbing
+  (its card runs are `chip_smoke.py`'s phase C). Mesh deals of the
+  entries, raw and framed, equal and weighted, and of the stream runtime
+  with tail batches at ``depth`` 2, are bitwise the single-column run,
+  and a mesh of the wrong size raises `ValueError` (the reference
+  asserts). `column_mesh` chooses as the reference's does: a mesh only
+  for a CUDA stream of several columns on a host with that many cards.
+* Against the reference's `shard_map` path (its ``mesh=`` over 4 forced
+  host devices, in a subprocess: the device count is fixed before jax is
+  imported; the mesh is built with Auto axes, as jax 0.9's defaults
+  break its shard_map, ROADMAP C.2), the port's mesh path holds the
+  tolerances above, ``class`` exact.
+
 The autotune-key cases (`test_sharded_autotune_key_carries_device_count`,
-`test_weighted_autotune_key_carries_share_signature`) run in both
-packages in `tests/test_torch_autotune.py`. Reference cases not carried
-over: the mesh cases (`test_shard_map_path_is_active_on_multidevice`,
-`test_sharded_d8_subprocess_forced_devices`: the port has no mesh; its
-columns run one after another on one device) and the benchmark
-trajectory and `diff_autotune` cases of `tests/test_load_aware.py`.
+`test_weighted_autotune_key_carries_share_signature`, and the key under a
+mesh) run in both packages in `tests/test_torch_autotune.py`. Reference
+cases not carried over: `test_shard_map_path_is_active_on_multidevice`
+(it needs the outer process on several JAX devices; the subprocess case
+here covers the mesh path) and the benchmark trajectory and
+`diff_autotune` cases of `tests/test_load_aware.py`.
 """
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -37,7 +58,11 @@ from repro.kernels.pipeline.ops import app_pipeline_stream as j_stream_entry
 from repro.serve import stream as jstream
 from repro_torch.core.biosignal import app_from_numpy
 from repro_torch.kernels.pipeline import ops, shard
+from repro_torch.serve import stream as tstream
 from repro_torch.serve.stream import BiosignalStream, StreamConfig
+
+ROOT = Path(__file__).resolve().parents[1]
+CPU = torch.device("cpu")
 
 # the weight grid of tests/test_load_aware.py, plus the equal deals
 WEIGHTS = [
@@ -334,3 +359,249 @@ def test_stream_runtime_deals_are_bitwise_one_column(apps, stream_ref,
                        n_columns=n_columns, column_weights=weights,
                        framing=framing, depth=2)
     assert_identical(BiosignalStream(app, cfg).process(raw), one)
+
+
+# ------------------------------------------------------------ column mesh
+
+# A CPU mesh is one device, so its columns take the serial path: these
+# cases hold the mesh's plumbing (entries, stream attribute, checks), not
+# a second column runner; the card's runs are chip_smoke.py's phase C.
+MESH_DEALS = [(2, None), (4, (0.5, 2.0, 1.0, 0.25)),
+              (8, (1, 3, 0, 1, 1, 0, 2, 1))]
+
+
+@pytest.mark.parametrize("shape", SHAPES[:1])
+@pytest.mark.parametrize("n_columns,weights", MESH_DEALS)
+def test_mesh_stream_is_bitwise_one_column(apps, single, shape, n_columns,
+                                           weights):
+    _, app = apps
+    raw, ref = single[shape]
+    window, hop, _ = shape
+    mesh = (CPU,) * n_columns
+    out = ops.app_pipeline_stream(app, raw, window=window, hop=hop,
+                                  n_columns=n_columns, mesh=mesh,
+                                  column_weights=weights)
+    assert_identical(out, ref)
+    legacy = shard.pipeline_stream_sharded(
+        raw, app.fir_taps, app.svm_w, app.svm_b, window=window, hop=hop,
+        n_columns=n_columns, mesh=mesh, weights=weights,
+        outputs=("margin", "class"))
+    assert_identical(legacy, {k: ref[k] for k in ("margin", "class")})
+
+
+@pytest.mark.parametrize("rows,n_columns", [(7, 4), (30, 8)])
+def test_mesh_framed_is_bitwise_one_column(apps, rows, n_columns):
+    _, app = apps
+    frames = torch.as_tensor(np.asarray(j_synth(rows, 512, seed=rows)[0]))
+    ref = ops.app_pipeline(app, frames)
+    mesh = (CPU,) * n_columns
+    assert_identical(ops.app_pipeline(app, frames, n_columns=n_columns,
+                                      mesh=mesh), ref)
+    assert_identical(shard.pipeline_sharded(
+        frames, app.fir_taps, app.svm_w, app.svm_b, n_columns=n_columns,
+        mesh=mesh), ref)
+
+
+@pytest.mark.parametrize("n_columns,weights,framing",
+                         [(3, None, "host"), (4, (0, 1, 1, 2), "kernel")])
+def test_mesh_stream_runtime_is_bitwise_one_column(apps, stream_ref,
+                                                   n_columns, weights,
+                                                   framing):
+    """The stream's public ``mesh`` set after construction: every
+    dispatch dealt over it, tail batches included, two in flight."""
+    _, app = apps
+    raw, one, _ = stream_ref
+    cfg = StreamConfig(window=512, hop=256, batch_windows=3,
+                       n_columns=n_columns, column_weights=weights,
+                       framing=framing, depth=2)
+    stream = BiosignalStream(app, cfg)
+    assert stream.mesh is None              # a CPU stream: serial columns
+    stream.mesh = (CPU,) * n_columns
+    assert_identical(stream.process(raw), one)
+
+
+def test_mesh_column_launches_only_on_frames_it_owns(apps, monkeypatch):
+    """Under a mesh, as serially: one call per column that owns a frame,
+    each on its own column's part."""
+    _, app = apps
+    calls = []
+    real = shard.graph_stream_call
+
+    def counting(chunk, *a, **kw):
+        calls.append(chunk.shape[0])
+        return real(chunk, *a, **kw)
+
+    monkeypatch.setattr(shard, "graph_stream_call", counting)
+    raw = torch.as_tensor(_raw(512 + 9 * 128, seed=1))     # 10 frames
+    ref = ops.app_pipeline_stream(app, raw, window=512, hop=128)
+    calls.clear()
+    assert_identical(ops.app_pipeline_stream(
+        app, raw, window=512, hop=128, n_columns=3, mesh=(CPU,) * 3,
+        column_weights=(0, 1, 0)), ref)
+    assert calls == [raw.shape[0]]
+    calls.clear()
+    ops.app_pipeline_stream(app, raw, window=512, hop=128, n_columns=4,
+                            mesh=(CPU,) * 4)
+    assert calls == [512 + 2 * 128] * 3 + [512]
+
+
+def test_mismatched_mesh_raises(apps):
+    _, app = apps
+    raw = torch.as_tensor(_raw(4096, seed=2))
+    frames = raw[:4 * 512].reshape(4, 512)
+    for bad in ((CPU,) * 3, (CPU,) * 5, ()):
+        with pytest.raises(ValueError, match="mesh"):
+            ops.app_pipeline_stream(app, raw, window=512, hop=128,
+                                    n_columns=4, mesh=bad)
+        with pytest.raises(ValueError, match="mesh"):
+            shard.pipeline_sharded(frames, app.fir_taps, app.svm_w,
+                                   app.svm_b, n_columns=4, mesh=bad)
+        stream = BiosignalStream(app, StreamConfig(
+            window=512, hop=128, batch_windows=2, n_columns=4))
+        stream.mesh = bad
+        with pytest.raises(ValueError, match="mesh"):
+            stream.process(raw)
+    assert shard.data_mesh_size((CPU,) * 4) == 4
+
+
+def test_mesh_operands_are_held_by_the_caller(apps):
+    """`mesh_operands` makes one entry a device, copying nothing already
+    there; the sharded entries read it, and a bare tuple serves only a
+    mesh on its own device."""
+    _, app = apps
+    from repro_torch.kernels.pipeline.graph import get_graph_factory
+    graph, operands = get_graph_factory("biosignal")(app)
+    held = shard.mesh_operands(operands, (CPU,) * 3)
+    assert list(held) == [CPU]
+    assert all(a is b for a, b in zip(held[CPU], operands))
+    raw = torch.as_tensor(_raw(512 + 9 * 128, seed=4))
+    kw = dict(graph=graph, window=512, hop=128)
+    ref = shard.graph_stream_sharded(raw, operands, n_columns=1, **kw)
+    for ops in (held, operands):
+        assert_identical(shard.graph_stream_sharded(
+            raw, ops, n_columns=3, mesh=(CPU,) * 3, **kw), ref)
+
+
+def test_cuda_mesh_raises_without_a_card(apps):
+    """A CUDA column mesh for a CPU signal, or on a host without a card,
+    raises: the columns never move to another kind of device."""
+    _, app = apps
+    raw = torch.as_tensor(_raw(4096, seed=2))
+    with pytest.raises((ValueError, RuntimeError)):
+        ops.app_pipeline_stream(app, raw, window=512, hop=128, n_columns=2,
+                                mesh=(torch.device("cuda", 0),) * 2)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            tstream.column_mesh(2)
+
+
+@pytest.mark.parametrize("cards", [0, 1, 3, 4, 8])
+@pytest.mark.parametrize("n_columns", [1, 2, 4])
+def test_column_mesh_chooses_as_the_reference(monkeypatch, cards,
+                                              n_columns):
+    """The reference builds a ``data`` mesh only for several columns on a
+    process with that many devices; the port the same over the host's
+    cards, and never for a CPU stream."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: cards > 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    assert tstream.column_mesh(n_columns, "cpu") is None
+    if n_columns == 1:
+        assert tstream.column_mesh(n_columns) is None
+        return
+    if cards == 0:
+        with pytest.raises(RuntimeError, match="cuda"):
+            tstream.column_mesh(n_columns)
+        return
+    mesh = tstream.column_mesh(n_columns)
+    if cards < n_columns:
+        assert mesh is None
+    else:
+        assert mesh == tuple(torch.device("cuda", i)
+                             for i in range(n_columns))
+        assert len(set(mesh)) == n_columns
+
+
+def test_pinned_and_cpu_streams_have_no_mesh(apps):
+    _, app = apps
+    cpu4 = BiosignalStream(app, StreamConfig(window=512, hop=128,
+                                             n_columns=4))
+    pinned = BiosignalStream(app, StreamConfig(window=512, hop=128),
+                             device="cpu")
+    pinned.repin("cpu", column=1)
+    assert cpu4.mesh is None and pinned.mesh is None
+
+
+# the reference's shard_map path over forced host devices, and its inputs
+_MESH_REF = """
+import json, sys
+import numpy as np
+import jax
+from jax.sharding import AxisType, Mesh
+from repro.core.biosignal import make_app
+from repro.kernels.pipeline.shard import (pipeline_sharded,
+                                          pipeline_stream_sharded)
+assert len(jax.devices()) == 4, jax.devices()
+data = np.load(sys.argv[1])
+app = make_app()
+out = {}
+def mesh(d):
+    return Mesh(np.array(jax.devices()[:d]), ("data",),
+                axis_types=(AxisType.Auto,))
+for d, w in ((2, None), (4, None), (4, (1, 2, 0, 3))):
+    res = pipeline_stream_sharded(
+        data["raw"], app.fir_taps, app.svm_w, app.svm_b, window=512, hop=128,
+        n_columns=d, mesh=mesh(d), weights=w)
+    for k, v in res.items():
+        out[f"stream-{d}-{w}-{k}"] = np.asarray(v)
+res = pipeline_sharded(data["frames"], app.fir_taps, app.svm_w, app.svm_b,
+                       n_columns=4, mesh=mesh(4))
+for k, v in res.items():
+    out[f"framed-4-{k}"] = np.asarray(v)
+np.savez(sys.argv[2], **out)
+print(json.dumps({"keys": len(out)}))
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_mesh(tmp_path_factory):
+    """The reference's `pipeline_stream_sharded(mesh=)` at (2, None),
+    (4, None) and (4, (1, 2, 0, 3)) on a 512/128 signal of 45 frames, and
+    its `pipeline_sharded(mesh=)` at 30 rows over 4, each a `shard_map`
+    over forced host devices."""
+    d = tmp_path_factory.mktemp("mesh_ref")
+    raw = _raw(512 + 44 * 128 + 77, seed=42)
+    frames = np.asarray(j_synth(30, 512, seed=30)[0])
+    np.savez(d / "in.npz", raw=raw, frames=frames)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
+    r = subprocess.run([sys.executable, "-c", _MESH_REF, str(d / "in.npz"),
+                        str(d / "out.npz")], capture_output=True, text=True,
+                       env=env, timeout=300)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+    assert json.loads(r.stdout.strip().splitlines()[-1])["keys"] == 16
+    out = dict(np.load(d / "out.npz"))
+    return raw, frames, out
+
+
+@pytest.mark.parametrize("n_columns,weights", [(2, None), (4, None),
+                                               (4, (1, 2, 0, 3))])
+def test_mesh_stream_matches_reference_shard_map(apps, jax_mesh, n_columns,
+                                                 weights):
+    _, app = apps
+    raw, _, ref = jax_mesh
+    got = shard.pipeline_stream_sharded(
+        torch.as_tensor(raw), app.fir_taps, app.svm_w, app.svm_b,
+        window=512, hop=128, n_columns=n_columns, mesh=(CPU,) * n_columns,
+        weights=weights)
+    want = {k: ref[f"stream-{n_columns}-{weights}-{k}"] for k in got}
+    assert_matches_reference(got, want)
+
+
+def test_mesh_framed_matches_reference_shard_map(apps, jax_mesh):
+    _, app = apps
+    _, frames, ref = jax_mesh
+    got = shard.pipeline_sharded(torch.as_tensor(frames), app.fir_taps,
+                                 app.svm_w, app.svm_b, n_columns=4,
+                                 mesh=(CPU,) * 4)
+    assert_matches_reference(got, {k: ref[f"framed-4-{k}"] for k in got})
