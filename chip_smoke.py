@@ -10,6 +10,7 @@ NVIDIA GPU.
     python3 chip_smoke.py --phase-d  # phase D alone (no result)
     python3 chip_smoke.py --phase-c  # phase C's column deals (no result)
     python3 chip_smoke.py --phase-q  # phase Q and the mesh check (no result)
+    python3 chip_smoke.py --phase-k  # phase K alone (no result)
     python3 chip_smoke.py --phase-r  # phase R alone (no build, no result)
 
 Phases, each printing one line (or a few):
@@ -33,12 +34,17 @@ A1. the three kernels of the ASR slice against their plain versions: the
    stream == framed == ring slot bitwise) and what the check would read
    from the plain stage bodies with the FFT's second pass conjugated or
    each mel span one bin short (`wrong_asr_readings`; the run fails
-   unless `ASR_LOGMEL_TOL` flags both), the FIR in float32 and
-   bfloat16 at 2 and 11 taps on rows longer than one tile, the FFT at N
-   2 to 8192 (`FFT_CASES`), forward and inverse, float32 and bfloat16,
-   each also measured as a transform with its first stage's twiddles
-   conjugated would read (`wrong_fft_reading`; the run fails unless
-   `FFT_TOL` flags it);
+   unless `ASR_LOGMEL_TOL` flags both), the FIR in all seven row dtypes
+   (`FIR_DTYPES`, integers at full scale) at 2, 11, 65, 255 and 2048
+   taps on rows longer than one tile, bitwise the plain version, the FFT
+   at N 2 to 8192 (`FFT_CASES`, one launch) and 16384, 65536 and 2^20
+   (`FOUR_STEP_CASES`, the four-step transform's two launches, counted),
+   forward and inverse, float32, bfloat16 and float16, each also measured
+   as a transform with its first stage's twiddles conjugated would read
+   (`wrong_fft_reading`) and, past 8192, as the four-step without its
+   inter-pass twiddle would (`wrong_four_step_reading`; the run fails
+   unless `FFT_TOL` flags both), and one float32 row of 2^24 points both
+   ways (`FFT_BIG`: the plain version's 1.6 GB table fits);
 A3. the shuffle, RoPE and flash-attention kernels against their plain
    versions at edge shapes: every shuffle op and half at N 2/64/128/256
    and shifts 0/32/-5/2N+3 (bitwise); both RoPE layouts at dh
@@ -117,7 +123,8 @@ S. the standalone entries at their users' full widths, each run with the
    every shuffle op but bit_reverse, one PyTorch call computing the same
    function (timed here only; the shuffle's held bitwise to the kernel's
    output); the FFT
-   also in bfloat16 at the same shape; for
+   also in bfloat16 at the same shape; phase K's four-step FFT and
+   255-tap FIR as two more entries of the result line; for
    attention also the rate over the 4 dh operations per live pair, the
    share of the bound and the ratio to that call;
 6. the ported kernels and the entries that launched them;
@@ -241,11 +248,25 @@ D. (run after phase A2) bfloat16 and float16 signals through both graph
    each bitwise the float32 kernel on the widened signal (``filtered``
    rounded to the dtype) with its launches counted, the one call against
    the plain version over the whole signal (class exact, ``filtered``
-   bitwise); int16 and int32 signals near full scale (``filtered``
-   saturates) at the stream, frames and ring entries of both graphs,
-   each bitwise the float32 kernel on the widened signal and against the
-   plain version; int8 and float64 refused at the launchers; each entry's
-   device time per dtype beside float32's and the dtype's bound;
+   bitwise); int16, int32, int8 and uint8 signals near full scale
+   (``filtered`` saturates) at the stream, frames and ring entries of
+   both graphs, each bitwise the float32 kernel on the widened signal and
+   against the plain version; the int8 and uint8 day (B=8) and hour
+   (B=32) through `BiosignalStream`, its host-framed path and
+   `ResidentStream`, bitwise the float32 kernel on the widened signal;
+   uint16 and float64 refused at the launchers; each entry's device time
+   per dtype beside float32's and the dtype's bound;
+K. (run after phase D) the FFT past 8192 points and the FIR past 64 taps
+   through the user entries, each run with the launch counts set to 0
+   before and read after: `fft` over a 2^20-point row (a 17-minute record
+   at 1 kHz) in float32, bfloat16 and float16 both ways and `rfft` of
+   the record, two launches each (the four-step's columns and rows),
+   within `FFT_TOL` of the plain version; `fir` with 255 taps over the
+   day's 10,797 x 2048 frames in all seven row dtypes, one launch each,
+   bitwise the plain version; then each one's device time beside its
+   bound, the plain version and `torch.fft.fft` or `conv1d` (the FFT also
+   over 64 rows of 2^20 and one row of 2^24, the FIR also at 65 and 2048
+   taps in float32);
 Q. `launch.quickstart.main` and `launch.asr_frontend.main` as a user runs
    them (their examples' checks), each with its launches counted (the
    FFT and FIR once in the quickstart; the ASR graph 16 times and the
@@ -338,10 +359,19 @@ TOL = {"filtered": (1e-6, 1e-6), "features": (1e-5, 1e-5),
 # transform with its first stage's twiddles conjugated must read above it:
 # `wrong_fft_reading` measures that on every run and the run fails unless
 # the tolerance flags it.
-FIR_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
-# phase A1's FFT cases (N, rows): rows that no block's rows divide
+FIR_TOL = 1e-5          # the FIR at the ASR path's shape, float32
+# phase A1's FIR cases: every row dtype the kernel takes, at the tap
+# counts of the one chunk (2, 11) and of the chunked taps (65, 255, 2048)
+FIR_DTYPES = ("float32", "bfloat16", "float16", "int8", "uint8", "int16",
+              "int32")
+FIR_TAPS = (2, 11, 65, 255, 2048)
+# phase A1's FFT cases (N, rows): rows that no block's rows divide; past
+# 8192 points the four-step transform, and one float32 row of 2^24
+FFT_DTYPES = ("float32", "bfloat16", "float16")
 FFT_CASES = [(2, 301), (4, 61), (8, 61), (32, 61), (256, 61), (512, 61),
              (2048, 61), (4096, 61), (8192, 61)]
+FOUR_STEP_CASES = [(16384, 17), (65536, 5), (1 << 20, 2)]
+FFT_BIG = 1 << 24
 # shuffle: bitwise. RoPE: max |kernel - plain| <= tol * max |plain| (the
 # same float32 operations in the same order and the same expf/sinf/cosf;
 # bfloat16 within one rounding). Attention: |kernel - plain| <= atol + rtol
@@ -406,9 +436,9 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def check_close(name: str, got: dict, want: dict) -> float:
+def check_close(name: str, got: dict, want: dict, tol=None) -> float:
     """Raise unless ``got`` matches ``want`` (class exact, floats within
-    TOL); returns the largest float difference."""
+    ``tol``, default `TOL`); returns the largest float difference."""
     import torch
 
     if sorted(got) != sorted(want):
@@ -424,7 +454,7 @@ def check_close(name: str, got: dict, want: dict) -> float:
                 bad = (g != w).nonzero()[:5].flatten().tolist()
                 raise AssertionError(f"{name}/class differs at rows {bad}")
             continue
-        atol, rtol = TOL[k]
+        atol, rtol = (tol or TOL)[k]
         diff = (g - w).abs()
         lim = atol + rtol * w.abs()
         if not bool((diff <= lim).all()):
@@ -434,6 +464,31 @@ def check_close(name: str, got: dict, want: dict) -> float:
                 f"{lim.flatten()[i].item():.3e} at flat index {i}")
         worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
     return worst
+
+
+def tol_units(got: dict, want: dict, tol=None) -> float:
+    """The largest |got - want| / (ATOL + RTOL |want|) of ``tol`` (default
+    `TOL`) over features and margin: above 1 where `check_close` fails."""
+    r = 0.0
+    for k in ("features", "margin"):
+        atol, rtol = (tol or TOL)[k]
+        r = max(r, float(((got[k] - want[k]).abs()
+                          / (atol + rtol * want[k].abs())).max()))
+    return r
+
+
+def byte_tol_control(want: dict) -> float:
+    """What `BYTE_TOL`'s check reads, in units of its limit, from the plain
+    outputs ``want`` with their features rounded to float16; raises unless
+    the check flags it."""
+    import torch
+
+    got = dict(want, features=want["features"].to(torch.float16).float())
+    r = tol_units(got, want, BYTE_TOL)
+    if not r > 1.0:
+        raise AssertionError(f"BYTE_TOL misses features rounded to float16 "
+                             f"({r:.3f} of its limit)")
+    return r
 
 
 def check_equal(name: str, got: dict, want: dict) -> None:
@@ -585,10 +640,16 @@ def fir_work(rows: int, samples: int, n_taps: int, elem: int) -> tuple:
 
 def fft_work(rows: int, n: int, elem: int) -> tuple:
     """(bytes, operations) of a complex radix-2 FFT over (rows, n) planes:
-    two planes read and two written, the (log2 n, n/2) table read once,
-    10 operations a butterfly."""
+    two planes read and two written, the kernel's twiddle table read once
+    (`stockham_table`, past 8192 points `four_step_table`: the plain
+    version's (log2 n, n/2) one would outweigh the planes of one long
+    row), 10 operations a butterfly."""
+    from repro_torch.kernels.fft.kernel import (ROW_MAX_N, four_step_table,
+                                                stockham_table)
+
     stages = int(math.log2(n))
-    return (4 * elem * rows * n + 2 * 4 * stages * (n // 2),
+    table = stockham_table(n) if n <= ROW_MAX_N else four_step_table(n)
+    return (4 * elem * rows * n + table.nbytes,
             10 * stages * (n // 2) * rows)
 
 
@@ -680,18 +741,65 @@ def wrong_fft_reading(re, im, want: tuple, *, inverse: bool = False) -> \
     return scaled_ratio((rr.to(re.dtype), ri.to(re.dtype)), want)
 
 
+def wrong_four_step_reading(re, im, want: tuple, *,
+                            inverse: bool = False) -> float:
+    """What the FFT check reads from a four-step transform without its
+    inter-pass twiddle (`four_step_model` with ``twiddle=False``), rounded
+    to the input's dtype, against ``want``; max over the planes of max
+    |diff| / max |want|."""
+    from repro_torch.kernels.fft.kernel import four_step_model
+
+    got = four_step_model(re, im, inverse=inverse, twiddle=False)
+    return scaled_ratio(tuple(a.to(re.dtype) for a in got), want)
+
+
 def check_wrong_fft(name: str, re, im, want: tuple, inverse: bool) -> float:
-    """Raise unless `FFT_TOL` flags `wrong_fft_reading` for this case;
-    returns the reading."""
-    from repro_torch.kernels.fft.kernel import FFT_TOL
+    """Raise unless `FFT_TOL` flags `wrong_fft_reading` for this case and,
+    past `ROW_MAX_N`, `wrong_four_step_reading`; returns the least
+    reading."""
+    from repro_torch.kernels.fft.kernel import FFT_TOL, ROW_MAX_N
 
     tol = FFT_TOL[str(re.dtype).replace("torch.", "")]
-    reading = wrong_fft_reading(re, im, want, inverse=inverse)
-    if not reading > tol:
-        raise AssertionError(f"{name}: a conjugated first stage reads "
-                             f"{reading:.3e} <= tol {tol}: the check would "
-                             f"not see it")
-    return reading
+    readings = {"a conjugated first stage": wrong_fft_reading(
+        re, im, want, inverse=inverse)}
+    if re.shape[-1] > ROW_MAX_N:
+        readings["the four-step without its twiddle"] = \
+            wrong_four_step_reading(re, im, want, inverse=inverse)
+    for what, reading in readings.items():
+        if not reading > tol:
+            raise AssertionError(f"{name}: {what} reads {reading:.3e} <= "
+                                 f"tol {tol}: the check would not see it")
+    return min(readings.values())
+
+
+def fir_rows(shape: tuple, dtype, g):
+    """FIR rows of ``dtype`` from the generator ``g``: a normal draw for a
+    float dtype; for an integer one the draw at full scale about the
+    middle of the range plus a square wave of period 74, saturated into
+    it (`full_scale`), so the filters pass the range."""
+    import torch
+
+    x = torch.randn(shape, generator=g, device=g.device)
+    if dtype.is_floating_point:
+        return x.to(dtype)
+    return full_scale(x.flatten(), dtype).reshape(shape)
+
+
+def check_fir(name: str, got, want) -> float:
+    """Raise unless the FIR kernel's ``got`` is bitwise the plain
+    version's ``want`` (the same float32 operations in the same order,
+    the same store); returns the max |difference|, 0."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.dtype}{tuple(got.shape)} vs "
+                             f"{want.dtype}{tuple(want.shape)}")
+    if not torch.equal(got, want):
+        diff = (got.double() - want.double()).abs()
+        raise AssertionError(f"{name}: not bitwise the plain version: "
+                             f"{int((diff > 0).sum())} outputs differ, max "
+                             f"|diff| {float(diff.max()):.3e}")
+    return 0.0
 
 
 def wrong_biosignal_readings(sig, graph, operands, want) -> dict:
@@ -732,13 +840,9 @@ def wrong_biosignal_readings(sig, graph, operands, want) -> dict:
                       ("median_rank_high", {"features": feats,
                                             "margin": margin,
                                             "class": cls})):
-        r = 0.0
-        for k in ("features", "margin"):
-            atol, rtol = TOL[k]
-            r = max(r, float(((got[k] - want[k]).abs()
-                              / (atol + rtol * want[k].abs())).max()))
-        readings[name] = (r, float((got["class"] != want["class"]).float()
-                                   .mean()))
+        readings[name] = (tol_units(got, want),
+                          float((got["class"] != want["class"]).float()
+                                .mean()))
     return readings
 
 
@@ -869,7 +973,9 @@ def asr_kernels_vs_plain(asr_graph, asr_ops, dev) -> dict:
     import torch
 
     from repro_torch.core.fir import lowpass_taps
-    from repro_torch.kernels.fft.kernel import FFT_TOL, fft_cuda, fft_plain
+    from repro_torch.kernels.fft.kernel import (FFT_TOL, ROW_MAX_N,
+                                                device_twiddles, fft_cuda,
+                                                fft_plain)
     from repro_torch.kernels.fir.kernel import fir_cuda, fir_plain
     from repro_torch.kernels.pipeline.asr import ASR_LOGMEL_TOL
     from repro_torch.kernels.pipeline.graph import (
@@ -912,41 +1018,72 @@ def asr_kernels_vs_plain(asr_graph, asr_ops, dev) -> dict:
                              for o, v in k.items()},
                             {o: v[: depth * bw] for o, v in ks.items()})
     g = torch.Generator(device=dev).manual_seed(3)
+    # the FIR: every dtype and tap count, rows longer than one tile; the
+    # kernel repeats the plain version's float32 operations in its order
+    # and stores as it stores, so the two must agree bitwise
     err["fir[rows]"] = 0.0
-    n_fir = 0
-    for dtype in (torch.float32, torch.bfloat16):
-        for k in (2, 11):
-            x = torch.randn(5, 5000, generator=g, device=dev).to(dtype)
-            taps = torch.as_tensor(lowpass_taps(k), device=dev)
+    n_fir, fir_rails = 0, 0
+    for dname in FIR_DTYPES:
+        dtype = getattr(torch, dname)
+        for k in FIR_TAPS:
+            x = fir_rows((5, 5000), dtype, g)
+            taps = torch.as_tensor(lowpass_taps(k, cutoff=min(0.4, 8.0 / k)),
+                                   device=dev)
             got = fir_cuda(x, taps, seq_block=2048)      # 3 tiles a row
-            name = str(dtype).replace("torch.", "")
-            err["fir[rows]"] = max(err["fir[rows]"], check_scaled(
-                f"fir {name} k={k}", got, fir_plain(x, taps),
-                FIR_TOL[name]))
+            want = fir_plain(x, taps)
+            err["fir[rows]"] = max(err["fir[rows]"], check_fir(
+                f"fir {dname} k={k}", got, want))
+            if not dtype.is_floating_point:
+                fir_rails += int(((want == torch.iinfo(dtype).max) |
+                                  (want == torch.iinfo(dtype).min)).sum())
             n_fir += 1
+    err["fir rails"] = fir_rails
+    # the FFT: one launch to 8192 points, the four-step past it, in every
+    # dtype both ways; each case also as a wrong transform would read it
     err["fft[rows]"] = 0.0
     n_fft = 0
-    ratio = {"float32": 0.0, "bfloat16": 0.0}
-    wrong = {"float32": math.inf, "bfloat16": math.inf}
-    for n, rows in FFT_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
+    ratio = {d: 0.0 for d in FFT_DTYPES}
+    wrong = {d: math.inf for d in FFT_DTYPES}
+    for n, rows in FFT_CASES + FOUR_STEP_CASES:
+        for dname in FFT_DTYPES:
+            dtype = getattr(torch, dname)
             re = torch.randn(rows, n, generator=g, device=dev).to(dtype)
             im = torch.randn(rows, n, generator=g, device=dev).to(dtype)
-            name = str(dtype).replace("torch.", "")
             for inverse in (False, True):
-                got = fft_cuda(re, im, inverse=inverse)
+                tag = f"fft {dname} N={n} inverse={inverse}"
+                got, launched = counted(lambda: fft_cuda(re, im,
+                                                         inverse=inverse))
+                expect_launches(tag, launched, {
+                    ("fft", "rows"): 1} if n <= ROW_MAX_N else {
+                    ("fft", "four_step_columns"): 1,
+                    ("fft", "four_step_rows"): 1})
                 want = fft_plain(re, im, inverse=inverse)
                 for a, b in zip(got, want):
                     err["fft[rows]"] = max(err["fft[rows]"], check_scaled(
-                        f"fft {name} N={n} inverse={inverse}", a, b,
-                        FFT_TOL[name]))
-                ratio[name] = max(ratio[name], scaled_ratio(got, want))
+                        tag, a, b, FFT_TOL[dname]))
+                ratio[dname] = max(ratio[dname], scaled_ratio(got, want))
                 if n > 2:      # N = 2 has no twiddle but 1 to conjugate
-                    wrong[name] = min(wrong[name], check_wrong_fft(
-                        f"fft {name} N={n} inverse={inverse}", re, im,
-                        want, inverse))
+                    wrong[dname] = min(wrong[dname], check_wrong_fft(
+                        tag, re, im, want, inverse))
                 n_fft += 1
     err["fft ratio"], err["fft wrong reading"] = ratio, wrong
+    # one row of 2^24 points in float32: the plain version's packed table
+    # takes 1.6 GB on the card, built once and dropped after
+    re = torch.randn(1, FFT_BIG, generator=g, device=dev)
+    im = torch.randn(1, FFT_BIG, generator=g, device=dev)
+    for inverse in (False, True):
+        got = fft_cuda(re, im, inverse=inverse)
+        want = fft_plain(re, im, inverse=inverse)
+        for a, b in zip(got, want):
+            err["fft[rows]"] = max(err["fft[rows]"], check_scaled(
+                f"fft float32 N={FFT_BIG} inverse={inverse}", a, b,
+                FFT_TOL["float32"]))
+        err[f"fft ratio N={FFT_BIG} inverse={inverse}"] = scaled_ratio(
+            got, want)
+        n_fft += 1
+    del re, im, got, want
+    device_twiddles.cache_clear()
+    torch.cuda.empty_cache()
     plain = graph_stream_plain(sig, asr_ops, graph=asr_graph, window=W,
                                hop=H, outputs=("logmel",))["logmel"]
     asr_wrong = wrong_asr_readings(sig, asr_graph, asr_ops, plain)
@@ -965,14 +1102,22 @@ def asr_kernels_vs_plain(asr_graph, asr_ops, dev) -> dict:
           f"framed == ring slot bitwise; the plain stage bodies would read "
           + ", ".join(f"{k} {v:.3e}" for k, v in asr_wrong.items())
           + " (both flagged)")
-    print(f"FIR vs plain: {n_fir} cases (float32/bfloat16 x 2, 11 taps, "
-          f"rows of 5000 over 2048-sample tiles), max |diff| "
-          f"{err['fir[rows]']:.3e} (tol {FIR_TOL}); FFT vs plain: {n_fft} "
-          f"cases (N {'/'.join(str(n) for n, _ in FFT_CASES)} x float32/"
-          f"bfloat16 x forward/inverse), max |diff| {err['fft[rows]']:.3e};"
-          f" max |diff| / max |plain| " + ", ".join(
+    print(f"FIR vs plain: {n_fir} cases ({'/'.join(FIR_DTYPES)} x "
+          f"{'/'.join(str(k) for k in FIR_TAPS)} taps, rows of 5000 over "
+          f"2048-sample tiles, integers at full scale: {fir_rails} outputs "
+          f"at the rails), all bitwise the plain version; FFT vs plain: "
+          f"{n_fft} cases (N "
+          f"{'/'.join(str(n) for n, _ in FFT_CASES + FOUR_STEP_CASES)} x "
+          f"{'/'.join(FFT_DTYPES)} x forward/inverse, past {ROW_MAX_N} two "
+          f"launches each, and N {FFT_BIG} in float32), max |diff| "
+          f"{err['fft[rows]']:.3e}; max |diff| / max |plain| " + ", ".join(
               f"{k} {v:.3e}" for k, v in ratio.items())
-          + f" (tol {FFT_TOL}); a conjugated first stage reads at least "
+          + f", N {FFT_BIG} " + "/".join(
+              f"{err[f'fft ratio N={FFT_BIG} inverse={i}']:.3e}"
+              for i in (False, True))
+          + f" (tol {FFT_TOL}); a wrong transform (a conjugated first "
+          f"stage; past {ROW_MAX_N} also the four-step without its "
+          f"inter-pass twiddle) reads at least "
           + ", ".join(f"{k} {v:.3e}" for k, v in wrong.items())
           + " (flagged in every case from N 4)")
     return err
@@ -4256,24 +4401,34 @@ def phase_e(dev, card: str) -> dict:
 
 
 D_DTYPES = ("bfloat16", "float16")
-I_DTYPES = ("int16", "int32")
+I_DTYPES = ("int16", "int32", "int8", "uint8")
+B_DTYPES = ("int8", "uint8")   # through the user entries, day and hour
+# the uint8 biosignal run against the plain version: the band sums reduce
+# in another order over values up to 255 about uint8's mid-scale offset of
+# 127.5, which the segment mean takes out (1.27e-5 relative read on the
+# card, hop 513, past TOL's 1e-5): features and margin within 1e-4
+# relative (class, filtered and the interval features stay exact). int8,
+# centred on -0.5, is held to TOL. The plain features rounded to float16
+# must read above it: `byte_tol_control` measures that on every run.
+BYTE_TOL = {"features": (1e-4, 1e-4), "margin": (1e-3, 1e-4)}
 I_FRAMES = 512          # the integer runs' frames at each entry
 
 
 def full_scale(x, dtype):
     """``x`` (a float signal) plus a square wave of period 74 samples,
-    scaled to twice the integer ``dtype``'s range and saturated into it:
-    the graphs' filters overshoot past the range at the square's edges,
-    so ``filtered`` saturates."""
+    scaled to twice the integer ``dtype``'s range about its middle and
+    saturated into it: the graphs' filters overshoot past the range at
+    the square's edges, so ``filtered`` saturates."""
     import torch
 
     from repro_torch.kernels.pipeline.graph import cast_output
 
-    top = float(torch.iinfo(dtype).max)
+    info = torch.iinfo(dtype)
+    mid, half = (info.max + info.min) / 2.0, (info.max - info.min) / 2.0
     square = torch.where(torch.arange(x.numel(), device=x.device) // 37 % 2
                          == 0, 0.5, -0.5)
-    return cast_output((0.5 * x / x.abs().max() + square) * 2.0 * top,
-                       dtype)
+    return cast_output(mid + (0.5 * x / x.abs().max() + square) * 2.0
+                       * half, dtype)
 
 
 def oracle_units(name: str, logmel, asr_app, x, window: int,
@@ -4293,11 +4448,12 @@ def oracle_units(name: str, logmel, asr_app, x, window: int,
     return units
 
 
-def check_dtype_run(name: str, got: dict, want: dict) -> float:
-    """Raise unless a 16-bit run's outputs ``got`` match the plain
-    version's ``want``: class exact, filtered bitwise in the signal's
-    dtype, features and margin within `TOL`, logmel within
-    `ASR_LOGMEL_TOL`; returns the largest float difference."""
+def check_dtype_run(name: str, got: dict, want: dict, tol=None) -> float:
+    """Raise unless a 16-bit or integer run's outputs ``got`` match the
+    plain version's ``want``: class exact, filtered bitwise in the
+    signal's dtype, features and margin within ``tol`` (default `TOL`),
+    logmel within `ASR_LOGMEL_TOL`; returns the largest float
+    difference."""
     import torch
 
     if sorted(got) != sorted(want):
@@ -4310,7 +4466,7 @@ def check_dtype_run(name: str, got: dict, want: dict) -> float:
         return check_asr(name, got, want)
     rest = [k for k in want if k != "filtered"]
     return check_close(name, {k: got[k] for k in rest},
-                       {k: want[k] for k in rest})
+                       {k: want[k] for k in rest}, tol)
 
 
 def widened_reference(run32, dtype) -> dict:
@@ -4323,8 +4479,8 @@ def widened_reference(run32, dtype) -> dict:
 
 def phase_d(dev, card: str, app, sig, asr_app, audio, day_steps: int = 2048,
             hour_steps: int = 8192) -> dict:
-    """Phase D: bfloat16, float16, int16 and int32 signals through both
-    graph kernels.
+    """Phase D: bfloat16, float16, int16, int32, int8 and uint8 signals
+    through both graph kernels.
 
     For each dtype, the biosignal day (`sig` narrowed) at B=8 raw stream
     and host-framed, resident (ring depth 4), in one call and over 4
@@ -4332,13 +4488,18 @@ def phase_d(dev, card: str, app, sig, asr_app, audio, day_steps: int = 2048,
     output and its launches counted: every run bitwise the float32 kernel
     on the widened signal (``filtered`` rounded to the dtype), and the
     one-call output against the plain version on the 16-bit signal in
-    slices (class exact, ``filtered`` bitwise). int16 and int32 signals
-    near full scale (`full_scale`: the filters pass the range, so
-    ``filtered`` saturates), `I_FRAMES` frames of each graph at the
-    stream, frames and ring entries: each bitwise the float32 kernel on
-    the widened signal (``filtered`` cast as the reference's astype) and
-    against the plain version (class exact, ``filtered`` bitwise). Any
-    other dtype (int8, float64 at the launcher) raises before a launch.
+    slices (class exact, ``filtered`` bitwise). int16, int32, int8 and
+    uint8 signals near full scale (`full_scale`: the filters pass the
+    range, so ``filtered`` saturates), `I_FRAMES` frames of each graph at
+    the stream, frames and ring entries: each bitwise the float32 kernel
+    on the widened signal (``filtered`` cast as the reference's astype)
+    and against the plain version (class exact, ``filtered`` bitwise,
+    features and margin within `TOL`, uint8's within `BYTE_TOL`).
+    The 8-bit ones (`B_DTYPES`) also over the whole day (B=8) and hour
+    (B=32) through `BiosignalStream`, its host-framed path and
+    `ResidentStream`, each bitwise the float32 kernel on the widened
+    signal, its launches counted. Any other dtype (uint16, float64 at the
+    launcher) raises before a launch.
     Then each entry's device time at the main path's dispatch and over the
     whole signal with ``filtered``, per dtype beside float32's and the
     bytes bound."""
@@ -4376,7 +4537,7 @@ def phase_d(dev, card: str, app, sig, asr_app, audio, day_steps: int = 2048,
         "asr": lambda t: pcuda.launch_asr_graph(
             t, hann=None, twiddles=None, untangle=None, spans=None,
             **framing)}
-    for bad in (torch.int8, torch.float64):
+    for bad in (torch.uint16, torch.float64):
         for gname, launcher in launchers.items():
             _cuda.reset_launches()
             try:
@@ -4387,7 +4548,7 @@ def phase_d(dev, card: str, app, sig, asr_app, audio, day_steps: int = 2048,
                 raise AssertionError(f"the {gname} launcher took {bad}")
             if any(v for e in _cuda.LAUNCHES.values() for v in e.values()):
                 raise AssertionError(f"{gname} {bad}: a kernel launched")
-    print("phase D: the graph launchers refuse int8 and float64 signals "
+    print("phase D: the graph launchers refuse uint16 and float64 signals "
           "before any launch (the entries narrow float64 first)")
     for dname in D_DTYPES:
         dtype = getattr(torch, dname)
@@ -4478,17 +4639,22 @@ def phase_d(dev, card: str, app, sig, asr_app, audio, day_steps: int = 2048,
     # graphs
     for dname in I_DTYPES:
         dtype = getattr(torch, dname)
-        top = float(torch.iinfo(dtype).max)
+        info = torch.iinfo(dtype)
         for gname, g, g_ops, w, h, base in (
                 ("biosignal", graph, operands, WINDOW, HOP, sig),
                 ("asr", asr_graph, asr_ops, ASR_WINDOW, ASR_HOP, audio)):
             x = full_scale(base[: (I_FRAMES - 1) * h + w], dtype)
             wide = graph_stream_call(x.float(), g_ops, graph=g, window=w,
                                      hop=h)
-            if not (wide["filtered"].max() > top and
-                    wide["filtered"].min() < -top - 1):
+            # both rails, but the ASR graph's pre-emphasis takes out an
+            # unsigned signal's mid-scale offset: only the low rail there
+            above = bool(wide["filtered"].max() > info.max)
+            below = bool(wide["filtered"].min() < info.min)
+            if not (below and (above or (gname == "asr"
+                                         and not dtype.is_signed))):
                 raise AssertionError(f"D {dname} {gname}: the filter stays "
-                                     f"inside the range")
+                                     f"inside the range (above {above}, "
+                                     f"below {below})")
             want = {k: cast_output(v, dtype) if k == "filtered" else v
                     for k, v in wide.items()}
             frames = frame_signal(x, w, h)
@@ -4508,7 +4674,8 @@ def phase_d(dev, card: str, app, sig, asr_app, audio, day_steps: int = 2048,
                     ring, g_ops, window=w, hop=h, **kw),
                     lambda: graph_ring_plain(ring, g_ops, window=w, hop=h,
                                              **kw))}
-            worst = 0.0
+            byte_tol = BYTE_TOL if dtype == torch.uint8 else None
+            worst, read, byte_read = 0.0, 0.0, 0.0
             for entry, (fn, plain_fn) in runs.items():
                 out, got = counted(fn)
                 expect_launches(f"D {dname} {gname} {entry}", got,
@@ -4524,15 +4691,32 @@ def phase_d(dev, card: str, app, sig, asr_app, audio, day_steps: int = 2048,
                          if entry == "ring" else v
                          for k, v in plain_fn().items()}
                 worst = max(worst, check_dtype_run(
-                    f"D {dname} {gname} {entry} vs plain", flat, plain))
+                    f"D {dname} {gname} {entry} vs plain", flat, plain,
+                    byte_tol))
+                if gname == "biosignal":
+                    read = max(read, tol_units(flat, plain))
+                    byte_read = max(byte_read,
+                                    tol_units(flat, plain, BYTE_TOL))
                 report["runs"][f"{dname} {gname} {entry}"] = {
                     "launches": {f"{gname}_graph.{entry}": 1}}
-            saturated = int((want["filtered"] == top).sum() +
-                            (want["filtered"] == -top - 1).sum())
+            saturated = int((want["filtered"] == info.max).sum() +
+                            (want["filtered"] == info.min).sum())
             report["runs"][f"{dname} {gname} max_abs_err"] = worst
             report["runs"][f"{dname} {gname} saturated"] = saturated
-            oracle = ""
-            if gname == "asr":
+            note = ""
+            if gname == "biosignal":
+                # features and margin in units of TOL's limit, and for
+                # uint8 of BYTE_TOL's with its float16 control
+                report["runs"][f"{dname} biosignal TOL units"] = read
+                note = f"; features/margin at {read:.4f} of TOL's limit"
+                if byte_tol:
+                    control = byte_tol_control(plain)
+                    report["runs"][f"{dname} biosignal BYTE_TOL units"] = {
+                        "kernel": byte_read, "float16 control": control}
+                    note += (f", {byte_read:.4f} of BYTE_TOL's (the plain"
+                               f" features rounded to float16: "
+                               f"{control:.4f})")
+            else:
                 # logmel at PCM scale against the float64 oracle's limit
                 # (ASR_LOGMEL_TOL is calibrated on audio in [-1, 1])
                 units = {who: oracle_units(name_run, v, asr_app, x, w, h)
@@ -4543,7 +4727,7 @@ def phase_d(dev, card: str, app, sig, asr_app, audio, day_steps: int = 2048,
                               graph_stream_plain(x, g_ops, window=w, hop=h,
                                                  **kw)["logmel"]))}
                 report["runs"][f"{dname} asr oracle units"] = units
-                oracle = ("; logmel vs the float64 oracle, in units of its "
+                note = ("; logmel vs the float64 oracle, in units of its "
                           "limit: kernel {kernel:.4f}, plain {plain:.4f}"
                           ).format(**units)
             print(f"phase D {dname} {gname} ({I_FRAMES} frames near full "
@@ -4551,8 +4735,53 @@ def phase_d(dev, card: str, app, sig, asr_app, audio, day_steps: int = 2048,
                   f"frames and ring bitwise the float32 kernel on the "
                   f"widened signal (filtered cast as astype); vs plain: "
                   f"class exact, filtered bitwise, max |diff| {worst:.3e}"
-                  + oracle)
+                  + note)
             del x, wide, want, frames, ring
+    # ---- 8-bit signals near full scale through the user entries: the day
+    # and the hour by the stream, the host-framed stream and the resident
+    # ring, each bitwise the float32 kernel on the widened signal
+    for dname in B_DTYPES:
+        dtype = getattr(torch, dname)
+        info = torch.iinfo(dtype)
+        for gname, a, g, g_ops, w, h, base, B, extra in (
+                ("biosignal", app, graph, operands, WINDOW, HOP, sig, 8, {}),
+                ("asr", asr_app, asr_graph, asr_ops, ASR_WINDOW, ASR_HOP,
+                 audio, 32, {"graph": "asr", "outputs": both})):
+            x = full_scale(base, dtype)
+            nf = stream_frame_count(x.shape[0], w, h)
+            want = graph_stream_call(x.float(), g_ops, graph=g, window=w,
+                                     hop=h, outputs=extra.get(
+                                         "outputs", OUTPUTS))
+            want = {k: cast_output(v, dtype) if k == "filtered" else v
+                    for k, v in want.items()}
+            kname = f"{gname}_graph"
+            runs = [
+                ("stream", lambda: BiosignalStream(a, StreamConfig(
+                    window=w, hop=h, batch_windows=B, **extra)).process(x),
+                 {(kname, "stream"): -(-nf // B)}),
+                ("host-framed", lambda: BiosignalStream(a, StreamConfig(
+                    window=w, hop=h, batch_windows=B, framing="host",
+                    **extra)).process(x), {(kname, "frames"): -(-nf // B)}),
+                ("resident", lambda: ResidentStream(a, StreamConfig(
+                    window=w, hop=h, batch_windows=B, **extra),
+                    ResidentConfig(ring_depth=4, drain_interval=4)).process(
+                    x), {(kname, "ring"): -(-nf // (4 * B))})]
+            for tag, fn, launches in runs:
+                out, got = counted(fn)
+                expect_launches(f"D {dname} {gname} {tag}", got, launches)
+                check_equal(f"D {dname} {gname} {tag} B={B} == float32 on "
+                            f"the widened signal", out, want)
+                report["runs"][f"{dname} {gname} {tag} B={B}"] = {
+                    "launches": {f"{k}.{e}": v
+                                 for (k, e), v in launches.items()}}
+                del out
+            saturated = int((want["filtered"] == info.max).sum() +
+                            (want["filtered"] == info.min).sum())
+            print(f"phase D {dname} {gname} ({nf} frames near full scale, "
+                  f"{saturated} filtered samples saturated): stream, "
+                  f"host-framed and resident at B={B} bitwise the float32 "
+                  f"kernel on the widened signal")
+            del x, want
     # ---- device times: each entry at the main path's dispatch, and the
     # whole signal with `filtered`, per dtype beside float32's and the
     # bytes bound of that dtype (the integer signals near full scale)
@@ -4630,6 +4859,181 @@ def phase_d(dev, card: str, app, sig, asr_app, audio, day_steps: int = 2048,
     report["wall_s"] = time.perf_counter() - t_phase
     print(f"phase D: {report['wall_s']:.1f} s wall")
     return report
+
+
+K_FFT_N = 1 << 20       # the spectrum of a 17-minute record at 1 kHz
+K_FIR_TAPS = 255        # a sharp low-pass over the biosignal day's rows
+
+
+def phase_k(dev, card: str, sig) -> tuple:
+    """Phase K: the FFT past 8192 points and the FIR past 64 taps through
+    the user entries, each run with the launch counts set to 0 just before
+    and read just after. K1 `fft` over a row of `K_FFT_N` complex points
+    (in float16 the record scaled by 2^-6, so that its tones stay in
+    float16's range) and `rfft` over `K_FFT_N` real samples (a 2^19-point
+    row): two launches each, the four-step's columns and rows, held
+    within `FFT_TOL` of the plain version and of float64 `torch.fft`
+    (measured only). K2 `fir`
+    with `K_FIR_TAPS` taps over the day's 10,797 x 2048 frames in every
+    row dtype (integers at full scale): one launch each, bitwise the plain
+    version. Then the device times beside the bounds, the plain versions
+    and one PyTorch call each (`torch.fft.fft`, `conv1d`); returns (the
+    report, the two kernel entries of the result line)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.fir import lowpass_taps
+    from repro_torch.kernels.fft.kernel import (FFT_TOL, device_twiddles,
+                                                fft_plain)
+    from repro_torch.kernels.fft.ops import fft, rfft
+    from repro_torch.kernels.fir.kernel import fir_plain
+    from repro_torch.kernels.fir.ops import fir
+    from repro_torch.serve.stream import frame_signal
+
+    t_phase = time.perf_counter()
+    report: dict = {"runs": {}, "times": {}}
+    g = torch.Generator(device=dev).manual_seed(7)
+    # ---- K1: a 17-minute record at 1 kHz, as complex rows and real
+    t = torch.arange(K_FFT_N, device=dev, dtype=torch.float64) / 1000.0
+    rec = (torch.sin(2 * math.pi * 0.25 * t) + 0.3 * torch.sin(
+        2 * math.pi * 1.2 * t)).float() + 0.1 * torch.randn(
+        K_FFT_N, generator=g, device=dev)
+    del t
+    four = {("fft", "four_step_columns"): 1, ("fft", "four_step_rows"): 1}
+    re, im = rec[None], torch.roll(rec, 1)[None]
+    fft_err, fft_launches = {}, 0
+    for dname in FFT_DTYPES:
+        dtype = getattr(torch, dname)
+        # a unit tone sums to N/2 = 524,288 at its bin, past float16's
+        # 65,504: the float16 record is scaled by 2^-6 first
+        scale = 2.0 ** -6 if dtype == torch.float16 else 1.0
+        xr, xi = (scale * re).to(dtype), (scale * im).to(dtype)
+        for inverse in (False, True):
+            got, launched = counted(lambda: fft(xr, xi, inverse=inverse))
+            expect_launches(f"K fft {dname} inverse={inverse}", launched,
+                            four)
+            fft_launches += sum(launched["fft"].values())
+            want = fft_plain(xr, xi, inverse=inverse)
+            fft_err[f"fft {dname} inverse={inverse}"] = max(
+                check_scaled(f"K fft {dname} inverse={inverse}", a, b,
+                             FFT_TOL[dname]) for a, b in zip(got, want))
+            check_wrong_fft(f"K fft {dname}", xr, xi, want, inverse)
+    (sr, si), launched = counted(lambda: rfft(rec[None]))
+    expect_launches("K rfft", launched, four)
+    fft_launches += sum(launched["fft"].values())
+    ref = torch.fft.rfft(rec.double())
+    scale = float(ref.abs().max())
+    rerr = max(float((sr[0].double() - ref.real).abs().max()),
+               float((si[0].double() - ref.imag).abs().max()))
+    if not rerr <= FFT_TOL["float32"] * scale:
+        raise AssertionError(f"K rfft: |diff| {rerr:.3e} > "
+                             f"{FFT_TOL['float32']} x {scale:.3e}")
+    fft_err["rfft vs float64"] = rerr
+    report["runs"]["fft"] = {"max_abs_err": fft_err,
+                             "launches": fft_launches}
+    print(f"phase K fft: a {K_FFT_N}-point row (a 17-minute record at 1 "
+          f"kHz) in {'/'.join(FFT_DTYPES)} both ways, and rfft of the "
+          f"record ({K_FFT_N // 2}-point row): two launches each (four-step "
+          f"columns, rows), within FFT_TOL of the plain version, max |diff| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in fft_err.items())
+          + f"; {fft_launches} launches")
+    # ---- K2: 255 taps over the day's frames in every row dtype
+    day = frame_signal(sig, WINDOW, HOP)
+    taps = torch.as_tensor(lowpass_taps(K_FIR_TAPS, cutoff=0.02),
+                           device=dev)
+    rows, fir_launches = {}, 0
+    for dname in FIR_DTYPES:
+        dtype = getattr(torch, dname)
+        x = day.to(dtype) if dtype.is_floating_point else \
+            full_scale(day.flatten(), dtype).reshape(day.shape)
+        y, launched = counted(lambda: fir(x, taps))
+        expect_launches(f"K fir {dname}", launched, {("fir", "rows"): 1})
+        fir_launches += launched["fir"]["rows"]
+        check_fir(f"K fir {dname} {K_FIR_TAPS} taps", y, fir_plain(x, taps))
+        rows[dname] = x
+        del y
+    report["runs"]["fir"] = {"launches": fir_launches}
+    print(f"phase K fir: {K_FIR_TAPS} taps over the day's {day.shape[0]} x "
+          f"{day.shape[1]} frames in {'/'.join(FIR_DTYPES)}, one launch "
+          f"each, bitwise the plain version; {fir_launches} launches")
+    # ---- device times (CUDA events) beside the bound, the plain version
+    # and one PyTorch call computing the same function
+    def library_fft(xr, xi):
+        """torch.fft.fft on the complex tensor of (xr, xi), or None where
+        PyTorch has no complex type or no transform for the dtype."""
+        if xr.dtype == torch.bfloat16:
+            return None
+        z = torch.complex(xr, xi)
+        try:
+            torch.fft.fft(z)
+        except RuntimeError:
+            return None
+        return lambda: torch.fft.fft(z)
+
+    def library_fir(x, h):
+        """conv1d of ``x``'s rows, left-padded, with ``h`` flipped, or None
+        where PyTorch has no convolution for the dtype (integers)."""
+        if not x.dtype.is_floating_point:
+            return None
+        k = h.shape[0]
+        w = h.flip(0).reshape(1, 1, k).to(x.dtype)
+        padded = F.pad(x, (k - 1, 0)).unsqueeze(1)
+        return lambda: F.conv1d(padded, w)
+
+    cases = []
+    for dname in FFT_DTYPES:
+        dtype = getattr(torch, dname)
+        for n, nrows in ((K_FFT_N, 1), (K_FFT_N, 64), (FFT_BIG, 1)):
+            if n == FFT_BIG and dname != "float32":
+                continue
+            xr = torch.randn(nrows, n, generator=g, device=dev).to(dtype)
+            xi = torch.randn(nrows, n, generator=g, device=dev).to(dtype)
+            cases.append((f"fft {dname} {nrows} x {n}",
+                          lambda xr=xr, xi=xi: fft(xr, xi),
+                          (lambda xr=xr, xi=xi: fft_plain(xr, xi))
+                          if n == K_FFT_N else None,
+                          library_fft(xr, xi),
+                          fft_work(nrows, n, xr.element_size())))
+    for dname in FIR_DTYPES:
+        x = rows[dname]
+        for k in ((65, K_FIR_TAPS, 2048) if dname == "float32"
+                  else (K_FIR_TAPS,)):
+            h = taps if k == K_FIR_TAPS else torch.as_tensor(
+                lowpass_taps(k, cutoff=min(0.4, 8.0 / k)), device=dev)
+            cases.append((f"fir {dname} {k} taps",
+                          lambda x=x, h=h: fir(x, h),
+                          lambda x=x, h=h: fir_plain(x, h),
+                          library_fir(x, h),
+                          fir_work(*x.shape, k, x.element_size())))
+    for label, kfn, pfn, lfn, work in cases:
+        bms, by = bound_ms(*work)
+        row = {"ms": event_ms(kfn, 10),
+               "plain_ms": None if pfn is None else event_ms(pfn, 2),
+               "library_ms": None if lfn is None else event_ms(lfn, 10),
+               "bound_ms": bms, "bound_by": by}
+        report["times"][label] = row
+        print(f"time K {label}: kernel {row['ms']:.4f} ms, plain "
+              + ("-" if row["plain_ms"] is None else
+                 f"{row['plain_ms']:.3f} ms")
+              + ", library "
+              + ("-" if row["library_ms"] is None else
+                 f"{row['library_ms']:.4f} ms")
+              + f", bound {bms:.5f} ms ({by}) [{card}]")
+    del cases, rows
+    device_twiddles.cache_clear()
+    torch.cuda.empty_cache()
+    fft_row = report["times"][f"fft float32 1 x {K_FFT_N}"]
+    fir_row = report["times"][f"fir float32 {K_FIR_TAPS} taps"]
+    kernels = [
+        {"name": "fft[four_step]", "route": "cuda", "source": FFT_SOURCE,
+         "replaces": FFT_REPLACES, "launches": fft_launches,
+         "max_abs_err": fft_err["fft float32 inverse=False"], **fft_row},
+        {"name": f"fir[rows, {K_FIR_TAPS} taps]", "route": "cuda",
+         "source": FIR_SOURCE, "replaces": FIR_REPLACES,
+         "launches": fir_launches, "max_abs_err": 0.0, **fir_row}]
+    report["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase K: {report['wall_s']:.1f} s wall")
+    return report, kernels
 
 
 def phase_q(dev, card: str) -> dict:
@@ -5061,6 +5465,9 @@ def main(argv=None) -> int:
                          "serial and over each column mesh, four cards' "
                          "included on a host with four (the biosignal "
                          "kernel built at first use, no result lines)")
+    ap.add_argument("--phase-k", action="store_true",
+                    help="the card's name and phase K only (kernels built "
+                         "at first use, no result lines)")
     ap.add_argument("--phase-r", action="store_true",
                     help="the card's name and phase R only (no build, no "
                          "result lines)")
@@ -5153,6 +5560,15 @@ def main(argv=None) -> int:
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_c.json").write_text(
+            json.dumps(report, indent=1, default=str))
+        return 0
+    if args.phase_k:
+        dev = torch.device("cuda", 0)
+        report["phase_k"] = phase_k(dev, card, synthetic_respiration(
+            1, DAY_SAMPLES, seed=0, device=dev)[0][0])[0]
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_k.json").write_text(
             json.dumps(report, indent=1, default=str))
         return 0
     if args.phase_r:
@@ -5472,8 +5888,10 @@ def main(argv=None) -> int:
         f"{v['wrong_reading']:.3e}" for k, v in fft_path.items())
         + f" (tol {FFT_TOL}, flagged in both)")
 
-    # ---- phase D: bfloat16 and float16 signals through both graphs
+    # ---- phase D: 16-bit, integer and 8-bit signals through both graphs
     report["phase_d"] = phase_d(dev, card, app, sig, asr_app, audio)
+    # ---- phase K: the FFT past 8192 points, the FIR past 64 taps
+    report["phase_k"], k_kernels = phase_k(dev, card, sig)
 
     # ---- phase S: the standalone shuffle, RoPE and attention entries
     std_cases, std_launches = standalone_path(audio, dev, card)
@@ -5621,7 +6039,7 @@ def main(argv=None) -> int:
     taps2 = asr_app.fir_taps
     got = fir_cuda(hour_frames, taps2)
     fir_err = check_scaled("fir at the path's shape", got,
-                           fir_plain(hour_frames, taps2), FIR_TOL["float32"])
+                           fir_plain(hour_frames, taps2), FIR_TOL)
     k = taps2.shape[0]
     wconv = taps2.flip(0).reshape(1, 1, k)
     padded = F.pad(hour_frames, (k - 1, 0)).unsqueeze(1)   # left-padded
@@ -5698,6 +6116,8 @@ def main(argv=None) -> int:
               f"bound {bms:.5f} ms ({by}) [{card}]")
     del zc2, padded11
 
+    # the FFT past 8192 points and the FIR past 64 taps (phase K)
+    kernels += k_kernels
     # the standalone kernels at phase S's shapes (rows 7-9)
     report["dropped_tile"] = {key: c["dropped_tile"]
                               for key, c in std_cases.items()
@@ -5725,6 +6145,10 @@ def main(argv=None) -> int:
           f"({asr_launches['resident B=32']}); {FIR_SOURCE} and "
           f"{FFT_SOURCE} (cuda) by asr_staged ({staged_launches['fir']}, "
           f"{staged_launches['fft']}) on the main-path runs; "
+          f"{FFT_SOURCE} (cuda, the four-step's two launches) by fft and "
+          f"rfft ({report['phase_k']['runs']['fft']['launches']}) and "
+          f"{FIR_SOURCE} (cuda, {K_FIR_TAPS} taps) by fir "
+          f"({report['phase_k']['runs']['fir']['launches']}) on phase K; "
           f"{SHUFFLE_SOURCE} (cuda) by shuffle ("
           + ", ".join(f"{e} {n}" for e, n in std_launches["shuffle"].items())
           + f"); {ROPE_SOURCE} (cuda) by rope ("

@@ -9,8 +9,11 @@
 `_cuda` builds, loads, launches and counts the CUDA kernels; each kernel
 module declares its own source and C interface there. Each entry runs its
 kernel on a CUDA tensor and the kernel's plain version on a CPU tensor
-(`on_cuda`).
+(`on_cuda`). `staged_signal` and `cast_output` are the dtype rules every
+entry shares with the reference: float64 staged as float32, and a float
+stored into an integer dtype as ``astype`` stores it.
 """
+import torch
 
 
 def on_cuda(x) -> bool:
@@ -23,3 +26,22 @@ def on_cuda(x) -> bool:
         raise ValueError(f"tensor on unsupported device {x.device}")
     return False
 
+
+
+def staged_signal(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the entries stage it: float64 narrowed to float32 (the
+    reference's ``jnp.asarray`` with x64 off), any other dtype kept."""
+    return x.to(torch.float32) if x.dtype == torch.float64 else x
+
+
+def cast_output(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``v`` in ``dtype`` as the reference's ``astype`` stores it: a float
+    into an integer dtype truncates toward zero, saturates at the dtype's
+    range and takes NaN to 0 (``.to`` would wrap); any other cast is
+    ``.to``."""
+    if v.is_floating_point() and not dtype.is_floating_point and \
+            dtype != torch.bool:
+        info = torch.iinfo(dtype)
+        return v.double().nan_to_num(0.0).clamp(info.min, info.max) \
+            .trunc().to(dtype)
+    return v.to(dtype)

@@ -8,9 +8,10 @@ own `kernel.py` (`fir`, `fft`, `shuffle`, `rope`, `flash_attention`).
 
 A source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library, at first use, under ``build/repro_torch/<hash>/`` of the checkout
-(keyed on the source's hash, so an edit rebuilds), and loaded with
-`ctypes`. `build_all` starts one ``nvcc`` per declared source at once. No
-fast-math: division, ``sqrtf`` and ``log1pf`` stay IEEE. Nothing here runs
+(keyed on the hash of the source and of the headers it may include from
+``kernels/csrc/``, so an edit rebuilds), and loaded with `ctypes`.
+`build_all` starts one ``nvcc`` per declared source at once. No fast-math:
+division, ``sqrtf`` and ``log1pf`` stay IEEE. Nothing here runs
 when a module is imported, so the CPU tests can import every module on a
 host without ``nvcc`` or a card.
 
@@ -40,6 +41,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_SMEM_BYTES = 232_448          # per block on sm_90, opt-in dynamic
+# headers that sources include by a relative path ("../../csrc/...")
+SHARED_CSRC = Path(__file__).resolve().parent / "csrc"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,9 +93,10 @@ def _nvcc() -> str:
 
 @functools.lru_cache(maxsize=None)
 def build(source: Path) -> Build:
-    """Compile one kernel source once per source hash; reuses an existing
-    build of the same source."""
-    src = source.read_bytes()
+    """Compile one kernel source once per hash of it and the shared
+    headers (`SHARED_CSRC`); reuses an existing build of the same."""
+    src = source.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(SHARED_CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     out_dir = BUILD_ROOT / key[:16]
     lib = out_dir / f"lib{source.stem}.so"

@@ -3,11 +3,15 @@
 `fft_cuda` launches the hand-written kernel for Hopper on CUDA tensors:
 radix-16 Stockham passes held in registers, one exchange through shared
 memory between passes, 16-byte global loads and stores, twiddles from
-`stockham_table` (see the source's header). `fft_plain` is the radix-2
-Stockham chain in plain PyTorch (`core.fft.fft_stages` given
-`twiddle_table`), the CPU path and what the kernel is held to on the card
-within `FFT_TOL`. Both compute in float32 and return the input's type
-(float32 or bfloat16); the inverse transform divides by N.
+`stockham_table` (see the source's header), for N up to `ROW_MAX_N`; past
+it, up to `MAX_N`, the four-step transform in two launches
+(`four_step_plan`, `four_step_table`, `four_step_model`), each counted as
+its own entry. `fft_plain` is the radix-2 Stockham chain in plain PyTorch
+(`core.fft.fft_stages` given `twiddle_table`), the CPU path and what the
+kernel is held to on the card within `FFT_TOL`. Both take float32,
+bfloat16 and float16 (float64 narrowed to float32 first, as the
+reference stages it), compute in float32 and return the input's type;
+the inverse transform divides by N.
 """
 from __future__ import annotations
 
@@ -19,32 +23,47 @@ import numpy as np
 import torch
 
 from repro_torch.core.fft import fft_stages
-from repro_torch.kernels import _cuda
+from repro_torch.kernels import _cuda, staged_signal
 
-__all__ = ["FFT_TOL", "MAX_N", "twiddle_table", "device_twiddles",
-           "stockham_plan", "stockham_table", "device_stockham_table",
+__all__ = ["FFT_TOL", "ROW_MAX_N", "MAX_N", "ENTRIES", "twiddle_table",
+           "device_twiddles", "stockham_plan", "stockham_table",
+           "device_stockham_table", "four_step_plan", "four_step_twiddles",
+           "four_step_table", "device_four_step_table", "four_step_model",
            "threads_per_row", "default_block_rows", "fft_plain", "fft_cuda"]
 
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_N = 8192            # a block keeps its rows in shared memory
+# the dtypes the kernel takes, and their codes in the source
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+ROW_MAX_N = 8192        # one launch: a block keeps its rows in shared memory
+MAX_N = 1 << 26         # four-step: N1 x N2 lines of at most ROW_MAX_N
 MAX_THREADS = 512       # the kernel's launch bound
+# the counted entries: the one-launch kernel, the four-step's two passes
+ENTRIES = ("rows", "four_step_columns", "four_step_rows")
 # What the kernel is held to against `fft_plain`: max |kernel - plain| <=
 # tol x max |plain|, per dtype. The two compute in float32 in another order
-# (radix 16 with FMA against radix 2 without): ~1e-6 of the largest output
-# at N <= 8192, so 1e-4 in float32. In bfloat16 both round float32 values
-# that close once each, so they differ by at most one bfloat16 step, <=
-# 2^-7 x max |plain| ~ 7.8e-3: 1e-2.
-FFT_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# (radix 16 with FMA, and past ROW_MAX_N the four-step's twiddle product,
+# against radix 2 without): ~1e-6 of the largest output, so 1e-4 in
+# float32. In bfloat16 both round float32 values that close once each, so
+# they differ by at most one bfloat16 step, <= 2^-7 x max |plain| ~ 7.8e-3:
+# 1e-2. In float16 the same with one float16 step, <= 2^-10 x max |plain|
+# ~ 9.8e-4, plus the float32 difference: 2e-3 (float16's range, 65504,
+# bounds the outputs: unit-scale inputs of N points reach ~4 sqrt(N)).
+FFT_TOL = {"float32": 1e-4, "bfloat16": 1e-2, "float16": 2e-3}
 
 _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _cuda.declare("fft", Path(__file__).resolve().parent / "csrc" / "fft.cu",
-              ("rows",), {
+              ENTRIES, {
     # re, im, twiddle table, out re/im, R, N, rows per block, inverse,
     # dtype, stream
     "fft_launch": ([_p, _p, _p, _p, _p, _ll, _i, _i, _i, _i, _p], _i),
     "fft_smem_bytes": ([_i, _i], ctypes.c_size_t),
     "fft_threads_per_row": ([_i], _i),
     "fft_table_size": ([_i], _i),
+    # re, im, tables, scratch re/im, out re/im, R, N, pass, inverse, dtype,
+    # stream
+    "fft_four_step_launch": ([_p, _p, _p, _p, _p, _p, _p, _ll, _i, _i, _i,
+                              _i, _p], _i),
+    "fft_four_step_smem_bytes": ([_i, _i], ctypes.c_size_t),
+    "fft_four_step_table_size": ([_i], _i),
 })
 
 
@@ -72,17 +91,20 @@ def device_twiddles(n: int, inverse: bool, device: torch.device) -> tuple:
                  for a in twiddle_table(n, inverse))
 
 
-def _check(re: torch.Tensor, im: torch.Tensor) -> int:
+def _check(re: torch.Tensor, im: torch.Tensor) -> tuple:
+    """(re, im, N), float64 planes narrowed to float32 (`staged_signal`)."""
     if re.ndim != 2 or re.shape != im.shape:
         raise ValueError(f"re/im must be two (R, N) arrays of one shape, got "
                          f"{tuple(re.shape)} and {tuple(im.shape)}")
+    re, im = staged_signal(re), staged_signal(im)
     if re.dtype not in DTYPES or im.dtype != re.dtype:
-        raise ValueError(f"the FFT takes float32 or bfloat16 re/im of one "
-                         f"dtype, got {re.dtype} and {im.dtype}")
+        raise ValueError(f"the FFT takes float32, bfloat16 or float16 re/im "
+                         f"(float64 narrowed) of one dtype, got {re.dtype} "
+                         f"and {im.dtype}")
     n = re.shape[-1]
     if n < 2 or n & (n - 1):
         raise ValueError(f"N={n} not a power of 2 >= 2")
-    return n
+    return re, im, n
 
 
 def stockham_plan(n: int) -> tuple:
@@ -125,10 +147,86 @@ def device_stockham_table(n: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(stockham_table(n), device=device)
 
 
+def four_step_plan(n: int) -> tuple:
+    """(N1, N2) of the four-step transform of N = n > `ROW_MAX_N` points:
+    N1 = 2^ceil(lg/2) columns' length, N2 = 2^floor(lg/2) rows' length,
+    both at most `ROW_MAX_N` up to `MAX_N`."""
+    lg = n.bit_length() - 1
+    return 1 << (lg + 1) // 2, 1 << lg // 2
+
+
+def four_step_twiddles(n: int) -> tuple:
+    """The four-step's inter-pass factors for N = n, (N1, 2) and (N2, 2)
+    float32 (cos, sin) tables computed in float64 and cast once: ``fine[j]
+    = W_N^j`` for j < N1 and ``coarse[j] = W_N^(j N1)`` for j < N2, so
+    that W_N^e = coarse[e // N1] fine[e % N1] for any e = n2 k1 < N."""
+    n1, n2 = four_step_plan(n)
+
+    def table(j, m):
+        ang = -2.0 * np.pi * j / m
+        return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(
+            np.float32)
+    return table(np.arange(n1), n), table(np.arange(n2), n2)
+
+
+def four_step_table(n: int) -> np.ndarray:
+    """The four-step kernel's (M, 2) float32 table for N = n: the line
+    transforms' `stockham_table` of N1 and of N2 points, then
+    `four_step_twiddles`' fine and coarse factors."""
+    n1, n2 = four_step_plan(n)
+    return np.concatenate([stockham_table(n1), stockham_table(n2),
+                           *four_step_twiddles(n)])
+
+
+@functools.lru_cache(maxsize=None)
+def device_four_step_table(n: int, device: torch.device) -> torch.Tensor:
+    """`four_step_table` as a float32 tensor on ``device``, built once."""
+    return torch.as_tensor(four_step_table(n), device=device)
+
+
+def four_step_model(re: torch.Tensor, im: torch.Tensor, *,
+                    inverse: bool = False, twiddle: bool = True) -> tuple:
+    """The four-step decomposition the kernel runs past `ROW_MAX_N`, in
+    plain PyTorch on float32 planes of any device: column transforms of N1
+    points (`fft_plain`), the inter-pass factor W_N^(n2 k1) as the
+    kernel's product of `four_step_twiddles` (left out with ``twiddle=
+    False``, a wrong transform the checks must flag), row transforms of N2
+    points and the transposed store; the inverse through the swap
+    ifft(x) = swap(fft(swap(x))) / N, as in the kernel."""
+    R, n = re.shape
+    n1, n2 = four_step_plan(n)
+    a, b = (im, re) if inverse else (re, im)
+    # pass 1: column n2 holds x[N2 n1 + n2]
+    cr, ci = fft_plain(a.float().reshape(R, n1, n2).transpose(1, 2)
+                       .reshape(R * n2, n1),
+                       b.float().reshape(R, n1, n2).transpose(1, 2)
+                       .reshape(R * n2, n1))
+    if twiddle:
+        fine, coarse = (torch.as_tensor(t, device=re.device)
+                        for t in four_step_twiddles(n))
+        e = torch.arange(n2, device=re.device)[:, None] * \
+            torch.arange(n1, device=re.device)[None, :]
+        f, c = fine[e % n1], coarse[e // n1]
+        wr = c[..., 0] * f[..., 0] - c[..., 1] * f[..., 1]
+        wi = c[..., 0] * f[..., 1] + c[..., 1] * f[..., 0]
+        cr, ci = cr.reshape(R, n2, n1), ci.reshape(R, n2, n1)
+        cr, ci = cr * wr - ci * wi, cr * wi + ci * wr
+    # pass 2: row k1 holds scratch[k1 N2 + n2]; point k2 goes to k1 + N1 k2
+    rr, ri = fft_plain(cr.reshape(R, n2, n1).transpose(1, 2)
+                       .reshape(R * n1, n2),
+                       ci.reshape(R, n2, n1).transpose(1, 2)
+                       .reshape(R * n1, n2))
+    rr = rr.reshape(R, n1, n2).transpose(1, 2).reshape(R, n)
+    ri = ri.reshape(R, n1, n2).transpose(1, 2).reshape(R, n)
+    if inverse:
+        rr, ri = ri / n, rr / n
+    return rr, ri
+
+
 def fft_plain(re: torch.Tensor, im: torch.Tensor, *,
               inverse: bool = False) -> tuple:
     """The kernel's function in plain PyTorch, on any device."""
-    n = _check(re, im)
+    re, im, n = _check(re, im)
     table = device_twiddles(n, inverse, re.device)
     rr, ri = fft_stages(re.float(), im.float(), table=table)
     if inverse:
@@ -138,8 +236,10 @@ def fft_plain(re: torch.Tensor, im: torch.Tensor, *,
 
 def default_block_rows(n: int) -> int:
     """Rows per block: 128 threads' worth (one row of N/16 threads from N =
-    2048). At N = 256, 4 and 8 rows ran as fast as 16 and 32 over 359,997
-    rows and 2-4% faster over 10,797 (tools/fft_variants.py on an H100)."""
+    2048; 1 past `ROW_MAX_N`, where the four-step's blocks take lines of
+    their own). At N = 256, 4 and 8 rows ran as fast as 16 and 32 over
+    359,997 rows and 2-4% faster over 10,797 (tools/fft_variants.py on an
+    H100)."""
     return max(1, 128 // threads_per_row(n))
 
 
@@ -155,18 +255,23 @@ def _aligned(x: torch.Tensor, n: int) -> torch.Tensor:
 def fft_cuda(re: torch.Tensor, im: torch.Tensor, *, inverse: bool = False,
              block_rows: int | None = None) -> tuple:
     """Launch the FFT kernel over the rows of CUDA (R, N) re/im planes;
-    returns new (re, im) planes of the input's dtype. ``block_rows`` is the
-    rows one CUDA block takes (default `default_block_rows`); a block has
-    ``block_rows x threads_per_row(N)`` threads, at most 512."""
-    n = _check(re, im)
+    returns new (re, im) planes of the input's dtype. Up to `ROW_MAX_N`
+    one launch: ``block_rows`` is the rows one CUDA block takes (default
+    `default_block_rows`); a block has ``block_rows x threads_per_row(N)``
+    threads, at most 512. Past it, up to `MAX_N`, the four-step transform
+    in two launches through a float32 scratch of the planes' size, whose
+    blocks take 8192 points of lines whatever ``block_rows`` says."""
+    re, im, n = _check(re, im)
     _cuda.check_cuda_input(re, tuple(DTYPES))
     if im.device != re.device:
         raise ValueError(f"re on {re.device}, im on {im.device}")
     if n > MAX_N:
-        raise ValueError(f"N={n} > {MAX_N}: a block keeps its rows in "
-                         f"shared memory")
+        raise ValueError(f"N={n} > {MAX_N}: the four-step transform's "
+                         f"lines hold at most {ROW_MAX_N} points each")
     if block_rows is not None and block_rows < 1:
         raise ValueError(f"block_rows {block_rows} must be positive")
+    if n > ROW_MAX_N:
+        return _four_step(re.contiguous(), im.contiguous(), inverse)
     if block_rows is not None and \
             block_rows * threads_per_row(n) > MAX_THREADS:
         raise ValueError(f"block_rows {block_rows} of N={n} take "
@@ -185,4 +290,27 @@ def fft_cuda(re: torch.Tensor, im: torch.Tensor, *, inverse: bool = False,
                  im.data_ptr(), tw.data_ptr(), out_re.data_ptr(),
                  out_im.data_ptr(), R, n, rows, int(inverse),
                  DTYPES[re.dtype])
+    return out_re, out_im
+
+
+def _four_step(re: torch.Tensor, im: torch.Tensor, inverse: bool) -> tuple:
+    """The two launches of the four-step transform over contiguous CUDA
+    planes, N past `ROW_MAX_N`: the columns into a float32 scratch, then
+    the rows out of it, each counted as its own entry."""
+    R, n = re.shape
+    out_re, out_im = torch.empty_like(re), torch.empty_like(im)
+    if R == 0:
+        return out_re, out_im
+    lib = _cuda.library("fft")
+    for p in (0, 1):
+        _cuda.check_smem("fft", lib.fft_four_step_smem_bytes(n, p),
+                         f"four-step pass {p} of N={n}")
+    tables = device_four_step_table(n, re.device)
+    scratch = torch.empty((2, R, n), dtype=torch.float32, device=re.device)
+    for p, entry in enumerate(ENTRIES[1:]):
+        _cuda.launch("fft", entry, re, "fft_four_step_launch",
+                     re.data_ptr(), im.data_ptr(), tables.data_ptr(),
+                     scratch[0].data_ptr(), scratch[1].data_ptr(),
+                     out_re.data_ptr(), out_im.data_ptr(), R, n, p,
+                     int(inverse), DTYPES[re.dtype])
     return out_re, out_im

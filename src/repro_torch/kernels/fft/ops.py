@@ -26,11 +26,14 @@ __all__ = ["fft", "rfft"]
 def fft(re: torch.Tensor, im: torch.Tensor | None = None, *,
         inverse: bool = False, block_rows: int | None = None,
         autotune: bool = False) -> tuple:
-    """Batched complex FFT over the rows of (R, N) float32 or bfloat16
-    planes, N a power of two; computed in float32, returned in the input's
-    dtype. ``inverse=True`` divides by N. ``block_rows`` is the rows one
-    CUDA block takes (default 128 threads' worth; a block has block_rows x
-    max(1, N/16) threads, at most 512); the CPU path ignores it."""
+    """Batched complex FFT over the rows of (R, N) float32, bfloat16 or
+    float16 planes (float64 narrowed to float32), N a power of two (on the
+    card up to 2^26: past 8192 the four-step transform, two launches);
+    computed in float32, returned in the input's dtype. ``inverse=True``
+    divides by N. ``block_rows`` is the rows one CUDA block takes up to N
+    8192 (default 128 threads' worth; a block has block_rows x max(1,
+    N/16) threads, at most 512); the four-step and the CPU path ignore
+    it."""
     if im is None:
         im = torch.zeros_like(re)
 

@@ -4,13 +4,19 @@
 `fir_plain` is `core.fir.fir_direct` accumulated in float32, the CPU path
 and what the kernel is held to on the card. Both filter each row of an
 (R, S) array as one causal FIR over the whole row (zero history only
-before sample 0), accumulate in float32 and return the input's dtype.
+before sample 0), widen each sample to float32, accumulate in float32 and
+return the input's dtype: an integer output truncated toward zero and
+saturated at its range (`cast_output`, the reference's ``astype``).
 
-The plain version takes any tap count and any real dtype, as the
-reference `fir_pallas` does: float64 and int64 become float32 and int32
-first, as the reference's arrays are with 64-bit types off. The kernel
-takes float32 and bfloat16 rows and at most `MAX_TAPS` taps (`fir.cu`'s
-``kMaxTaps``); `fir_cuda` refuses anything else.
+Both take any tap count and the reference's real dtypes: float64 and
+int64 become float32 and int32 first, as the reference's arrays are with
+64-bit types off. The kernel takes float32, bfloat16, float16, int8,
+uint8, int16 and int32 rows (`DTYPES`); it stages more than 64 taps a
+chunk at a time (`fir.cu`'s ``kTapChunk``); its shared memory (the tile,
+its k - 1 halo and, past 64 taps, the tile's partial sums) bounds k at
+about 54,000 taps at a 2048-sample tile. The kernel repeats the plain
+version's float32 operations in its order without FMA, so the two agree
+bitwise.
 """
 from __future__ import annotations
 
@@ -20,12 +26,15 @@ from pathlib import Path
 import torch
 
 from repro_torch.core.fir import fir_direct
-from repro_torch.kernels import _cuda
+from repro_torch.kernels import _cuda, cast_output
 
-__all__ = ["fir_plain", "fir_cuda", "default_block_rows", "MAX_TAPS"]
+__all__ = ["fir_plain", "fir_cuda", "default_block_rows", "DTYPES",
+           "TAP_CHUNK"]
 
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_TAPS = 64
+# the row dtypes the kernel takes, and their codes in the source
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+          torch.int8: 3, torch.uint8: 4, torch.int16: 5, torch.int32: 6}
+TAP_CHUNK = 64          # taps a block stages at once (kTapChunk)
 BLOCK_SAMPLES = 4096    # default samples per block: rows of one tile
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
@@ -41,8 +50,9 @@ _cuda.declare("fir", Path(__file__).resolve().parent / "csrc" / "fir.cu",
 _NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
 
 
-def _check(x: torch.Tensor, taps) -> torch.Tensor:
-    """The taps as a float32 (k,) tensor on ``x``'s device."""
+def _check(x: torch.Tensor, taps) -> tuple:
+    """(``x`` narrowed as the reference stages it, the taps as a float32
+    (k,) tensor on ``x``'s device)."""
     if x.ndim != 2:
         raise ValueError(f"x must be (R, S), got {tuple(x.shape)}")
     if x.is_complex() or x.dtype == torch.bool:
@@ -51,15 +61,15 @@ def _check(x: torch.Tensor, taps) -> torch.Tensor:
     if taps.ndim != 1 or taps.shape[0] < 1:
         raise ValueError(f"taps must be (k,) with k >= 1, got "
                          f"{tuple(taps.shape)}")
-    return taps.contiguous()
+    return x.to(_NARROW.get(x.dtype, x.dtype)), taps.contiguous()
 
 
 def fir_plain(x: torch.Tensor, taps) -> torch.Tensor:
     """The kernel's function in plain PyTorch, on any device, for any tap
-    count. Returns the input's dtype (float64 and int64 narrowed)."""
-    taps = _check(x, taps)
-    dtype = _NARROW.get(x.dtype, x.dtype)
-    return fir_direct(x.float(), taps).to(dtype)
+    count. Returns the input's dtype (float64 and int64 narrowed; an
+    integer one saturated, as `cast_output` stores it)."""
+    x, taps = _check(x, taps)
+    return cast_output(fir_direct(x.float(), taps), x.dtype)
 
 
 def default_block_rows(S: int, seq_block: int = 2048) -> int:
@@ -70,14 +80,12 @@ def default_block_rows(S: int, seq_block: int = 2048) -> int:
 
 def fir_cuda(x: torch.Tensor, taps, *, seq_block: int = 2048,
              block_rows: int | None = None) -> torch.Tensor:
-    """Launch the FIR kernel over the rows of a CUDA (R, S) array. A block
-    filters ``block_rows`` rows of one ``seq_block``-sample tile (default:
-    as many rows as fill `BLOCK_SAMPLES`)."""
-    taps = _check(x, taps)
+    """Launch the FIR kernel over the rows of a CUDA (R, S) array of one
+    of `DTYPES` (float64 and int64 narrowed first). A block filters
+    ``block_rows`` rows of one ``seq_block``-sample tile (default: as many
+    rows as fill `BLOCK_SAMPLES`)."""
+    x, taps = _check(x, taps)
     _cuda.check_cuda_input(x, tuple(DTYPES))
-    if taps.shape[0] > MAX_TAPS:
-        raise ValueError(f"the FIR kernel takes at most {MAX_TAPS} taps, "
-                         f"got {taps.shape[0]}")
     if seq_block < 1 or (block_rows is not None and block_rows < 1):
         raise ValueError(f"seq_block {seq_block} and block_rows "
                          f"{block_rows} must be positive")
@@ -90,7 +98,7 @@ def fir_cuda(x: torch.Tensor, taps, *, seq_block: int = 2048,
     rows = block_rows or default_block_rows(S, seq_block)
     k = taps.shape[0]
     _cuda.check_smem("fir", _cuda.library("fir").fir_smem_bytes(tile, k),
-                    f"seq_block {tile}")
+                    f"seq_block {tile} and {k} taps")
     _cuda.launch("fir", "rows", x, "fir_launch", x.data_ptr(),
                 taps.data_ptr(), y.data_ptr(), R, S, k, tile, min(rows, R),
                 DTYPES[x.dtype])

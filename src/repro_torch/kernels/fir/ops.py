@@ -24,8 +24,10 @@ def fir(x: torch.Tensor, taps, *, seq_block: int = 2048,
         autotune: bool = False) -> torch.Tensor:
     """Causal FIR along the last axis of a real (R, S) or (S,) ``x``:
     y[t] = sum_i taps[i] * x[t - i] over the whole row, accumulated in
-    float32, returned in ``x``'s dtype (float64 and int64 narrowed). The
-    kernel takes float32 and bfloat16 with at most 64 taps."""
+    float32, returned in ``x``'s dtype (float64 and int64 narrowed; an
+    integer output truncated and saturated, as the reference's ``astype``).
+    The kernel takes any tap count its shared memory holds and the
+    reference's real dtypes but uint16 and uint32."""
     rows = x[None, :] if x.ndim == 1 else x
 
     def run(rb):

@@ -5,7 +5,8 @@ version.
 Hopper on CUDA tensors; `flash_attention_plain` is
 `models.attention.reference_attention`, the CPU path and what the kernel
 is held to on the card. Both take q (B, Sq, H, dh) and k, v (B, Skv, KV,
-dh) in float32 or bfloat16 with H % KV == 0 (query head h reads kv head
+dh) in float32 or bfloat16 (the plain version also float16, as the
+reference does; the kernel not yet) with H % KV == 0 (query head h reads kv head
 h // (H / KV)), a causal mask aligned top-left (query i sees key j <= i,
 both counted from 0, also when Sq != Skv) and an optional sliding window
 (i - j < window); they compute in float32 and return q's dtype. The
@@ -31,6 +32,8 @@ __all__ = ["FLASH_TOL", "MAX_DH", "flash_attention_plain",
            "flash_attention_cuda"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# what the plain version takes: the kernel's dtypes and float16
+PLAIN_DTYPES = (*DTYPES, torch.float16)
 MAX_DH = 256            # the widest head either kernel keeps in shared memory
 # What the kernel is held to against `flash_attention_plain`, per dtype:
 # |kernel - plain| <= atol + rtol |plain| per element, (atol, rtol). Both
@@ -51,8 +54,12 @@ MAX_DH = 256            # the widest head either kernel keeps in shared memory
 # the float32 difference, which 1e-4 covers 50 times over. That leaves no
 # room for a second rounding inside: p must reach the P V product with
 # more than bfloat16's 8 bits, which is why the kernel splits it into hi +
-# lo.
-FLASH_TOL = {"float32": (3e-5, 3e-5), "bfloat16": (1e-4, 2.0 ** -7)}
+# lo. In float16 (the plain version against the reference, both float32
+# inside) the outputs are float32 values 3e-5 apart rounded once each, so
+# at most one float16 step apart, <= 2^-10 |plain|, plus the float32
+# difference: (1e-4, 2^-10).
+FLASH_TOL = {"float32": (3e-5, 3e-5), "bfloat16": (1e-4, 2.0 ** -7),
+             "float16": (1e-4, 2.0 ** -10)}
 
 _p, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
@@ -81,9 +88,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     KV = k.shape[2]
     if KV < 1 or H % KV:
         raise ValueError(f"H={H} must be a multiple of KV={KV}")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"attention takes float32 or bfloat16 q, k, v of "
-                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dtype not in PLAIN_DTYPES or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
+        raise ValueError(f"attention takes float32, bfloat16 or float16 q, "
+                         f"k, v of one dtype, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q on {q.device}, k on {k.device}, v on "
                          f"{v.device}")
@@ -103,8 +112,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          window=None) -> torch.Tensor:
     """Launch the flash-attention kernel on CUDA q, k, v; returns a new
     contiguous (B, Sq, H, dh) tensor of q's dtype."""
-    _check(q, k, v)
+    # float16 on the card waits for its kernel (ROADMAP, next slices)
     _cuda.check_cuda_input(q, tuple(DTYPES))
+    _check(q, k, v)
     B, Sq, H, dh = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     if dh > MAX_DH:

@@ -66,8 +66,8 @@
 // another order (and with FMA), so logmel agrees to float32 rounding
 // (ASR_LOGMEL_TOL), not bitwise. No fast-math: log1pf stays IEEE.
 //
-// The signal may be float32, bfloat16, float16, int16 or int32 (the kernel
-// is instantiated per element type, In): a sample is widened to float32 at
+// The signal may be float32, bfloat16, float16, int16, int32, int8 or
+// uint8 (the kernel is instantiated per element type, In): a sample is widened to float32 at
 // its load (the vector path loads 4 samples, 4 * sizeof(In) bytes, and
 // then needs the frame on that many), as the reference stages it, so every
 // step after the load is the float32 one; `filtered` is stored in the
@@ -83,6 +83,8 @@
 
 #include <type_traits>
 #include <utility>
+
+#include "../../csrc/saturate.cuh"
 
 namespace {
 
@@ -103,14 +105,15 @@ constexpr int kBFloat16 = 1;
 constexpr int kFloat16 = 2;
 constexpr int kInt16 = 3;
 constexpr int kInt32 = 4;
+constexpr int kInt8 = 5;
+constexpr int kUInt8 = 6;
 
 // ---- the signal's element type In: loads widen to float32; stores of
 // `filtered` round back to nearest even (bfloat16, float16) or, for an
-// integer type (int16_t, int32_t), truncate toward zero, saturated at the
-// type's range with NaN to 0, as the plain version's cast and the
-// reference's astype do. The clamp is explicit: a C++ cast of a float
-// outside the integer's range is undefined. ld4/st4 take 4 samples that
-// lie on 4 * sizeof(In) bytes.
+// integer type (int8_t, uint8_t, int16_t, int32_t), truncate toward zero,
+// saturated at the type's range with NaN to 0, as the plain version's cast
+// and the reference's astype do (`saturate`, kernels/csrc/saturate.cuh).
+// ld4/st4 take 4 samples that lie on 4 * sizeof(In) bytes.
 template <class In>
 constexpr bool kHalfFloat = std::is_same<In, __nv_bfloat16>::value ||
                             std::is_same<In, __half>::value;
@@ -134,16 +137,6 @@ template <>
 __device__ __forceinline__ unsigned short narrow<__half>(float v) {
   return __half_as_ushort(__float2half_rn(v));
 }
-template <class I>
-__device__ __forceinline__ I saturate(float v) {
-  constexpr float lo = sizeof(I) == 2 ? -32768.f : -2147483648.f;
-  constexpr I lowest = sizeof(I) == 2 ? I(-32768) : I(-2147483647 - 1);
-  constexpr I highest = sizeof(I) == 2 ? I(32767) : I(2147483647);
-  if (v != v) return I(0);
-  if (v >= -lo) return highest;
-  if (v <= lo) return lowest;
-  return static_cast<I>(v);   // |v| < 2^15 or 2^31: truncates toward zero
-}
 template <class In>
 __device__ __forceinline__ float ld1(const In* p) {
   if constexpr (std::is_same<In, float>::value) {
@@ -164,6 +157,14 @@ __device__ __forceinline__ float4 ld4(const In* p) {
                        widen<In>(u.y & 0xffffu), widen<In>(u.y >> 16));
   } else if constexpr (sizeof(In) == 4) {
     const int4 q = __ldg(reinterpret_cast<const int4*>(p));
+    return make_float4(static_cast<float>(q.x), static_cast<float>(q.y),
+                       static_cast<float>(q.z), static_cast<float>(q.w));
+  } else if constexpr (sizeof(In) == 1 && std::is_signed<In>::value) {
+    const char4 q = __ldg(reinterpret_cast<const char4*>(p));
+    return make_float4(static_cast<float>(q.x), static_cast<float>(q.y),
+                       static_cast<float>(q.z), static_cast<float>(q.w));
+  } else if constexpr (sizeof(In) == 1) {
+    const uchar4 q = __ldg(reinterpret_cast<const uchar4*>(p));
     return make_float4(static_cast<float>(q.x), static_cast<float>(q.y),
                        static_cast<float>(q.z), static_cast<float>(q.w));
   } else {
@@ -194,6 +195,13 @@ __device__ __forceinline__ void st4(In* p, const float (&y)[4]) {
     __stcs(reinterpret_cast<int4*>(p),
            make_int4(saturate<In>(y[0]), saturate<In>(y[1]),
                      saturate<In>(y[2]), saturate<In>(y[3])));
+  } else if constexpr (sizeof(In) == 1) {
+    const auto bits = [](float v) {
+      return unsigned(static_cast<unsigned char>(saturate<In>(v)));
+    };
+    __stcs(reinterpret_cast<unsigned int*>(p),
+           bits(y[0]) | (bits(y[1]) << 8) | (bits(y[2]) << 16) |
+               (bits(y[3]) << 24));
   } else {
     const auto bits = [](float v) {
       return unsigned(static_cast<unsigned short>(saturate<In>(v)));
@@ -746,7 +754,7 @@ const char* asr_graph_error_string(int code) {
 // (mel_first, mel_offset, mel_packed) asr.py's span table of mel_w. When
 // `retired` is not null the kernel adds to it the frames it wrote among the
 // first `valid_rows`. `dtype` is the element type of x and out_filtered:
-// kFloat32, kBFloat16, kFloat16, kInt16 or kInt32.
+// kFloat32, kBFloat16, kFloat16, kInt16, kInt32, kInt8 or kUInt8.
 int asr_graph_launch(const void* x, int dtype, long long slot_stride,
                      long long frame_stride, int n_slots, int n_frames,
                      int window, int block_frames, const float* taps,
@@ -762,7 +770,7 @@ int asr_graph_launch(const void* x, int dtype, long long slot_stride,
       block_frames < 1 ||
       fft_size < 4 || (m & (m - 1)) != 0 || m > (1 << kMaxLog) ||
       fft_size > window || (flags & (kOutFiltered | kOutLogmel)) == 0 ||
-      dtype < kFloat32 || dtype > kInt32)
+      dtype < kFloat32 || dtype > kUInt8)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.x = x;
@@ -793,7 +801,9 @@ int asr_graph_launch(const void* x, int dtype, long long slot_stride,
       : dtype == kBFloat16 ? dispatch<__nv_bfloat16>(lg, p, n_slots, st)
       : dtype == kFloat16  ? dispatch<__half>(lg, p, n_slots, st)
       : dtype == kInt16    ? dispatch<int16_t>(lg, p, n_slots, st)
-                           : dispatch<int32_t>(lg, p, n_slots, st));
+      : dtype == kInt32    ? dispatch<int32_t>(lg, p, n_slots, st)
+      : dtype == kInt8     ? dispatch<int8_t>(lg, p, n_slots, st)
+                           : dispatch<uint8_t>(lg, p, n_slots, st));
 }
 
 }  // extern "C"

@@ -71,15 +71,16 @@
 // segment mean and the band sums reduce in another order. No fast-math:
 // sqrtf, division and log1pf stay IEEE.
 //
-// The signal may be float32, bfloat16, float16, int16 or int32 (the kernel
-// is instantiated per element type, In). A frame of any other type than
-// float32 is widened to float32 as it is staged (loads of 4 samples where
+// The signal may be float32, bfloat16, float16, int16, int32, int8 or
+// uint8 (the kernel is instantiated per element type, In). A frame of any
+// other type than float32 is widened to float32 as it is staged (loads of
+// 4 samples where
 // the frame lies on 4 samples' bytes, of 1 elsewhere), as the reference
 // stages it, so every step after the load is the float32 one; `filtered`
 // is stored in the signal's own type: rounded to nearest even for a
 // 16-bit float, truncated toward zero and saturated for an integer, which
 // is the plain version's cast. A 16-bit signal halves the bytes the frame
-// loads and the `filtered` stores move.
+// loads and the `filtered` stores move, an 8-bit one quarters them.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -88,6 +89,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "../../csrc/saturate.cuh"
 
 namespace {
 
@@ -114,15 +117,16 @@ constexpr int kBFloat16 = 1;
 constexpr int kFloat16 = 2;
 constexpr int kInt16 = 3;
 constexpr int kInt32 = 4;
+constexpr int kInt8 = 5;
+constexpr int kUInt8 = 6;
 
 // ---- the signal's element type In: loads widen to float32; stores of
 // `filtered` round back to nearest even (bfloat16, float16) or, for an
-// integer type (int16_t, int32_t), truncate toward zero, saturated at the
-// type's range with NaN to 0, as the plain version's cast and the
-// reference's astype do. The clamp is explicit: a C++ cast of a float
-// outside the integer's range is undefined. ld4/st4 take 4 samples that
-// lie on 4 * sizeof(In) bytes. (The same helpers as asr_graph.cu's: each
-// source builds alone.)
+// integer type (int8_t, uint8_t, int16_t, int32_t), truncate toward zero,
+// saturated at the type's range with NaN to 0, as the plain version's cast
+// and the reference's astype do (`saturate`, kernels/csrc/saturate.cuh).
+// ld4/st4 take 4 samples that lie on 4 * sizeof(In) bytes. (The same
+// helpers as asr_graph.cu's.)
 template <class In>
 constexpr bool kHalfFloat = std::is_same<In, __nv_bfloat16>::value ||
                             std::is_same<In, __half>::value;
@@ -146,16 +150,6 @@ template <>
 __device__ __forceinline__ unsigned short narrow<__half>(float v) {
   return __half_as_ushort(__float2half_rn(v));
 }
-template <class I>
-__device__ __forceinline__ I saturate(float v) {
-  constexpr float lo = sizeof(I) == 2 ? -32768.f : -2147483648.f;
-  constexpr I lowest = sizeof(I) == 2 ? I(-32768) : I(-2147483647 - 1);
-  constexpr I highest = sizeof(I) == 2 ? I(32767) : I(2147483647);
-  if (v != v) return I(0);
-  if (v >= -lo) return highest;
-  if (v <= lo) return lowest;
-  return static_cast<I>(v);   // |v| < 2^15 or 2^31: truncates toward zero
-}
 template <class In>
 __device__ __forceinline__ float ld1(const In* p) {
   if constexpr (std::is_same<In, float>::value) {
@@ -176,6 +170,14 @@ __device__ __forceinline__ float4 ld4(const In* p) {
                        widen<In>(u.y & 0xffffu), widen<In>(u.y >> 16));
   } else if constexpr (sizeof(In) == 4) {
     const int4 q = __ldg(reinterpret_cast<const int4*>(p));
+    return make_float4(static_cast<float>(q.x), static_cast<float>(q.y),
+                       static_cast<float>(q.z), static_cast<float>(q.w));
+  } else if constexpr (sizeof(In) == 1 && std::is_signed<In>::value) {
+    const char4 q = __ldg(reinterpret_cast<const char4*>(p));
+    return make_float4(static_cast<float>(q.x), static_cast<float>(q.y),
+                       static_cast<float>(q.z), static_cast<float>(q.w));
+  } else if constexpr (sizeof(In) == 1) {
+    const uchar4 q = __ldg(reinterpret_cast<const uchar4*>(p));
     return make_float4(static_cast<float>(q.x), static_cast<float>(q.y),
                        static_cast<float>(q.z), static_cast<float>(q.w));
   } else {
@@ -206,6 +208,13 @@ __device__ __forceinline__ void st4(In* p, const float (&y)[4]) {
     __stcs(reinterpret_cast<int4*>(p),
            make_int4(saturate<In>(y[0]), saturate<In>(y[1]),
                      saturate<In>(y[2]), saturate<In>(y[3])));
+  } else if constexpr (sizeof(In) == 1) {
+    const auto bits = [](float v) {
+      return unsigned(static_cast<unsigned char>(saturate<In>(v)));
+    };
+    __stcs(reinterpret_cast<unsigned int*>(p),
+           bits(y[0]) | (bits(y[1]) << 8) | (bits(y[2]) << 16) |
+               (bits(y[3]) << 24));
   } else {
     const auto bits = [](float v) {
       return unsigned(static_cast<unsigned short>(saturate<In>(v)));
@@ -1086,7 +1095,7 @@ const char* biosignal_graph_error_string(int code) {
 // `bands` is a host array of 7 band edges. When `retired` is not null the
 // kernel adds to it the frames it wrote among the first `valid_rows`.
 // `dtype` is the element type of x and out_filtered: kFloat32, kBFloat16,
-// kFloat16, kInt16 or kInt32.
+// kFloat16, kInt16, kInt32, kInt8 or kUInt8.
 int biosignal_graph_launch(
     const void* x, int dtype, long long slot_stride, long long frame_stride,
     int n_slots, int n_frames, int window, int block_frames,
@@ -1101,7 +1110,7 @@ int biosignal_graph_launch(
       n_classes > kMaxClasses || n_features != kFeatures || n_slots < 1 ||
       n_slots > 65535 || n_frames < 1 || block_frames < 1 || window < 2 ||
       window > kMaxWindow || fft_size < 4 || fft_size > window ||
-      (m & (m - 1)) != 0 || dtype < kFloat32 || dtype > kInt32)
+      (m & (m - 1)) != 0 || dtype < kFloat32 || dtype > kUInt8)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.x = x;
@@ -1145,7 +1154,9 @@ int biosignal_graph_launch(
       : dtype == kBFloat16 ? launch_taps<__nv_bfloat16>(p, smem, n_slots, st)
       : dtype == kFloat16  ? launch_taps<__half>(p, smem, n_slots, st)
       : dtype == kInt16    ? launch_taps<int16_t>(p, smem, n_slots, st)
-                           : launch_taps<int32_t>(p, smem, n_slots, st));
+      : dtype == kInt32    ? launch_taps<int32_t>(p, smem, n_slots, st)
+      : dtype == kInt8     ? launch_taps<int8_t>(p, smem, n_slots, st)
+                           : launch_taps<uint8_t>(p, smem, n_slots, st));
 }
 
 }  // extern "C"

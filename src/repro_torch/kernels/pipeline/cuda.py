@@ -6,10 +6,10 @@
 Both are declared with `kernels._cuda`, which builds, loads, launches and
 counts them (``LAUNCHES[kernel][entry]``). Their entries are
 ``"frames"``, ``"stream"`` and ``"ring"``. Both take a float32, bfloat16,
-float16, int16 or int32 signal (`SIGNAL_DTYPES`): the kernel widens each
-sample to float32 at its load and writes ``filtered`` in the signal's own
-dtype, an integer one truncated toward zero and saturated at its range
-(`graph.cast_output`, the reference's ``astype``).
+float16, int16, int32, int8 or uint8 signal (`SIGNAL_DTYPES`): the kernel
+widens each sample to float32 at its load and writes ``filtered`` in the
+signal's own dtype, an integer one truncated toward zero and saturated at
+its range (`kernels.cast_output`, the reference's ``astype``).
 """
 from __future__ import annotations
 
@@ -30,7 +30,8 @@ ENTRIES = ("frames", "stream", "ring")
 
 # the signal dtypes the graph kernels take, and their codes in the sources
 SIGNAL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
-                 torch.int16: 3, torch.int32: 4}
+                 torch.int16: 3, torch.int32: 4, torch.int8: 5,
+                 torch.uint8: 6}
 
 # output selection bits, as in the graph sources
 OUT_BITS = {

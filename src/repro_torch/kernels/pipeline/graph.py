@@ -24,9 +24,10 @@ stride of a ring. Every entry runs the same per-frame code, each frame
 filtered with zero history before its first sample, so on one device
 stream == framed == ring slot to the last bit.
 
-The kernels take a float32, bfloat16, float16, int16 or int32 signal and
-widen it to float32 at the load, as the plain version does; ``filtered``
-keeps the signal's dtype, through `cast_output`: an integer ``filtered``
+The kernels take a float32, bfloat16, float16, int16, int32, int8 or
+uint8 signal and widen it to float32 at the load, as the plain version
+does; ``filtered`` keeps the signal's dtype, through `cast_output` (in
+`repro_torch.kernels`, shared with the FIR): an integer ``filtered``
 is truncated toward zero and saturated at its dtype's range, as the
 reference's ``astype`` stores it. A float64 signal is narrowed to float32
 at every entry (`staged_signal`), as the reference's ``jnp.asarray``
@@ -41,6 +42,7 @@ import torch
 
 from repro_torch.core.fir import fir_direct
 from repro_torch.device import resolve_device
+from repro_torch.kernels import cast_output, staged_signal
 from repro_torch.kernels.pipeline.stages import (OperandMismatchError,
                                                  StageGraphError,
                                                  UnknownGraphError,
@@ -60,25 +62,6 @@ __all__ = ["OutputSpec", "StageGraph", "build_graph", "stages_to_run",
 # ---------------------------------------------------------------------------
 # Framing arithmetic
 # ---------------------------------------------------------------------------
-
-def staged_signal(x: torch.Tensor) -> torch.Tensor:
-    """``x`` as the entries stage it: float64 narrowed to float32 (the
-    reference's ``jnp.asarray`` with x64 off), any other dtype kept."""
-    return x.to(torch.float32) if x.dtype == torch.float64 else x
-
-
-def cast_output(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``v`` in ``dtype`` as the reference's ``astype`` stores it: a float
-    into an integer dtype truncates toward zero, saturates at the dtype's
-    range and takes NaN to 0 (``.to`` would wrap); any other cast is
-    ``.to``."""
-    if v.is_floating_point() and not dtype.is_floating_point and \
-            dtype != torch.bool:
-        info = torch.iinfo(dtype)
-        return v.double().nan_to_num(0.0).clamp(info.min, info.max) \
-            .trunc().to(dtype)
-    return v.to(dtype)
-
 
 def stream_frame_count(n_samples: int, window: int, hop: int) -> int:
     return 0 if n_samples < window else 1 + (n_samples - window) // hop

@@ -3,8 +3,9 @@
 `rope_cuda` launches the hand-written kernel for Hopper on CUDA tensors;
 `rope_plain` is the JAX kernel's float32 formula in PyTorch operations,
 the CPU path and what the kernel is held to on the card. Both rotate the
-rows of an (R, dh) float32 or bfloat16 array, compute in float32 and
-return the input's dtype. Row r takes position ``positions[r // heads]``:
+rows of an (R, dh) float32 or bfloat16 array (the plain version also
+float16, as the reference does; the kernel not yet), compute in float32
+and return the input's dtype. Row r takes position ``positions[r // heads]``:
 ``heads`` consecutive rows (the heads of one sequence slot) share one
 position, so the entry needs no broadcast copy of the positions. Both
 build the inverse frequencies the same way, ``exp((i * f32(2/dh)) *
@@ -26,6 +27,8 @@ __all__ = ["LAYOUTS", "rope_constants", "inv_freq", "rope_plain",
            "rope_geometry", "rope_launch_args", "rope_cuda"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# what the plain version takes: the kernel's dtypes and float16
+PLAIN_DTYPES = (*DTYPES, torch.float16)
 # positions the kernel reads and converts to float32 itself (round to
 # nearest, as ``.to(torch.float32)`` does); others are converted first
 POS_DTYPES = {torch.float32: 0, torch.int32: 1, torch.int64: 2}
@@ -129,8 +132,9 @@ def _check(x: torch.Tensor, positions: torch.Tensor, layout: str,
     if x.ndim != 2 or x.shape[1] < 2 or x.shape[1] % 2:
         raise ValueError(f"x must be (R, dh) with dh even, got "
                          f"{tuple(x.shape)}")
-    if x.dtype not in DTYPES:
-        raise ValueError(f"rope takes float32 or bfloat16 x, got {x.dtype}")
+    if x.dtype not in PLAIN_DTYPES:
+        raise ValueError(f"rope takes float32, bfloat16 or float16 x, got "
+                         f"{x.dtype}")
     if heads < 1 or x.shape[0] % heads:
         raise ValueError(f"heads {heads} must be positive and divide the "
                          f"{x.shape[0]} rows")
@@ -183,8 +187,9 @@ def rope_cuda(x: torch.Tensor, positions: torch.Tensor, *,
     """Launch the rotary kernel over the rows of a CUDA (R, dh) array; the
     kernel reads float32, int32 or int64 positions and converts them to
     float32, as the JAX wrapper does (other dtypes are converted here)."""
-    _check(x, positions, layout, heads)
+    # float16 on the card waits for its kernel (ROADMAP, next slices)
     _cuda.check_cuda_input(x, tuple(DTYPES))
+    _check(x, positions, layout, heads)
     x = x.contiguous()
     if positions.dtype not in POS_DTYPES:
         positions = positions.to(torch.float32)

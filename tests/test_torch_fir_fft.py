@@ -47,7 +47,8 @@ from repro_torch.core.biosignal import app_from_numpy
 from repro_torch.core.fft import fft_stages
 from repro_torch.kernels.fft import ops as fft_ops
 from repro_torch.kernels.fft.kernel import (FFT_TOL, MAX_N, MAX_THREADS,
-                                            default_block_rows, fft_cuda,
+                                            ROW_MAX_N, default_block_rows,
+                                            fft_cuda,
                                             fft_plain, stockham_plan,
                                             stockham_table, threads_per_row,
                                             twiddle_table)
@@ -110,10 +111,10 @@ def test_fir_runs_over_the_whole_row():
 
 
 def test_fir_refuses_what_it_does_not_take():
-    """What the CPU path still refuses: a complex or boolean input, taps
-    that are not a non-empty vector, a rank other than 1 or 2, and
-    autotune. The tap cap and the float32/bfloat16 list are the card
-    kernel's (`fir_cuda`), not the plain version's."""
+    """What the entry refuses on the CPU, as on the card: a complex or
+    boolean input, taps that are not a non-empty vector, a rank other
+    than 1 or 2. Any tap count and every real dtype of the reference
+    filter (`tests/test_torch_kernel_reach.py`); autotune is ported."""
     x = torch.zeros(2, 64)
     with pytest.raises(ValueError, match="real input"):
         fir_ops.fir(x.to(torch.complex64), [1.0, -0.97])
@@ -235,10 +236,18 @@ def test_fft_plain_is_the_core_stockham_chain(n, inverse):
 
 
 def test_fft_refuses_what_it_does_not_take():
+    """What the entry refuses: a length that is not a power of 2, planes
+    of two shapes and an integer dtype. float64 planes are narrowed to
+    float32 first, as the reference stages them, and compute."""
     with pytest.raises(ValueError, match="power of 2"):
         fft_ops.fft(torch.zeros(2, 12))
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        fft_ops.fft(torch.zeros(2, 16, dtype=torch.float64))
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        fft_ops.fft(torch.zeros(2, 16, dtype=torch.int32))
+    x64 = torch.randn(2, 16, generator=torch.Generator().manual_seed(1),
+                      dtype=torch.float64)
+    got = fft_ops.fft(x64)
+    assert all(g.dtype == torch.float32 for g in got)
+    assert all(torch.equal(g, w) for g, w in zip(got, fft_ops.fft(x64.float())))
     with pytest.raises(ValueError, match="one shape"):
         fft_ops.fft(torch.zeros(2, 16), torch.zeros(3, 16))
     # autotune is ported: a tuned call equals the untuned one bitwise
@@ -452,9 +461,11 @@ def test_fft_tol_flags_a_conjugated_stage(dtype, n, inverse):
 
 
 def test_fft_tol_values():
-    """1e-4 in float32; one bfloat16 step (2^-7) fits under 1e-2."""
-    assert FFT_TOL == {"float32": 1e-4, "bfloat16": 1e-2}
+    """1e-4 in float32; one bfloat16 step (2^-7) fits under 1e-2, one
+    float16 step (2^-10) under 2e-3."""
+    assert FFT_TOL == {"float32": 1e-4, "bfloat16": 1e-2, "float16": 2e-3}
     assert 2.0 ** -7 < FFT_TOL["bfloat16"]
+    assert 2.0 ** -10 < FFT_TOL["float16"]
 
 
 def test_fft_cuda_refuses_a_cpu_tensor():
@@ -462,4 +473,5 @@ def test_fft_cuda_refuses_a_cpu_tensor():
         fft_cuda(torch.zeros(2, 16), torch.zeros(2, 16))
     with pytest.raises(ValueError, match="power of 2"):
         fft_cuda(torch.zeros(2, 12), torch.zeros(2, 12))
-    assert MAX_N == 8192
+    # one launch up to 8192 points, the four-step transform up to 2^26
+    assert ROW_MAX_N == 8192 and MAX_N == 1 << 26

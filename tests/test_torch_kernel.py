@@ -25,12 +25,16 @@ The `cuda`-marked tests skip without a card. Tolerances on the card:
   does not hold, the ASR logmel of the kernel and of the plain version
   is held per element to the float64 oracle's limit (`asr_oracle64`,
   `ASR_ORACLE_UNITS`);
-* FIR: within 1e-5 in float32 and 2e-2 in bfloat16 (the kernel repeats
-  the plain version's operations in its order, so they usually agree to
-  the last bit);
+* an int8 or uint8 signal: the same as int16's, the ASR logmel held to
+  the float64 oracle's limit;
+* FIR: within 1e-5 in float32 and 2e-2 in bfloat16 at 2 and 11 taps (the
+  kernel repeats the plain version's operations in its order, so they
+  usually agree to the last bit), and bitwise at 2 to 2048 taps in every
+  dtype it takes (integers stored as the reference's astype stores them);
 * FFT: max |kernel - plain| <= `FFT_TOL` x max |plain| (1e-4 in float32,
-  1e-2 in bfloat16): radix-16 passes with FMA against the plain radix-2
-  chain agree to float32 rounding, not bitwise."""
+  1e-2 in bfloat16, 2e-3 in float16): radix-16 passes with FMA, and past
+  8192 points the four-step transform's twiddle product, against the
+  plain radix-2 chain agree to float32 rounding, not bitwise."""
 import re
 from pathlib import Path
 
@@ -42,8 +46,11 @@ from repro_torch.core.biosignal import make_app, synthetic_respiration
 from repro_torch.core.fir import lowpass_taps
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.fft.kernel import (FFT_TOL, fft_cuda, fft_plain,
+                                            four_step_model, four_step_table,
                                             stockham_plan, stockham_table,
                                             threads_per_row)
+from repro_torch.kernels.fft import kernel as fft_kernel
+from repro_torch.kernels.fir import kernel as fir_kernel
 from repro_torch.kernels.fir.kernel import fir_cuda, fir_plain
 from repro_torch.kernels.flash_attention import kernel as _flash  # noqa
 from repro_torch.kernels.pipeline import cuda
@@ -87,7 +94,16 @@ def test_binding_matches_the_source():
         for dt, code in cuda.SIGNAL_DTYPES.items():
             const = {torch.float32: "kFloat32", torch.bfloat16: "kBFloat16",
                      torch.float16: "kFloat16", torch.int16: "kInt16",
-                     torch.int32: "kInt32"}[dt]
+                     torch.int32: "kInt32", torch.int8: "kInt8",
+                     torch.uint8: "kUInt8"}[dt]
+            assert re.search(rf"constexpr int {const} = {code};", text), dt
+    # the FIR's and the FFT's dtype codes
+    for kernel, dtypes in (("fir", fir_kernel.DTYPES),
+                           ("fft", fft_kernel.DTYPES)):
+        text = _cuda.KERNELS[kernel].source.read_text()
+        for dt, code in dtypes.items():
+            const = "k" + {"bfloat16": "BFloat16", "uint8": "UInt8"}.get(
+                str(dt)[6:], str(dt)[6:].capitalize())
             assert re.search(rf"constexpr int {const} = {code};", text), dt
     assert "-use_fast_math" not in _cuda.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
@@ -104,8 +120,9 @@ def test_launch_counts_reset():
         {"biosignal_graph", "asr_graph", "fir", "fft", "shuffle", "rope",
          "flash_attention"}
     assert _cuda.KERNELS["asr_graph"].entries == ("frames", "stream", "ring")
-    assert _cuda.KERNELS["fir"].entries == _cuda.KERNELS["fft"].entries == \
-        ("rows",)
+    assert _cuda.KERNELS["fir"].entries == ("rows",)
+    assert _cuda.KERNELS["fft"].entries == ("rows", "four_step_columns",
+                                            "four_step_rows")
     assert _cuda.KERNELS["shuffle"].entries == (
         "interleave", "prune_even", "prune_odd", "bit_reverse",
         "circular_shift")
@@ -199,8 +216,8 @@ def test_kernel_refuses_what_it_does_not_take(card):
     app = make_app(device=card)
     graph, operands = get_graph_factory("biosignal")(app)
     sig = torch.zeros(4096, device=card)
-    with pytest.raises(ValueError, match="float32"):
-        graph_stream_call(sig.to(torch.int8), operands, graph=graph,
+    with pytest.raises(ValueError, match="float32"):     # int8 runs (PR 33)
+        graph_stream_call(sig.to(torch.uint16), operands, graph=graph,
                           window=2048, hop=512)
     with pytest.raises(ValueError, match="contiguous"):
         graph_frames_call(sig.reshape(2, 2048).t().contiguous().t(),
@@ -514,12 +531,14 @@ def test_graph_kernels_take_16bit_signals_on_card(card, name, dtype):
 
 def _full_scale(sig, dtype):
     """``sig`` plus a square wave of period 74 samples at the integer
-    ``dtype``'s full scale, saturated into it: the filters overshoot past
-    the range at the square's edges."""
-    top = float(torch.iinfo(dtype).max)
+    ``dtype``'s full scale about the middle of its range, saturated into
+    it: the filters overshoot past the range at the square's edges."""
+    info = torch.iinfo(dtype)
+    mid, half = (info.max + info.min) / 2.0, (info.max - info.min) / 2.0
     square = torch.where(torch.arange(sig.numel(), device=sig.device) // 37
-                         % 2 == 0, 1.0, -1.0)
-    return cast_output((sig / sig.abs().max() + square) * top, dtype)
+                         % 2 == 0, 0.5, -0.5)
+    return cast_output(mid + (0.5 * sig / sig.abs().max() + square) * 2.0
+                       * half, dtype)
 
 
 def _oracle_units(logmel, oracle) -> float:
@@ -640,15 +659,87 @@ def test_graph_kernels_read_unaligned_16bit_frames_on_card(card, name):
             assert torch.equal(ringed[k][r], one[k]), k
 
 
+def _close_8bit(got: dict, want: dict) -> None:
+    """The biosignal outputs of an 8-bit signal against the plain
+    version: class, filtered and the interval features exact; band powers
+    and margin within 1e-4 relative (+ 1e-4 of the largest): the two sum
+    in another order over values up to 255 about uint8's mid-scale offset,
+    which the segment mean takes out (uint8 at hop 513 read 1.27e-5 of a
+    band power on the card, past `_close`'s 1e-5). int8, centred on -0.5,
+    is held to `_close`."""
+    for k, w in want.items():
+        g = got[k]
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        if k in ("class", "filtered"):
+            assert torch.equal(g, w), k
+            continue
+        if k == "features":
+            assert torch.equal(g[..., :6], w[..., :6])
+        scale = float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hop_extra", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.uint8])
+@pytest.mark.parametrize("name", ["biosignal", "asr"])
+def test_graph_kernels_take_8bit_signals_on_card(card, name, dtype,
+                                                 hop_extra):
+    """An int8 or uint8 signal near full scale at all three entries,
+    aligned (4-byte loads) and at an odd hop (1-byte loads): every output
+    bitwise the float32 kernel's on the widened signal (filtered truncated
+    and saturated, reaching the rails), filtered bitwise the plain
+    version's, the biosignal graph's other outputs within `_close` (uint8's
+    within `_close_8bit`), the ASR logmel of the kernel within the float64
+    oracle's limit."""
+    operands, graph, sig, window, hop, close = _graph_case(name, card)
+    hop += hop_extra
+    x = _full_scale(sig, dtype)
+    kw = dict(graph=graph)
+    stream = graph_stream_call(x, operands, window=window, hop=hop, **kw)
+    frames = frame_signal(x, window, hop)
+    framed = graph_frames_call(frames, operands, block_rows=3, **kw)
+    bw = 4
+    depth = min(3, frames.shape[0] // bw)
+    span, stride = ring_chunk_samples(window, hop, bw), bw * hop
+    ring = x[: (depth - 1) * stride + span].as_strided((depth, span),
+                                                       (stride, 1))
+    ringed = graph_ring_call(ring, operands, window=window, hop=hop, **kw)
+    assert stream["filtered"].dtype == dtype
+    plain = (graph_stream_plain(x, operands, window=window, hop=hop, **kw),
+             graph_frames_plain(frames, operands, **kw),
+             graph_ring_plain(ring, operands, window=window, hop=hop, **kw))
+    for got, want in zip((stream, framed, ringed), plain):
+        assert torch.equal(got["filtered"], want["filtered"])
+        if name == "biosignal":
+            (_close_8bit if dtype == torch.uint8 else _close)(got, want)
+    if name == "asr":
+        oracle = asr_oracle64(make_asr_frontend(device="cpu"), x.cpu(),
+                              window=window, hop=hop)
+        assert _oracle_units(stream["logmel"], oracle) < 1.0
+    info = torch.iinfo(dtype)
+    assert (stream["filtered"] == info.min).any()
+    wide = graph_stream_call(x.float(), operands, window=window, hop=hop,
+                             **kw)
+    for k in stream:
+        want = cast_output(wide[k], dtype) if k == "filtered" else wide[k]
+        assert torch.equal(stream[k], want), k
+        assert torch.equal(framed[k], stream[k]), k
+        for r in range(depth):
+            assert torch.equal(ringed[k][r],
+                               stream[k][r * bw: r * bw + bw]), k
+
+
 @pytest.mark.cuda
 def test_graph_kernels_refuse_other_dtypes_on_card(card):
-    """8-bit integer signals raise at the launcher, before any launch
-    (the kernels take int16 and int32); float64 is narrowed to float32 by
-    the entries, as the reference's jnp.asarray does, and computes."""
+    """What the launchers still refuse, before any launch: uint16 and
+    int64 signals (the reference takes neither as such: uint16 is queued,
+    int64 it narrows to int32); float64 is narrowed to float32 by the
+    entries, as the reference's jnp.asarray does, and computes."""
     operands, graph, sig, window, hop, _ = _graph_case("asr", card)
     _cuda.reset_launches()
-    for dt in (torch.int8, torch.uint8):
-        with pytest.raises(ValueError, match="bfloat16"):
+    for dt in (torch.uint16, torch.int64):
+        with pytest.raises(ValueError, match="uint8"):
             graph_stream_call(sig.to(dt), operands, graph=graph,
                               window=window, hop=hop)
     assert _cuda.LAUNCHES["asr_graph"]["stream"] == 0
@@ -1277,7 +1368,8 @@ def test_bio_masks_and_gap_lists_walk_through(kind):
 # --------------------------------------------------- standalone FIR / FFT
 
 _TOL = {torch.float32: (1e-5, FFT_TOL["float32"]),
-        torch.bfloat16: (2e-2, FFT_TOL["bfloat16"])}
+        torch.bfloat16: (2e-2, FFT_TOL["bfloat16"]),
+        torch.float16: (2e-2, FFT_TOL["float16"])}
 
 
 @pytest.mark.cuda
@@ -1311,7 +1403,8 @@ def _fft_close(got: tuple, want: tuple, dtype) -> None:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("n,rows", [(2, 301), (4, 77), (8, 300), (16, 259),
                                     (32, 129), (256, 37), (512, 9),
@@ -1344,7 +1437,8 @@ def test_fft_kernel_takes_block_rows_on_card(card, n, block_rows):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_fft_kernel_reads_views_on_card(card, dtype):
     """A column slice (not contiguous) and a view whose base is off a
     16-byte boundary (4 bytes in bfloat16, 8 in float32)."""
@@ -1371,17 +1465,119 @@ def test_fft_binding_agrees_with_the_host_plan(card, n):
 
 @pytest.mark.cuda
 def test_fir_and_fft_refuse_what_they_do_not_take(card):
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        fir_cuda(torch.zeros(2, 64, device=card, dtype=torch.float64),
+    """What the FIR and FFT kernels still refuse, each naming its limit:
+    uint16 rows (queued), taps past the block's shared memory, a length
+    that is not a power of 2, N past 2^26 and integer planes. float64 is
+    narrowed to float32, as the reference stages it, and computes."""
+    with pytest.raises(ValueError, match="kernel takes"):
+        fir_cuda(torch.zeros(2, 64, device=card, dtype=torch.uint16),
                  [1.0, -0.97])
-    with pytest.raises(ValueError, match="taps"):
-        fir_cuda(torch.zeros(2, 64, device=card), torch.ones(65))
+    with pytest.raises(ValueError, match="shared memory"):
+        fir_cuda(torch.zeros(2, 64, device=card), torch.ones(60000))
     with pytest.raises(ValueError, match="power of 2"):
         fft_cuda(torch.zeros(2, 12, device=card),
                  torch.zeros(2, 12, device=card))
-    with pytest.raises(ValueError, match="shared memory"):
-        fft_cuda(torch.zeros(1, 16384, device=card),
-                 torch.zeros(1, 16384, device=card))
+    with pytest.raises(ValueError, match="float16"):
+        fft_cuda(torch.zeros(2, 16, device=card, dtype=torch.int32),
+                 torch.zeros(2, 16, device=card, dtype=torch.int32))
+    big = torch.empty(1, 1 << 27, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="8192 points"):
+        fft_cuda(big, big)
+    del big
+    x = torch.randn(3, 700, device=card, dtype=torch.float64)
+    assert torch.equal(fir_cuda(x, [1.0, -0.97]),
+                       fir_cuda(x.float(), [1.0, -0.97]))
+    for a, b in zip(fft_cuda(x[:, :512], x[:, 1:513]),
+                    fft_cuda(x[:, :512].float(), x[:, 1:513].float())):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+
+
+# ------------------------------------ FIR past 64 taps, other dtypes
+
+_FIR_DTYPES = [torch.float32, torch.bfloat16, torch.float16, torch.int8,
+               torch.uint8, torch.int16, torch.int32]
+
+
+def _fir_rows(shape, dtype, card, seed: int) -> torch.Tensor:
+    """Rows of ``dtype``: a normal draw for a float, the integer's full
+    scale (`_full_scale`, so the filter saturates) otherwise."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=card)
+    if dtype.is_floating_point:
+        return x.to(dtype)
+    return _full_scale(x.flatten(), dtype).reshape(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", _FIR_DTYPES)
+@pytest.mark.parametrize("k", [2, 11, 64, 65, 255, 2048])
+def test_fir_kernel_takes_any_taps_and_dtype_on_card(card, dtype, k):
+    """Every dtype the reference filters, from 2 to 2048 taps (the chunked
+    taps past 64), over rows longer than one tile: bitwise the plain
+    version (the same float32 operations in its order, stored as it
+    stores), integers saturated at the rails (a gain of 3 on their taps;
+    up to 255 taps, which pass the rows' square wave of period 74)."""
+    x = _fir_rows((3, 5000), dtype, card, seed=k)
+    gain = 1.0 if dtype.is_floating_point else 3.0
+    taps = torch.as_tensor(gain * lowpass_taps(k, cutoff=min(0.4, 8.0 / k)),
+                           device=card)
+    _cuda.reset_launches()
+    got = fir_cuda(x, taps, seq_block=2048)
+    assert _cuda.LAUNCHES["fir"]["rows"] == 1
+    want = fir_plain(x, taps)
+    assert got.dtype == dtype and torch.equal(got, want)
+    if not dtype.is_floating_point and k <= 255:
+        assert (got == torch.iinfo(dtype).max).any()
+
+
+# ------------------------------------------ the FFT past 8192 points
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n,rows", [(16384, 3), (32768, 2), (65536, 2),
+                                    (1 << 20, 1), (1 << 21, 1)])
+def test_fft_four_step_matches_plain_on_card(card, dtype, inverse, n, rows):
+    """Past 8192 points: two counted launches, within `FFT_TOL` of the
+    plain radix-2 chain."""
+    g = torch.Generator(device=card).manual_seed(n)
+    re = torch.randn(rows, n, generator=g, device=card).to(dtype)
+    im = torch.randn(rows, n, generator=g, device=card).to(dtype)
+    _cuda.reset_launches()
+    got = fft_cuda(re, im, inverse=inverse)
+    assert _cuda.LAUNCHES["fft"] == {"rows": 0, "four_step_columns": 1,
+                                     "four_step_rows": 1}
+    _fft_close(got, fft_plain(re, im, inverse=inverse), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_fft_tol_flags_the_four_step_without_its_twiddle_on_card(card,
+                                                                  dtype):
+    """The four-step transform with its inter-pass factor dropped reads
+    far above `FFT_TOL` on the card's rows, as `check_wrong_fft` reads a
+    conjugated stage."""
+    g = torch.Generator(device=card).manual_seed(1)
+    re = torch.randn(2, 1 << 16, generator=g, device=card).to(dtype)
+    im = torch.randn(2, 1 << 16, generator=g, device=card).to(dtype)
+    want = fft_plain(re, im)
+    wrong = four_step_model(re, im, twiddle=False)
+    scale = float(torch.maximum(want[0].abs().max(),
+                                want[1].abs().max()).float())
+    tol = FFT_TOL[str(dtype)[6:]]
+    assert max(float((a.to(dtype).float() - b.float()).abs().max())
+               for a, b in zip(wrong, want)) > tol * scale
+    _fft_close(fft_cuda(re, im), want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16384, 1 << 20, 1 << 26])
+def test_fft_four_step_binding_agrees_with_the_host_table(card, n):
+    lib = _cuda.library("fft")
+    assert lib.fft_four_step_table_size(n) == len(four_step_table(n))
+    for p in (0, 1):
+        assert lib.fft_four_step_smem_bytes(n, p) <= _cuda.MAX_SMEM_BYTES
 
 
 @pytest.mark.cuda
