@@ -37,8 +37,9 @@ A1. the three kernels of the ASR slice against their plain versions: the
    unless `ASR_LOGMEL_TOL` flags both), the FIR in all seven row dtypes
    (`FIR_DTYPES`, integers at full scale) at 2, 11, 65, 255 and 2048
    taps on rows longer than one tile, bitwise the plain version, the FFT
-   at N 2 to 8192 (`FFT_CASES`, one launch) and 16384, 65536 and 2^20
-   (`FOUR_STEP_CASES`, the four-step transform's two launches, counted),
+   at N 2 to 8192 (`FFT_CASES`, one launch) and every power of 2 from
+   16384 to 2^20 (`FOUR_STEP_CASES`, the four-step transform's two
+   launches, counted),
    forward and inverse, float32, bfloat16 and float16, each also measured
    as a transform with its first stage's twiddles conjugated would read
    (`wrong_fft_reading`) and, past 8192, as the four-step without its
@@ -251,7 +252,9 @@ D. (run after phase A2) bfloat16 and float16 signals through both graph
    bitwise); int16, int32, int8 and uint8 signals near full scale
    (``filtered`` saturates) at the stream, frames and ring entries of
    both graphs, each bitwise the float32 kernel on the widened signal and
-   against the plain version; the int8 and uint8 day (B=8) and hour
+   against the plain version; an int64 signal of scale 3e9 at those
+   entries, int32 ``filtered``, bitwise the int32 kernel on the signal
+   narrowed to its low 32 bits; the int8 and uint8 day (B=8) and hour
    (B=32) through `BiosignalStream`, its host-framed path and
    `ResidentStream`, bitwise the float32 kernel on the widened signal;
    uint16 and float64 refused at the launchers; each entry's device time
@@ -265,8 +268,8 @@ K. (run after phase D) the FFT past 8192 points and the FIR past 64 taps
    day's 10,797 x 2048 frames in all seven row dtypes, one launch each,
    bitwise the plain version; then each one's device time beside its
    bound, the plain version and `torch.fft.fft` or `conv1d` (the FFT also
-   over 64 rows of 2^20 and one row of 2^24, the FIR also at 65 and 2048
-   taps in float32);
+   over 64 rows of 2^20 and one row each of 2^24, 2^14 and 2^17 points,
+   the FIR also at 65 and 2048 taps in float32);
 Q. `launch.quickstart.main` and `launch.asr_frontend.main` as a user runs
    them (their examples' checks), each with its launches counted (the
    FFT and FIR once in the quickstart; the ASR graph 16 times and the
@@ -370,7 +373,8 @@ FIR_TAPS = (2, 11, 65, 255, 2048)
 FFT_DTYPES = ("float32", "bfloat16", "float16")
 FFT_CASES = [(2, 301), (4, 61), (8, 61), (32, 61), (256, 61), (512, 61),
              (2048, 61), (4096, 61), (8192, 61)]
-FOUR_STEP_CASES = [(16384, 17), (65536, 5), (1 << 20, 2)]
+FOUR_STEP_CASES = [(1 << 14, 17), (1 << 15, 9), (1 << 16, 5), (1 << 17, 3),
+                   (1 << 18, 2), (1 << 19, 2), (1 << 20, 2)]
 FFT_BIG = 1 << 24
 # shuffle: bitwise. RoPE: max |kernel - plain| <= tol * max |plain| (the
 # same float32 operations in the same order and the same expf/sinf/cosf;
@@ -4479,8 +4483,8 @@ def widened_reference(run32, dtype) -> dict:
 
 def phase_d(dev, card: str, app, sig, asr_app, audio, day_steps: int = 2048,
             hour_steps: int = 8192) -> dict:
-    """Phase D: bfloat16, float16, int16, int32, int8 and uint8 signals
-    through both graph kernels.
+    """Phase D: bfloat16, float16, int16, int32, int8, uint8 and int64
+    signals through both graph kernels.
 
     For each dtype, the biosignal day (`sig` narrowed) at B=8 raw stream
     and host-framed, resident (ring depth 4), in one call and over 4
@@ -4494,7 +4498,11 @@ def phase_d(dev, card: str, app, sig, asr_app, audio, day_steps: int = 2048,
     the stream, frames and ring entries: each bitwise the float32 kernel
     on the widened signal (``filtered`` cast as the reference's astype)
     and against the plain version (class exact, ``filtered`` bitwise,
-    features and margin within `TOL`, uint8's within `BYTE_TOL`).
+    features and margin within `TOL`, uint8's within `BYTE_TOL`). An
+    int64 signal of scale 3e9 at the same entries: int32 ``filtered``,
+    bitwise the int32 kernel on the signal narrowed to its low 32 bits
+    (the reference's staging), and against the plain version on the
+    narrowed signal as above.
     The 8-bit ones (`B_DTYPES`) also over the whole day (B=8) and hour
     (B=32) through `BiosignalStream`, its host-framed path and
     `ResidentStream`, each bitwise the float32 kernel on the widened
@@ -4737,6 +4745,52 @@ def phase_d(dev, card: str, app, sig, asr_app, audio, day_steps: int = 2048,
                   f"class exact, filtered bitwise, max |diff| {worst:.3e}"
                   + note)
             del x, wide, want, frames, ring
+    # ---- int64 signals past int32's range at the three entries of both
+    # graphs: narrowed to their low 32 bits where they are staged (the
+    # reference's jnp.asarray with x64 off), then the int32 kernel
+    for gname, g, g_ops, w, h, base in (
+            ("biosignal", graph, operands, WINDOW, HOP, sig),
+            ("asr", asr_graph, asr_ops, ASR_WINDOW, ASR_HOP, audio)):
+        seg = base[: (I_FRAMES - 1) * h + w].double()
+        x = (seg / seg.abs().max() * 3e9).round().long()
+        x32 = x.to(torch.int32)
+        bw = 8
+        span = ring_chunk_samples(w, h, bw)
+        kw = dict(graph=g)
+        worst = 0.0
+        for entry, call, plain_call, shaped in (
+                ("stream",
+                 lambda s: graph_stream_call(s, g_ops, window=w, hop=h, **kw),
+                 lambda s: graph_stream_plain(s, g_ops, window=w, hop=h,
+                                              **kw),
+                 lambda s: s),
+                ("frames", lambda f: graph_frames_call(f, g_ops, **kw),
+                 lambda f: graph_frames_plain(f, g_ops, **kw),
+                 lambda s: frame_signal(s, w, h)),
+                ("ring",
+                 lambda r: graph_ring_call(r, g_ops, window=w, hop=h, **kw),
+                 lambda r: graph_ring_plain(r, g_ops, window=w, hop=h, **kw),
+                 lambda s: s[: (I_FRAMES // bw - 1) * bw * h + span]
+                 .as_strided((I_FRAMES // bw, span), (bw * h, 1)))):
+            out, got = counted(lambda: call(shaped(x)))
+            expect_launches(f"D int64 {gname} {entry}", got,
+                            {(f"{gname}_graph", entry): 1})
+            if out["filtered"].dtype != torch.int32:
+                raise AssertionError(f"D int64 {gname} {entry}: filtered "
+                                     f"{out['filtered'].dtype}")
+            check_equal(f"D int64 {gname} {entry} == int32 on the narrowed "
+                        f"signal", out, call(shaped(x32)))
+            worst = max(worst, check_dtype_run(
+                f"D int64 {gname} {entry} vs plain", out,
+                plain_call(shaped(x32))))
+            report["runs"][f"int64 {gname} {entry}"] = {
+                "launches": {f"{gname}_graph.{entry}": 1}}
+        report["runs"][f"int64 {gname} max_abs_err"] = worst
+        print(f"phase D int64 {gname} ({I_FRAMES} frames of scale 3e9, past "
+              f"int32's range): stream, frames and ring give int32 filtered, "
+              f"bitwise the int32 kernel on the narrowed signal; vs plain: "
+              f"class exact, filtered bitwise, max |diff| {worst:.3e}")
+        del x, x32
     # ---- 8-bit signals near full scale through the user entries: the day
     # and the hour by the stream, the host-framed stream and the resident
     # ring, each bitwise the float32 kernel on the widened signal
@@ -4862,6 +4916,8 @@ def phase_d(dev, card: str, app, sig, asr_app, audio, day_steps: int = 2048,
 
 
 K_FFT_N = 1 << 20       # the spectrum of a 17-minute record at 1 kHz
+K_FFT_SMALL = 1 << 14   # the smallest four-step row
+K_FFT_CLUSTER = 1 << 17   # the shortest row whose lines a cluster shares
 K_FIR_TAPS = 255        # a sharp low-pass over the biosignal day's rows
 
 
@@ -4877,8 +4933,9 @@ def phase_k(dev, card: str, sig) -> tuple:
     with `K_FIR_TAPS` taps over the day's 10,797 x 2048 frames in every
     row dtype (integers at full scale): one launch each, bitwise the plain
     version. Then the device times beside the bounds, the plain versions
-    and one PyTorch call each (`torch.fft.fft`, `conv1d`); returns (the
-    report, the two kernel entries of the result line)."""
+    and one PyTorch call each (`torch.fft.fft`, `conv1d`), also of one
+    float32 row of `K_FFT_SMALL` and of `K_FFT_CLUSTER` points; returns
+    (the report, the two kernel entries of the result line)."""
     import torch
     import torch.nn.functional as F
 
@@ -4983,15 +5040,16 @@ def phase_k(dev, card: str, sig) -> tuple:
     cases = []
     for dname in FFT_DTYPES:
         dtype = getattr(torch, dname)
-        for n, nrows in ((K_FFT_N, 1), (K_FFT_N, 64), (FFT_BIG, 1)):
-            if n == FFT_BIG and dname != "float32":
+        for n, nrows in ((K_FFT_N, 1), (K_FFT_N, 64), (FFT_BIG, 1),
+                         (K_FFT_SMALL, 1), (K_FFT_CLUSTER, 1)):
+            if n not in (K_FFT_N,) and dname != "float32":
                 continue
             xr = torch.randn(nrows, n, generator=g, device=dev).to(dtype)
             xi = torch.randn(nrows, n, generator=g, device=dev).to(dtype)
             cases.append((f"fft {dname} {nrows} x {n}",
                           lambda xr=xr, xi=xi: fft(xr, xi),
                           (lambda xr=xr, xi=xi: fft_plain(xr, xi))
-                          if n == K_FFT_N else None,
+                          if n <= K_FFT_N else None,
                           library_fft(xr, xi),
                           fft_work(nrows, n, xr.element_size())))
     for dname in FIR_DTYPES:

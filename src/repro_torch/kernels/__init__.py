@@ -10,8 +10,8 @@
 module declares its own source and C interface there. Each entry runs its
 kernel on a CUDA tensor and the kernel's plain version on a CPU tensor
 (`on_cuda`). `staged_signal` and `cast_output` are the dtype rules every
-entry shares with the reference: float64 staged as float32, and a float
-stored into an integer dtype as ``astype`` stores it.
+entry shares with the reference: float64 staged as float32 and int64 as
+int32, and a float stored into an integer dtype as ``astype`` stores it.
 """
 import torch
 
@@ -28,10 +28,16 @@ def on_cuda(x) -> bool:
 
 
 
+# 64-bit dtypes narrow as the reference's ``jnp.asarray`` narrows them
+# with x64 off (int64 keeps its low 32 bits, as numpy's astype does)
+_NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
+
+
 def staged_signal(x: torch.Tensor) -> torch.Tensor:
-    """``x`` as the entries stage it: float64 narrowed to float32 (the
-    reference's ``jnp.asarray`` with x64 off), any other dtype kept."""
-    return x.to(torch.float32) if x.dtype == torch.float64 else x
+    """``x`` as the entries stage it: float64 narrowed to float32 and
+    int64 to int32 (the reference's ``jnp.asarray`` with x64 off), any
+    other dtype kept."""
+    return x.to(_NARROW[x.dtype]) if x.dtype in _NARROW else x
 
 
 def cast_output(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

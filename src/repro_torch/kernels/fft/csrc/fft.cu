@@ -50,25 +50,53 @@
 // N > 8192: the four-step transform. A row no longer fits a block's shared
 // memory, so N = N1 N2 (N1 = 2^ceil(lg/2), N2 = 2^floor(lg/2), both <=
 // 8192) runs in two launches through a float32 scratch of R x N points:
-//   1. for each n2 < N2, the column x[N2 n1 + n2] (n1 < N1) transformed
-//      by the same radix-16 passes, its point k1 multiplied by
-//      W_N^(n2 k1) and stored at scratch[k1 N2 + n2];
-//   2. for each k1 < N1, the row scratch[k1 N2 + n2] (n2 < N2)
-//      transformed, its point k2 stored at out[k1 + N1 k2]: natural order.
-// A block holds 8192 points: 8192 / L lines of L points, consecutive
-// columns (pass 1) or consecutive k1 (pass 2), so that each strided
-// access moves 8192 / L consecutive elements (32 bytes of float32 at N =
-// 2^20) while the other side is contiguous. The inter-pass twiddle comes
-// from two host tables cast once from float64 (W_N^j for j < N1 and
-// W_N^(j N1) for j < N2) as one float32 product, W_N^e = coarse[e >> lg1]
-// fine[e & (N1 - 1)], e = n2 k1 < N: no angle is ever a float32 number,
-// which at N = 2^24 would lose 7 bits. The inverse swaps re and im as
-// above (pass 1 reads swapped, pass 2 writes swapped and scales). The
-// scratch costs bytes: a point is read and written twice (16 + 16 bytes of
-// scratch beside the input and output's), so the pair is byte-bound at
-// about 3x the one-launch kernel's traffic in float32. One instantiation
-// per line length 2^7 to 2^13, pass and type (42).
+//   1. for each n2 < N2, the column x[N2 n1 + n2] (n1 < N1) transformed,
+//      its point k1 multiplied by W_N^(n2 k1) and stored in the scratch
+//      at ((n2 >> 4) N1 + k1) 16 + (n2 & 15): tiles of 16 columns by 16
+//      points, so that a tile of pass 1 stores whole 64-byte rows of one
+//      tile column and pass 2 reads whole 1 KB tiles;
+//   2. for each k1 < N1, the row of the scratch's points (k1, n2) (n2 <
+//      N2) transformed, its point k2 stored at out[k1 + N1 k2]: natural
+//      order.
+// Each pass is byte-bound: the scratch doubles the bytes (a point read
+// and written twice), so the pair's floor is twice the one-launch bound.
+// What the design does about it:
+// - A tile is kFourStepLines = 16 lines (consecutive columns in pass 1,
+//   consecutive k1 in pass 2), so the strided global accesses -- pass 1's
+//   read and pass 2's transposed write -- move 16 consecutive elements of
+//   a plane (64 bytes of float32, 32 of a 16-bit type); pass 1's scratch
+//   rows are 64 bytes apart within a tile column, and pass 2 reads 1 KB
+//   tiles of the scratch.
+// - A tile of long lines is shared by a thread-block cluster of up to
+//   kMaxCluster blocks of at least kFourStepBlockPoints points. The line
+//   transform's first step is radix-K decimation in frequency (M = L / K):
+//     y_j[n] = W_L^(n j) sum_m x[n + m M] W_K^(m j),  X[K k' + j] =
+//     DFT_M(y_j)[k'].
+//   Block h loads the points n + m M (m < K) of the n it owns (h M / K ..
+//   (h + 1) M / K - 1), runs that step in registers and stores each
+//   y_j[n] into block j's shared memory (distributed shared memory): each
+//   point crosses the cluster once. After a cluster barrier block j runs
+//   the M-point transforms of y_j. So one 2^20 row is 256 blocks of 4096
+//   points a pass (about two for each of 132 SMs), a block takes 34-135
+//   KB of shared memory, and no tile's lines pass through device memory
+//   a second time. (Reading all K shares in every block instead moved
+//   each point K times and ran 2.7x slower than the older four-step at 64
+//   rows of 2^20.) Pass 1 may go through its own shared memory first,
+//   so that its stores into the cluster are as contiguous as pass 2's
+//   (`staged`), and each pass lets the next one launch while it stores
+//   (programmatic dependent launch).
+// - The inter-pass twiddle comes from two host tables cast once from
+//   float64 (W_N^j for j < N1 and W_N^(j N1) for j < N2) as one float32
+//   product, W_N^e = coarse[e >> lg1] fine[e & (N1 - 1)], e = n2 k1 < N,
+//   for the first of a vector's 4 columns, times W_N^k1 = fine[k1] for
+//   each next one (3 products at most: ~1e-7 of error, under FFT_TOL);
+//   the radix-K step's from W_L^j (j < L), cast once as well: no angle is
+//   ever a float32 number, which at N = 2^24 would lose 7 bits. The
+//   inverse swaps re and im as above (pass 1 reads swapped, pass 2 writes
+//   swapped and scales).
+// One instantiation per line length L = 2^7 to 2^13, pass and type (42).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -80,10 +108,14 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kMaxThreads = 512;
 constexpr int kMaxLog = 13;          // one launch up to 8192 points a row
 constexpr int kMaxFourStepLog = 26;  // two launches up to 2^26
-constexpr int kFourStepPoints = 8192;  // points a four-step block holds
+constexpr int kFourStepLines = 16;        // lines of a four-step tile
+constexpr int kFourStepBlockPoints = 4096;  // the least points of a block
+constexpr int kMaxCluster = 8;            // blocks sharing a tile's lines
 
 // element types (kernel.py keeps the same codes)
 constexpr int kFloat32 = 0;
@@ -267,16 +299,14 @@ __device__ __forceinline__ void store_vec(T* p, const float (&v)[VE]) {
 }
 
 // The passes over one row of N = 2^LG points in shared memory (element p
-// at p + (p >> pad_shift)): thread i < T of the row reads points i + T m,
+// at p + (p >> SH)): thread i < T of the row reads points i + T m,
 // twiddles, runs the DFTs in registers and writes them back in Stockham
 // order; `sync` orders the row's threads between the reads and the writes.
-template <int LG, class Sync>
-__device__ __forceinline__ void stockham_passes(float* sr, float* si,
-                                                const float2* __restrict__ tw,
-                                                int i, Sync&& sync) {
+template <int LG, int SH, class Sync>
+__device__ __forceinline__ void stockham_passes_padded(
+    float* sr, float* si, const float2* __restrict__ tw, int i, Sync&& sync) {
   constexpr int E = points_per_thread(LG);
   constexpr int TPR = 1 << log_threads_per_row(LG);
-  constexpr int SH = pad_shift(LG);
   auto pad = [](int p) { return p + (p >> SH); };
   float2 x[E];
   static_for<n_passes(LG)>([&](auto p) {
@@ -310,6 +340,12 @@ __device__ __forceinline__ void stockham_passes(float* sr, float* si,
     });
     sync();
   });
+}
+template <int LG, class Sync>
+__device__ __forceinline__ void stockham_passes(float* sr, float* si,
+                                                const float2* __restrict__ tw,
+                                                int i, Sync&& sync) {
+  stockham_passes_padded<LG, pad_shift(LG)>(sr, si, tw, i, sync);
 }
 
 // One block: `rows` rows of N = 2^LG points, T = N / E threads each (row r
@@ -420,102 +456,289 @@ cudaError_t dispatch(int lg, const void* re, const void* im,
 }
 
 // ---- the four-step transform: pass 1 (columns, twiddled) and pass 2
-// (rows, stored transposed), each over lines of L = 2^LG points, a block
-// holding kFourStepPoints / L consecutive lines of one row of the input.
+// (rows, stored transposed). A tile is kFourStepLines lines of one row of
+// the input, consecutive columns (pass 1) or consecutive k1 (pass 2), so
+// that every strided global access moves kFourStepLines consecutive
+// elements. A line of L points is shared by a cluster of K blocks
+// (log_cluster): block h of the cluster loads the points h M .. (h + 1) M
+// - 1 (M = L / K) of the tile's lines, and after a cluster barrier runs
+// the first, radix-K step of each line's transform in decimation in
+// frequency over the cluster's shared memory,
+//   y_h[n] = W_L^(n h) sum_j x[n + j M] W_K^(j h),   n < M,
+// then the M-point transform of y_h in its own shared memory, which gives
+// the line's points X[K k' + h]. K = 1 where a tile fits one block.
 
-// Words between two lines in shared memory: row_stride(lg) raised until
-// the block's lines spread a warp's strided accesses over the banks. A
-// warp then holds m = min(lines, 32) lines times 32 / m consecutive
-// points, which take distinct banks where the stride is 32 / m times an
-// odd number.
-__host__ __device__ constexpr int four_step_stride(int lg) {
-  const int lines = kFourStepPoints >> lg;
-  const int c = lines >= 32 ? 1 : 32 / lines;
-  int s = row_stride(lg);
-  while (lines > 1 && s % (2 * c) != c) ++s;
+__host__ __device__ constexpr int ilog2(int v) {
+  return v <= 1 ? 0 : 1 + ilog2(v >> 1);
+}
+// log2 of the cluster of a pass over lines of 2^lg_l points: the tile
+// over kFourStepBlockPoints, at most kMaxCluster
+__host__ __device__ constexpr int log_cluster(int lg_l) {
+  const int e = lg_l + ilog2(kFourStepLines) - ilog2(kFourStepBlockPoints);
+  return e < 0 ? 0 : (e > ilog2(kMaxCluster) ? ilog2(kMaxCluster) : e);
+}
+// log2 of M, the points of a line each block of the cluster transforms
+__host__ __device__ constexpr int log_sub(int lg_l) {
+  return lg_l - log_cluster(lg_l);
+}
+// threads of a block over kFourStepLines sub-lines of 2^lm points: 16
+// points a thread, at most kMaxThreads (then two sweeps of the lines)
+__host__ __device__ constexpr int four_step_threads(int lm) {
+  return (kFourStepLines << lm) / 16 < kMaxThreads
+             ? (kFourStepLines << lm) / 16
+             : kMaxThreads;
+}
+// Shared layout of a four-step block: point p of line l at
+//   l S + 8 (l >> 2) + p + (p >> kFourStepPadShift),
+// S = four_step_stride(LM): one pad word every 32 points, so that a
+// warp's 32 consecutive points of a line fall on 32 banks; S = M / 16 mod
+// 32 where a warp's stockham passes span 32 / (M / 16) lines (M < 512),
+// so that those lines fall on distinct banks; and the skew of 8 words
+// every 4 lines, so that the global sides' 8 (16) points of 4 (8)
+// consecutive lines a 16-byte vector of 4 (2) vectors a point do too.
+constexpr int kFourStepPadShift = 5;
+__host__ __device__ constexpr int four_step_stride(int lm) {
+  int s = (1 << lm) + ((1 << lm) >> kFourStepPadShift);
+  while (s % 32 != ((1 << lm) / 16) % 32) ++s;
   return s;
 }
-__host__ __device__ constexpr size_t four_step_smem_bytes(int lg) {
-  return sizeof(float) * 2 * size_t(four_step_stride(lg)) *
-         (kFourStepPoints >> lg);
+__host__ __device__ constexpr int four_step_line(int lm, int l) {
+  return l * four_step_stride(lm) + 8 * (l >> 2);
+}
+// words of one plane: the last line's base and its padded points
+__host__ __device__ constexpr int four_step_plane(int lm) {
+  return four_step_line(lm, kFourStepLines - 1) + (1 << lm) +
+         ((1 << lm) >> kFourStepPadShift);
+}
+__host__ __device__ constexpr size_t four_step_smem_bytes(int lm) {
+  return sizeof(float) * 2 * size_t(four_step_plane(lm));
+}
+// The cluster's barrier in halves (PTX barrier.cluster): a relaxed arrive
+// orders no memory access, so a block's loads stay in flight across it.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" : : : "memory");
+#endif
+}
+__device__ __forceinline__ void cluster_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("barrier.cluster.wait.aligned;\n" : : : "memory");
+#endif
+}
+// Programmatic dependent launch (PTX griddepcontrol): a pass lets the
+// next kernel on its stream be scheduled once every block of it has
+// reached its stores, and waits for the kernels before it to finish (and
+// their writes to be visible) before it touches device memory, so that a
+// pass's launch and set-up overlap the tail of the one before.
+__device__ __forceinline__ void launch_dependents() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("griddepcontrol.launch_dependents;\n" : : : "memory");
+#endif
+}
+__device__ __forceinline__ void wait_for_prerequisites() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("griddepcontrol.wait;\n" : : : "memory");
+#endif
 }
 // log2 N1 (the columns' length) and log2 N2 of N = 2^lg
 __host__ __device__ constexpr int log_n1(int lg) { return (lg + 1) / 2; }
 __host__ __device__ constexpr int log_n2(int lg) { return lg / 2; }
 
-template <typename T>
-__device__ __forceinline__ float widen(T v) {
-  if constexpr (std::is_same<T, float>::value) {
-    return v;
-  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return __bfloat162float(v);
-  } else {
-    return __half2float(v);
-  }
-}
-template <typename T>
-__device__ __forceinline__ T narrow(float v) {
-  if constexpr (std::is_same<T, float>::value) {
-    return v;
-  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return __float2bfloat16_rn(v);
-  } else {
-    return __float2half_rn(v);
-  }
-}
-
-// Lines of 2^LG points; the row's other factor is 2^lg_lines (its lines).
-// SECOND = false, pass 1: line n2 holds a[N2 n1 + n2] (n1 < N1 = 2^LG),
-// its transform's point k1 leaves times W_N^(n2 k1) for oa[k1 N2 + n2].
-// SECOND = true, pass 2: line k1 holds a[k1 N2 + n2] (n2 < N2 = 2^LG),
-// its point k2 leaves times `scale` for oa[k1 + N1 k2]. The same for b
-// and ob (the imaginary planes). tw is the line transform's table (as
-// stockham_table(2^LG)); fine and coarse the inter-pass factors (pass 1).
-template <int LG, typename TI, typename TO, bool SECOND>
+// One block of a four-step pass over lines of L = 2^LGL points of rows of
+// L 2^lg_o points: a cluster of K = 2^log_cluster(LGL) blocks
+// (blockIdx.x >> log K, the tile) shares the tile's lines; block h =
+// blockIdx.x mod K of it transforms the sub-lines y_h of M = L / K points.
+// SECOND = false, pass 1 (L = N1, 2^lg_o = N2): line c holds column n2 =
+// c0 + c, a[N2 n1 + n2] (n1 < N1); its point k1 leaves times W_N^(n2 k1)
+// for oa[k1 N2 + n2] (float32 scratch).
+// SECOND = true, pass 2 (L = N2, 2^lg_o = N1): line c holds k1 = c0 + c,
+// a[k1 N2 + n2] (n2 < N2) of the scratch; its point k2 leaves times
+// `scale` for oa[k1 + N1 k2].
+// The same for b and ob (the imaginary planes). tw is the M-point
+// transform's table (stockham_table(M)); split holds W_L^j (j < L);
+// fine and coarse the inter-pass factors (pass 1).
+template <int LGL, typename TI, typename TO, bool SECOND>
 __global__ void __launch_bounds__(kMaxThreads)
 four_step_kernel(const TI* __restrict__ a, const TI* __restrict__ b,
                  const float2* __restrict__ tw,
+                 const float2* __restrict__ split,
                  const float2* __restrict__ fine,
                  const float2* __restrict__ coarse, TO* __restrict__ oa,
-                 TO* __restrict__ ob, int lg_lines, float scale) {
-  constexpr int L = 1 << LG;
-  constexpr int LT = log_threads_per_row(LG);
+                 TO* __restrict__ ob, int lg_o, float scale, int staged) {
+  constexpr int LK = log_cluster(LGL);
+  constexpr int K = 1 << LK;
+  constexpr int LM = LGL - LK;
+  constexpr int M = 1 << LM;
+  constexpr int C = kFourStepLines;
+  constexpr int LC = ilog2(C);
+  constexpr int THREADS = four_step_threads(LM);
+  constexpr int LT = log_threads_per_row(LM);
   constexpr int TPR = 1 << LT;
-  constexpr int LG_LINES = 13 - LG;           // log2 of the block's lines
-  constexpr int LINES = 1 << LG_LINES;
-  constexpr int POINTS = kFourStepPoints;     // LINES * L
-  constexpr int THREADS = LINES * TPR;        // kMaxThreads
-  constexpr int S = four_step_stride(LG);
-  constexpr int SH = pad_shift(LG);
+  constexpr int GROUP = THREADS / TPR;        // lines a sweep of threads
+  constexpr int NB = M / K;                   // the points n a block owns
+  constexpr int VU = K >= 8 ? 2 : 4;          // (line, n) pairs a unit
+  constexpr int UNITS = C * NB / VU / THREADS;
+  constexpr int SH = kFourStepPadShift;
+  static_assert(UNITS >= 1 && NB % VU == 0, "a thread's units");
   extern __shared__ __align__(16) float smem[];
+  float* const sr = smem;
+  float* const si = smem + four_step_plane(LM);
+  auto at = [](int l, int p) { return four_step_line(LM, l) + p + (p >> SH); };
 
   const int t = threadIdx.x;
-  const long long line0 = (long long)blockIdx.x * LINES;
-  const long long base = (line0 >> lg_lines) << (LG + lg_lines);  // row r
-  const int c0 = static_cast<int>(line0 & ((1LL << lg_lines) - 1));
-  auto at = [](int l, int p) { return l * S + p + (p >> SH); };
-  float* const sr = smem;
-  float* const si = smem + LINES * S;
+  const int h = blockIdx.x & (K - 1);
+  const long long tile = (long long)blockIdx.x >> LK;
+  const int lg_tiles = lg_o - LC;             // tiles of a row, log2
+  const long long r = tile >> lg_tiles;
+  const int c0 = static_cast<int>(tile & ((1LL << lg_tiles) - 1)) << LC;
+  const long long base = r << (LGL + lg_o);
 
-  // in: pass 1 reads the block's LINES columns a point at a time (LINES
-  // consecutive elements); pass 2 reads its lines, one contiguous span
-  for (int q = t; q < POINTS; q += THREADS) {
-    int l, p;
-    long long g;
-    if constexpr (SECOND) {
-      l = q >> LG;
-      p = q & (L - 1);
-      g = base + ((long long)c0 << LG) + q;
+  // in: block h loads, for the points n = h NB .. (h + 1) NB - 1 it owns,
+  // the line points n + j M (j < K) of VU consecutive lines a unit, runs
+  // the radix-K step on them in registers and stores y_j[n] = W_L^(n j)
+  // sum_m x[n + m M] W_K^(m j) into block j's shared memory: every point
+  // crosses the cluster once, a warp's stores on consecutive words (pass
+  // 2) or on 32 banks of 4 or 8 lines (pass 1). Pass 1 reads VU of C
+  // consecutive columns at a point (runs of C elements), pass 2 one float
+  // a line at 32 consecutive points (128-byte runs).
+  // the block's units, VU lines c .. c + VU - 1 at a point n: pass 1
+  // loads VU of C consecutive columns at a point (lanes along the lines,
+  // runs of C elements); the radix-K step and its stores into the
+  // cluster take 32 consecutive points of a line across a warp (pass 2
+  // also loads so), so that a warp's stores into another block are 128
+  // contiguous bytes
+  auto along_lines = [&](int u, int& c, int& n) {
+    const int q = t + THREADS * u;
+    constexpr int LV = ilog2(C / VU);
+    c = (q & ((1 << LV) - 1)) * VU;
+    n = h * NB + (q >> LV);
+  };
+  auto along_points = [&](int u, int& c, int& n) {
+    const int q = t + THREADS * u;
+    c = (q >> ilog2(NB)) * VU;
+    n = h * NB + (q & (NB - 1));
+  };
+  // pass 1 with a cluster may go from one to the other through the
+  // block's own shared memory (its share x[n + m M] of line c at position
+  // m NB + n - h NB; the barrier then waits for it before any block writes
+  // there): `staged`, which the host sets for clusters of 8 and for
+  // grids of at most a few waves (contiguous stores into the cluster
+  // against one more round trip through shared memory)
+  const bool stage = !SECOND && K > 1 && staged;
+  // the exchange's units: along the points, but unstaged pass 1's
+  auto exchange_unit = [&](int u, int& c, int& n) {
+    if (SECOND || stage) {
+      along_points(u, c, n);
     } else {
-      l = q & (LINES - 1);
-      p = q >> LG_LINES;
-      g = base + ((long long)p << lg_lines) + c0 + l;
+      along_lines(u, c, n);
     }
-    sr[at(l, p)] = widen(a[g]);
-    si[at(l, p)] = widen(b[g]);
+  };
+  // every load of the block in flight before the cluster's barrier (its
+  // arrive relaxed: it orders nothing, it only waits for the cluster's
+  // blocks to run before any writes into their shared memory)
+  if (K > 1 && !stage) cluster_arrive_relaxed();
+  wait_for_prerequisites();
+  float2 x[UNITS][VU][K];
+  static_for<UNITS>([&](auto u) {
+    int c, n;
+    if constexpr (SECOND) {
+      along_points(CV(u), c, n);
+    } else {
+      along_lines(CV(u), c, n);
+    }
+    static_for<K>([&](auto m) {
+      const int p = n + CV(m) * M;
+      if constexpr (!SECOND) {
+        float vr[VU], vi[VU];
+        const long long g = base + ((long long)p << lg_o) + c0 + c;
+        load_vec<TI, VU>(a + g, vr);
+        load_vec<TI, VU>(b + g, vi);
+        static_for<VU>([&](auto e) {
+          x[CV(u)][CV(e)][CV(m)] = make_float2(vr[CV(e)], vi[CV(e)]);
+        });
+      } else {
+        static_for<VU>([&](auto e) {
+          // the scratch's (16-point, 16-line) tiles: (k1, n2) at
+          // ((n2 >> 4) N1 + k1) 16 + (n2 & 15)
+          const long long g =
+              base + ((((long long)(p >> LC) << lg_o) + c0 + c + CV(e))
+                      << LC) + (p & (C - 1));
+          x[CV(u)][CV(e)][CV(m)] =
+              make_float2(__ldcs(a + g), __ldcs(b + g));
+        });
+      }
+    });
+  });
+  // the radix-K step's twiddles W_L^(n j), read while the loads fly
+  float2 wn[UNITS][K];
+  static_for<UNITS>([&](auto u) {
+    constexpr int uu = CV(u);
+    int c, n;
+    exchange_unit(uu, c, n);
+    wn[uu][0] = make_float2(1.f, 0.f);
+    static_for<K - 1>([&](auto j) {
+      wn[uu][CV(j) + 1] = __ldg(split + n * (CV(j) + 1));
+    });
+  });
+  if (stage) {
+    static_for<UNITS>([&](auto u) {
+      int c, n;
+      along_lines(CV(u), c, n);
+      static_for<VU>([&](auto e) {
+        static_for<K>([&](auto m) {
+          const int o = at(c + CV(e), CV(m) * NB + n - h * NB);
+          sr[o] = x[CV(u)][CV(e)][CV(m)].x;
+          si[o] = x[CV(u)][CV(e)][CV(m)].y;
+        });
+      });
+    });
+    __syncthreads();
+    static_for<UNITS>([&](auto u) {
+      int c, n;
+      along_points(CV(u), c, n);
+      static_for<VU>([&](auto e) {
+        static_for<K>([&](auto m) {
+          const int o = at(c + CV(e), CV(m) * NB + n - h * NB);
+          x[CV(u)][CV(e)][CV(m)] = make_float2(sr[o], si[o]);
+        });
+      });
+    });
+    cg::this_cluster().sync();   // every block's staged share read
+  } else if (K > 1) {
+    cluster_wait();
   }
-  __syncthreads();
+  static_for<UNITS>([&](auto u) {
+    constexpr int uu = CV(u);
+    int c, n;
+    exchange_unit(uu, c, n);
+    static_for<VU>([&](auto e) {
+      constexpr int ee = CV(e);
+      const int ce = c + ee;
+      const int ne = n;
+      dft<K>(x[uu][ee]);
+      static_for<K>([&](auto j) {
+        constexpr int jj = CV(j);
+        float2 y = x[uu][ee][jj];
+        if constexpr (jj > 0) y = cmul(y, wn[uu][jj]);
+        // y_j's point n lives at position n of block j's sub-line
+        float* yr = sr + at(ce, ne);
+        float* yi = si + at(ce, ne);
+        if constexpr (K > 1) {
+          yr = cg::this_cluster().map_shared_rank(yr, jj);
+          yi = cg::this_cluster().map_shared_rank(yi, jj);
+        }
+        *yr = y.x;
+        *yi = y.y;
+      });
+    });
+  });
+  if constexpr (K > 1) {
+    cg::this_cluster().sync();                // every share delivered
+  } else {
+    __syncthreads();
+  }
 
+  // the M-point transforms, GROUP lines a sweep
   const int lrow = t >> LT;
   auto sync = [&]() {
     if constexpr (TPR > 32) {
@@ -525,67 +748,149 @@ four_step_kernel(const TI* __restrict__ a, const TI* __restrict__ b,
       __syncwarp(kRow << ((t & 31) & ~(TPR - 1)));
     }
   };
-  stockham_passes<LG>(sr + lrow * S, si + lrow * S, tw, t & (TPR - 1), sync);
+  static_for<C / GROUP>([&](auto sweep) {
+    const int o = four_step_line(LM, CV(sweep) * GROUP + lrow);
+    stockham_passes_padded<LM, SH>(sr + o, si + o, tw, t & (TPR - 1), sync);
+  });
   __syncthreads();
 
-  // out: a point of each of the block's lines at a time, LINES consecutive
-  // elements: pass 1 at k1 N2 + n2, pass 2 at k1 + N1 k2
-  for (int q = t; q < POINTS; q += THREADS) {
-    const int l = q & (LINES - 1);
-    const int p = q >> LG_LINES;
-    float2 v = make_float2(sr[at(l, p)], si[at(l, p)]);
-    if constexpr (SECOND) {
-      const long long g = base + c0 + l + ((long long)p << lg_lines);
-      oa[g] = narrow<TO>(v.x * scale);
-      ob[g] = narrow<TO>(v.y * scale);
+  // the next kernel's blocks may be scheduled from here: they wait for
+  // this one's stores before touching memory (earlier, they took slots
+  // this pass's blocks still needed: one 2^20 row 0.0316 ms against 0.0252)
+  launch_dependents();
+  // out: point k' of every line is X[K k' + h] of the line; a point of
+  // C consecutive lines at a time, VE a 16-byte vector
+  constexpr int VE = 16 / int(sizeof(TO));
+  constexpr int LV = ilog2(C / VE);
+  constexpr int NV = C * M / VE / THREADS;
+  static_for<NV>([&](auto v) {
+    const int q = t + THREADS * CV(v);
+    const int kp = q >> LV;
+    const int c = (q & ((1 << LV) - 1)) * VE;
+    const int k = (kp << LK) + h;             // k1 (pass 1) or k2 (pass 2)
+    float vr[VE], vi[VE];
+    if constexpr (!SECOND) {
+      // times W_N^(n2 k1): for the vector's first column coarse[e >> lg
+      // N1] fine[e mod N1] (e = n2 k1), for the next ones times W_N^k1 =
+      // fine[k1] each: two scattered table reads a vector, not two a
+      // point (read here, not before the transforms: held through them,
+      // they cost registers and 13% at 64 rows of 2^20)
+      const int ex = (c0 + c) * k;
+      float2 w = cmul(__ldg(coarse + (ex >> LGL)),
+                      __ldg(fine + (ex & ((1 << LGL) - 1))));
+      const float2 step = __ldg(fine + k);
+      static_for<VE>([&](auto e) {
+        constexpr int ee = CV(e);
+        if constexpr (ee > 0) w = cmul(w, step);
+        const float2 z = cmul(
+            make_float2(sr[at(c + CV(e), kp)], si[at(c + CV(e), kp)]), w);
+        vr[CV(e)] = z.x;
+        vi[CV(e)] = z.y;
+      });
     } else {
-      const int e = (c0 + l) * p;             // n2 k1 < N
-      v = cmul(v, cmul(__ldg(coarse + (e >> LG)), __ldg(fine + (e & (L - 1)))));
-      const long long g = base + ((long long)p << lg_lines) + c0 + l;
-      oa[g] = narrow<TO>(v.x);
-      ob[g] = narrow<TO>(v.y);
+      static_for<VE>([&](auto e) {
+        vr[CV(e)] = sr[at(c + CV(e), kp)] * scale;
+        vi[CV(e)] = si[at(c + CV(e), kp)] * scale;
+      });
     }
-  }
+    const long long g =
+        SECOND ? base + c0 + c + ((long long)k << lg_o)
+               : base + ((((long long)(c0 >> LC) << LGL) + k) << LC) + c;
+    store_vec<TO, VE>(oa + g, vr);
+    store_vec<TO, VE>(ob + g, vi);
+  });
 }
 
-template <int LG, typename TI, typename TO, bool SECOND>
+template <int LGL, typename TI, typename TO, bool SECOND>
 cudaError_t launch_four_step(const void* a, const void* b, const float2* tw,
-                             const float2* fine, const float2* coarse,
-                             void* oa, void* ob, long long R, int lg_lines,
-                             float scale, cudaStream_t stream) {
-  constexpr size_t smem = four_step_smem_bytes(LG);
-  const cudaError_t err = cudaFuncSetAttribute(
-      four_step_kernel<LG, TI, TO, SECOND>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+                             const float2* split, const float2* fine,
+                             const float2* coarse, void* oa, void* ob,
+                             long long R, int lg_o, float scale,
+                             cudaStream_t stream) {
+  constexpr int LM = log_sub(LGL);
+  constexpr size_t smem = four_step_smem_bytes(LM);
+  auto kernel = four_step_kernel<LGL, TI, TO, SECOND>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  // R << (LG + lg_lines) points, kFourStepPoints a block
-  const long long blocks = R << (LG + lg_lines - 13);
-  four_step_kernel<LG, TI, TO, SECOND>
-      <<<static_cast<unsigned>(blocks), kMaxThreads, smem, stream>>>(
-          static_cast<const TI*>(a), static_cast<const TI*>(b), tw, fine,
-          coarse, static_cast<TO*>(oa), static_cast<TO*>(ob), lg_lines,
-          scale);
+  // R rows of 2^(LGL + lg_o) points, kFourStepLines sub-lines of 2^LM a
+  // block, clusters of 2^log_cluster(LGL) blocks
+  const long long blocks =
+      R << (LGL - LM + lg_o - ilog2(kFourStepLines));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(four_step_threads(LM));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1u << log_cluster(LGL);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  // pass 1 stages its cluster's exchange through shared memory with
+  // clusters of 8 and where the grid is at most four blocks an SM
+  // (tools/fft_variants.py: staged 0.0235 ms against 0.0252 at one 2^20
+  // row, 0.933 against 0.900 at 64 rows)
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return err;
+  const int staged = log_cluster(LGL) == ilog2(kMaxCluster) ||
+                     blocks <= 4LL * sms;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const TI*>(a),
+                           static_cast<const TI*>(b), tw, split, fine,
+                           coarse, static_cast<TO*>(oa),
+                           static_cast<TO*>(ob), lg_o, scale, staged);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// pass 1 on lines of 2^lg1 (LG from 7) and pass 2 on lines of 2^lg2
-template <typename T, bool SECOND, int LG = 7>
-cudaError_t dispatch_four_step(int lg, const void* a, const void* b,
-                               const float2* tw, const float2* fine,
-                               const float2* coarse, void* oa, void* ob,
-                               long long R, int lg_lines, float scale,
-                               cudaStream_t stream) {
-  if constexpr (LG > kMaxLog) {
+// one instantiation per line log (7 to 13), pass and type
+template <typename T, bool SECOND, int LGL = kMaxFourStepLog / 2>
+cudaError_t dispatch_four_step(int lg_l, const void* a, const void* b,
+                               const float2* tw, const float2* split,
+                               const float2* fine, const float2* coarse,
+                               void* oa, void* ob, long long R, int lg_o,
+                               float scale, cudaStream_t stream) {
+  if constexpr (LGL < (kMaxLog + 2) / 2) {
     return cudaErrorInvalidValue;
   } else {
     using TI = typename std::conditional<SECOND, float, T>::type;
     using TO = typename std::conditional<SECOND, T, float>::type;
-    if (lg == LG)
-      return launch_four_step<LG, TI, TO, SECOND>(
-          a, b, tw, fine, coarse, oa, ob, R, lg_lines, scale, stream);
-    return dispatch_four_step<T, SECOND, LG + 1>(
-        lg, a, b, tw, fine, coarse, oa, ob, R, lg_lines, scale, stream);
+    if (lg_l == LGL)
+      return launch_four_step<LGL, TI, TO, SECOND>(
+          a, b, tw, split, fine, coarse, oa, ob, R, lg_o, scale, stream);
+    return dispatch_four_step<T, SECOND, LGL - 1>(
+        lg_l, a, b, tw, split, fine, coarse, oa, ob, R, lg_o, scale,
+        stream);
   }
+}
+
+// Offsets into the four-step table of N = 2^lg (float2 entries): the
+// sub-line transforms' tables of both passes, W_N1^j (j < N1), W_N2^j
+// (j < N2), then W_N^j (j < N1) and W_N^(j N1) (j < N2), as kernel.py's
+// four_step_table lays it out.
+struct FourStepTable {
+  int tw2, split1, split2, fine, coarse, size;
+};
+__host__ __device__ inline FourStepTable four_step_table(int lg) {
+  const int n1 = 1 << log_n1(lg), n2 = 1 << log_n2(lg);
+  const int lm1 = log_sub(log_n1(lg)), lm2 = log_sub(log_n2(lg));
+  FourStepTable t;
+  t.tw2 = twiddle_offset(lm1, n_passes(lm1));
+  t.split1 = t.tw2 + twiddle_offset(lm2, n_passes(lm2));
+  t.split2 = t.split1 + n1;
+  t.fine = t.split2 + n2;
+  t.coarse = t.fine + n1;
+  t.size = t.coarse + n2;
+  return t;
 }
 
 template <typename T>
@@ -594,15 +899,16 @@ cudaError_t four_step_pass(int lg, int pass, const void* a, const void* b,
                            void* oa, void* ob, long long R, float scale,
                            cudaStream_t stream) {
   const int lg1 = log_n1(lg), lg2 = log_n2(lg);
-  const float2* tw1 = tables;
-  const float2* tw2 = tw1 + twiddle_offset(lg1, n_passes(lg1));
-  const float2* fine = tw2 + twiddle_offset(lg2, n_passes(lg2));
-  const float2* coarse = fine + (1 << lg1);
+  const FourStepTable o = four_step_table(lg);
+  const float2* w = tables;
   return pass == 0
-             ? dispatch_four_step<T, false>(lg1, a, b, tw1, fine, coarse, sa,
-                                            sb, R, lg2, 1.0f, stream)
-             : dispatch_four_step<T, true>(lg2, sa, sb, tw2, fine, coarse,
-                                           oa, ob, R, lg1, scale, stream);
+             ? dispatch_four_step<T, false>(lg1, a, b, w, w + o.split1,
+                                            w + o.fine, w + o.coarse, sa, sb,
+                                            R, lg2, 1.0f, stream)
+             : dispatch_four_step<T, true>(lg2, sa, sb, w + o.tw2,
+                                           w + o.split2, w + o.fine,
+                                           w + o.coarse, oa, ob, R, lg1,
+                                           scale, stream);
 }
 
 int log2_of(int n) {
@@ -673,22 +979,33 @@ int fft_launch(const void* re, const void* im, const float* tw,
 // columns, 1: the rows) for N points.
 size_t fft_four_step_smem_bytes(int n, int pass) {
   const int lg = log2_of(n);
-  return four_step_smem_bytes(pass == 0 ? log_n1(lg) : log_n2(lg));
+  return four_step_smem_bytes(log_sub(pass == 0 ? log_n1(lg) : log_n2(lg)));
+}
+
+// Blocks of a cluster (K) and threads of a block of that pass for N.
+int fft_four_step_cluster(int n, int pass) {
+  const int lg = log2_of(n);
+  return 1 << log_cluster(pass == 0 ? log_n1(lg) : log_n2(lg));
+}
+int fft_four_step_threads(int n, int pass) {
+  const int lg = log2_of(n);
+  return four_step_threads(log_sub(pass == 0 ? log_n1(lg) : log_n2(lg)));
 }
 
 // Complex entries of the four-step table for N points (kernel.py's
-// four_step_table: the line transforms' tables of N1 and N2 points, then
-// W_N^j for j < N1 and W_N^(j N1) for j < N2).
+// four_step_table: the sub-line transforms' tables of both passes, the
+// radix-K steps' W_N1^j and W_N2^j, then W_N^j for j < N1 and W_N^(j N1)
+// for j < N2).
 int fft_four_step_table_size(int n) {
-  const int lg = log2_of(n), lg1 = log_n1(lg), lg2 = log_n2(lg);
-  return twiddle_offset(lg1, n_passes(lg1)) +
-         twiddle_offset(lg2, n_passes(lg2)) + (1 << lg1) + (1 << lg2);
+  return four_step_table(log2_of(n)).size;
 }
 
 // Pass `pass` of the four-step FFT over the rows of (R, N) row-major planes
 // of `dtype`, 8192 < N <= 2^26: pass 0 reads (re, im) and writes the
-// float32 (R, N) planes (scratch_re, scratch_im); pass 1 reads those and
-// writes (out_re, out_im) in `dtype`. `tables` is kernel.py's
+// float32 (R, N) planes (scratch_re, scratch_im), each row in 16 x 16
+// tiles; pass 1 reads those and writes (out_re, out_im) in `dtype`; each
+// pass is a cluster launch that lets the next kernel launch early and
+// waits for the last one's writes. `tables` is kernel.py's
 // four_step_table(N) (fft_four_step_table_size(N) float2). Run pass 0, then
 // pass 1 on the same stream, with the same `inverse`; the pair gives what
 // fft_launch gives. Returns cudaGetLastError() after the launch (0 on

@@ -6,7 +6,8 @@ memory between passes, 16-byte global loads and stores, twiddles from
 `stockham_table` (see the source's header), for N up to `ROW_MAX_N`; past
 it, up to `MAX_N`, the four-step transform in two launches
 (`four_step_plan`, `four_step_table`, `four_step_model`), each counted as
-its own entry. `fft_plain` is the radix-2 Stockham chain in plain PyTorch
+its own entry: tiles of `FOUR_STEP_LINES` lines, a line shared by a
+thread-block cluster of up to `MAX_CLUSTER` blocks. `fft_plain` is the radix-2 Stockham chain in plain PyTorch
 (`core.fft.fft_stages` given `twiddle_table`), the CPU path and what the
 kernel is held to on the card within `FFT_TOL`. Both take float32,
 bfloat16 and float16 (float64 narrowed to float32 first, as the
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -25,9 +27,11 @@ import torch
 from repro_torch.core.fft import fft_stages
 from repro_torch.kernels import _cuda, staged_signal
 
-__all__ = ["FFT_TOL", "ROW_MAX_N", "MAX_N", "ENTRIES", "twiddle_table",
-           "device_twiddles", "stockham_plan", "stockham_table",
-           "device_stockham_table", "four_step_plan", "four_step_twiddles",
+__all__ = ["FFT_TOL", "ROW_MAX_N", "MAX_N", "ENTRIES", "FOUR_STEP_LINES",
+           "FOUR_STEP_BLOCK_POINTS", "MAX_CLUSTER", "FourStepPass",
+           "twiddle_table", "device_twiddles", "stockham_plan",
+           "stockham_table", "device_stockham_table", "four_step_pass",
+           "four_step_plan", "four_step_twiddles", "four_step_split",
            "four_step_table", "device_four_step_table", "four_step_model",
            "threads_per_row", "default_block_rows", "fft_plain", "fft_cuda"]
 
@@ -36,6 +40,9 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 ROW_MAX_N = 8192        # one launch: a block keeps its rows in shared memory
 MAX_N = 1 << 26         # four-step: N1 x N2 lines of at most ROW_MAX_N
 MAX_THREADS = 512       # the kernel's launch bound
+FOUR_STEP_LINES = 16    # lines of a four-step tile (kFourStepLines)
+FOUR_STEP_BLOCK_POINTS = 4096   # a four-step block's least points
+MAX_CLUSTER = 8         # blocks of a cluster sharing a tile's lines
 # the counted entries: the one-launch kernel, the four-step's two passes
 ENTRIES = ("rows", "four_step_columns", "four_step_rows")
 # What the kernel is held to against `fft_plain`: max |kernel - plain| <=
@@ -64,6 +71,8 @@ _cuda.declare("fft", Path(__file__).resolve().parent / "csrc" / "fft.cu",
                               _i, _p], _i),
     "fft_four_step_smem_bytes": ([_i, _i], ctypes.c_size_t),
     "fft_four_step_table_size": ([_i], _i),
+    "fft_four_step_cluster": ([_i, _i], _i),
+    "fft_four_step_threads": ([_i, _i], _i),
 })
 
 
@@ -147,12 +156,41 @@ def device_stockham_table(n: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(stockham_table(n), device=device)
 
 
+class FourStepPass(NamedTuple):
+    """One pass of the four-step transform: its lines of ``line`` points,
+    ``FOUR_STEP_LINES`` a tile, shared by a cluster of ``cluster`` blocks
+    that each load ``sub`` = line / cluster points of every line and
+    transform that many; ``threads`` a block."""
+    line: int
+    cluster: int
+    sub: int
+    threads: int
+
+
+def four_step_pass(line: int) -> FourStepPass:
+    """The pass over lines of ``line`` points: the tile's points over
+    `FOUR_STEP_BLOCK_POINTS` blocks, at most `MAX_CLUSTER` (`fft.cu`'s
+    ``log_cluster``), 16 points a thread up to `MAX_THREADS`."""
+    cluster = max(1, min(MAX_CLUSTER, FOUR_STEP_LINES * line //
+                         FOUR_STEP_BLOCK_POINTS))
+    sub = line // cluster
+    return FourStepPass(line, cluster, sub,
+                        min(MAX_THREADS, FOUR_STEP_LINES * sub // 16))
+
+
 def four_step_plan(n: int) -> tuple:
-    """(N1, N2) of the four-step transform of N = n > `ROW_MAX_N` points:
-    N1 = 2^ceil(lg/2) columns' length, N2 = 2^floor(lg/2) rows' length,
-    both at most `ROW_MAX_N` up to `MAX_N`."""
+    """The two passes of the four-step transform of N = n > `ROW_MAX_N`
+    points: over columns of N1 = 2^ceil(lg/2) points, then rows of N2 =
+    2^floor(lg/2) (`four_step_pass` each)."""
     lg = n.bit_length() - 1
-    return 1 << (lg + 1) // 2, 1 << lg // 2
+    return four_step_pass(1 << (lg + 1) // 2), four_step_pass(1 << lg // 2)
+
+
+def _unit(j: np.ndarray, m: int) -> np.ndarray:
+    """(cos, sin) of -2 pi j / m as (len(j), 2) float32, computed in
+    float64 and cast once."""
+    ang = -2.0 * np.pi * j / m
+    return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
 
 
 def four_step_twiddles(n: int) -> tuple:
@@ -160,21 +198,27 @@ def four_step_twiddles(n: int) -> tuple:
     float32 (cos, sin) tables computed in float64 and cast once: ``fine[j]
     = W_N^j`` for j < N1 and ``coarse[j] = W_N^(j N1)`` for j < N2, so
     that W_N^e = coarse[e // N1] fine[e % N1] for any e = n2 k1 < N."""
-    n1, n2 = four_step_plan(n)
+    p1, p2 = four_step_plan(n)
+    n1, n2 = p1.line, p2.line
+    return _unit(np.arange(n1), n), _unit(np.arange(n2) * n1, n)
 
-    def table(j, m):
-        ang = -2.0 * np.pi * j / m
-        return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(
-            np.float32)
-    return table(np.arange(n1), n), table(np.arange(n2), n2)
+
+def four_step_split(line: int) -> np.ndarray:
+    """W_L^j for j < L = ``line``, (L, 2) float32 from float64: the
+    cluster's radix-K step takes W_K^(j h) = W_L^(j h L / K) and the
+    twiddle W_L^(n h) of its share's point n from it."""
+    return _unit(np.arange(line), line)
 
 
 def four_step_table(n: int) -> np.ndarray:
-    """The four-step kernel's (M, 2) float32 table for N = n: the line
-    transforms' `stockham_table` of N1 and of N2 points, then
+    """The four-step kernel's (M, 2) float32 table for N = n: the
+    sub-lines' `stockham_table` of pass 1 and of pass 2, the radix-K
+    steps' `four_step_split` of N1 and of N2 points, then
     `four_step_twiddles`' fine and coarse factors."""
-    n1, n2 = four_step_plan(n)
-    return np.concatenate([stockham_table(n1), stockham_table(n2),
+    p1, p2 = four_step_plan(n)
+    return np.concatenate([stockham_table(p1.sub), stockham_table(p2.sub),
+                           four_step_split(p1.line),
+                           four_step_split(p2.line),
                            *four_step_twiddles(n)])
 
 
@@ -184,38 +228,92 @@ def device_four_step_table(n: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(four_step_table(n), device=device)
 
 
+def _cmul(ar, ai, br, bi) -> tuple:
+    return ar * br - ai * bi, ar * bi + ai * br
+
+
+def _line_transform(xr: torch.Tensor, xi: torch.Tensor,
+                    p: FourStepPass) -> tuple:
+    """The kernel's transform of the rows of (rows, L) float32 planes
+    over a cluster of K = ``p.cluster``: the radix-K step y_h[n] = W_L^(n
+    h) sum_j x[n + j M] W_K^(j h) from `four_step_split`, the M-point
+    transform of each y_h (`fft_plain`), point k' of y_h at K k' + h."""
+    K, M = p.cluster, p.sub
+    if K == 1:
+        return fft_plain(xr, xi)
+    rows = xr.shape[0]
+    split = torch.as_tensor(four_step_split(p.line), device=xr.device)
+    xr, xi = xr.reshape(rows, K, M), xi.reshape(rows, K, M)
+    out_r = torch.empty(rows, M, K, device=xr.device)
+    out_i = torch.empty(rows, M, K, device=xr.device)
+    n = torch.arange(M, device=xr.device)
+    for h in range(K):
+        yr, yi = xr[:, 0].clone(), xi[:, 0].clone()
+        for j in range(1, K):
+            w = split[((j * h) % K) * M]
+            tr, ti = _cmul(xr[:, j], xi[:, j], w[0], w[1])
+            yr, yi = yr + tr, yi + ti
+        if h:
+            w = split[n * h]
+            yr, yi = _cmul(yr, yi, w[:, 0], w[:, 1])
+        out_r[..., h], out_i[..., h] = fft_plain(yr, yi)
+    return out_r.reshape(rows, -1), out_i.reshape(rows, -1)
+
+
+def _inter_pass_twiddle(n: int, device) -> tuple:
+    """W_N^(n2 k1) as (N2, N1) float32 planes, as the kernel forms it: the
+    product coarse[e // N1] fine[e % N1] (e = n2 k1) at each column n2 a
+    multiple of 4, times fine[k1] = W_N^k1 once for each column after it
+    (the 4 columns of a 16-byte vector of the scratch)."""
+    p1, p2 = four_step_plan(n)
+    n1, n2 = p1.line, p2.line
+    fine, coarse = (torch.as_tensor(t, device=device)
+                    for t in four_step_twiddles(n))
+    k1 = torch.arange(n1, device=device)
+    e = (torch.arange(0, n2, 4, device=device)[:, None] * k1[None, :])
+    f, c = fine[e % n1], coarse[e // n1]
+    wr = c[..., 0] * f[..., 0] - c[..., 1] * f[..., 1]
+    wi = c[..., 0] * f[..., 1] + c[..., 1] * f[..., 0]
+    sr, si = fine[k1, 0], fine[k1, 1]
+    cols_r, cols_i = [wr], [wi]
+    for _ in range(3):
+        wr, wi = _cmul(wr, wi, sr, si)
+        cols_r.append(wr)
+        cols_i.append(wi)
+    return (torch.stack(cols_r, 1).reshape(n2, n1),
+            torch.stack(cols_i, 1).reshape(n2, n1))
+
+
 def four_step_model(re: torch.Tensor, im: torch.Tensor, *,
                     inverse: bool = False, twiddle: bool = True) -> tuple:
     """The four-step decomposition the kernel runs past `ROW_MAX_N`, in
     plain PyTorch on float32 planes of any device: column transforms of N1
-    points (`fft_plain`), the inter-pass factor W_N^(n2 k1) as the
-    kernel's product of `four_step_twiddles` (left out with ``twiddle=
-    False``, a wrong transform the checks must flag), row transforms of N2
-    points and the transposed store; the inverse through the swap
-    ifft(x) = swap(fft(swap(x))) / N, as in the kernel."""
+    points and row transforms of N2 (each as `_line_transform`: the
+    cluster's radix-K step, then its M-point transforms), the inter-pass
+    factor W_N^(n2 k1) between them as the kernel forms it from
+    `four_step_twiddles` (`_inter_pass_twiddle`; left out with
+    ``twiddle=False``, a wrong
+    transform the checks must flag), and the transposed store; the
+    inverse through the swap ifft(x) = swap(fft(swap(x))) / N, as in the
+    kernel."""
     R, n = re.shape
-    n1, n2 = four_step_plan(n)
+    p1, p2 = four_step_plan(n)
+    n1, n2 = p1.line, p2.line
     a, b = (im, re) if inverse else (re, im)
     # pass 1: column n2 holds x[N2 n1 + n2]
-    cr, ci = fft_plain(a.float().reshape(R, n1, n2).transpose(1, 2)
-                       .reshape(R * n2, n1),
-                       b.float().reshape(R, n1, n2).transpose(1, 2)
-                       .reshape(R * n2, n1))
+    cr, ci = _line_transform(a.float().reshape(R, n1, n2).transpose(1, 2)
+                             .reshape(R * n2, n1),
+                             b.float().reshape(R, n1, n2).transpose(1, 2)
+                             .reshape(R * n2, n1), p1)
     if twiddle:
-        fine, coarse = (torch.as_tensor(t, device=re.device)
-                        for t in four_step_twiddles(n))
-        e = torch.arange(n2, device=re.device)[:, None] * \
-            torch.arange(n1, device=re.device)[None, :]
-        f, c = fine[e % n1], coarse[e // n1]
-        wr = c[..., 0] * f[..., 0] - c[..., 1] * f[..., 1]
-        wi = c[..., 0] * f[..., 1] + c[..., 1] * f[..., 0]
+        wr, wi = _inter_pass_twiddle(n, re.device)
         cr, ci = cr.reshape(R, n2, n1), ci.reshape(R, n2, n1)
         cr, ci = cr * wr - ci * wi, cr * wi + ci * wr
     # pass 2: row k1 holds scratch[k1 N2 + n2]; point k2 goes to k1 + N1 k2
-    rr, ri = fft_plain(cr.reshape(R, n2, n1).transpose(1, 2)
-                       .reshape(R * n1, n2),
-                       ci.reshape(R, n2, n1).transpose(1, 2)
-                       .reshape(R * n1, n2))
+    rr, ri = _line_transform(cr.reshape(R, n2, n1).transpose(1, 2)
+                             .reshape(R * n1, n2),
+                             ci.reshape(R, n2, n1).transpose(1, 2)
+                             .reshape(R * n1, n2), p2)
     rr = rr.reshape(R, n1, n2).transpose(1, 2).reshape(R, n)
     ri = ri.reshape(R, n1, n2).transpose(1, 2).reshape(R, n)
     if inverse:
@@ -236,8 +334,8 @@ def fft_plain(re: torch.Tensor, im: torch.Tensor, *,
 
 def default_block_rows(n: int) -> int:
     """Rows per block: 128 threads' worth (one row of N/16 threads from N =
-    2048; 1 past `ROW_MAX_N`, where the four-step's blocks take lines of
-    their own). At N = 256, 4 and 8 rows ran as fast as 16 and 32 over
+    2048; 1 past `ROW_MAX_N`, where the four-step's blocks take tiles of
+    lines of their own). At N = 256, 4 and 8 rows ran as fast as 16 and 32 over
     359,997 rows and 2-4% faster over 10,797 (tools/fft_variants.py on an
     H100)."""
     return max(1, 128 // threads_per_row(n))
@@ -260,7 +358,8 @@ def fft_cuda(re: torch.Tensor, im: torch.Tensor, *, inverse: bool = False,
     `default_block_rows`); a block has ``block_rows x threads_per_row(N)``
     threads, at most 512. Past it, up to `MAX_N`, the four-step transform
     in two launches through a float32 scratch of the planes' size, whose
-    blocks take 8192 points of lines whatever ``block_rows`` says."""
+    blocks take tiles of lines (`four_step_plan`) whatever ``block_rows``
+    says."""
     re, im, n = _check(re, im)
     _cuda.check_cuda_input(re, tuple(DTYPES))
     if im.device != re.device:
@@ -271,7 +370,7 @@ def fft_cuda(re: torch.Tensor, im: torch.Tensor, *, inverse: bool = False,
     if block_rows is not None and block_rows < 1:
         raise ValueError(f"block_rows {block_rows} must be positive")
     if n > ROW_MAX_N:
-        return _four_step(re.contiguous(), im.contiguous(), inverse)
+        return _four_step(_aligned(re, n), _aligned(im, n), inverse)
     if block_rows is not None and \
             block_rows * threads_per_row(n) > MAX_THREADS:
         raise ValueError(f"block_rows {block_rows} of N={n} take "

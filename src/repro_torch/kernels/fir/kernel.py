@@ -9,14 +9,17 @@ return the input's dtype: an integer output truncated toward zero and
 saturated at its range (`cast_output`, the reference's ``astype``).
 
 Both take any tap count and the reference's real dtypes: float64 and
-int64 become float32 and int32 first, as the reference's arrays are with
-64-bit types off. The kernel takes float32, bfloat16, float16, int8,
-uint8, int16 and int32 rows (`DTYPES`); it stages more than 64 taps a
-chunk at a time (`fir.cu`'s ``kTapChunk``); its shared memory (the tile,
-its k - 1 halo and, past 64 taps, the tile's partial sums) bounds k at
-about 54,000 taps at a 2048-sample tile. The kernel repeats the plain
-version's float32 operations in its order without FMA, so the two agree
-bitwise.
+int64 become float32 and int32 first (`staged_signal`), as the
+reference's arrays are with 64-bit types off. The kernel takes float32,
+bfloat16, float16, int8, uint8, int16 and int32 rows (`DTYPES`). Up to
+`TAP_CHUNK` taps each thread computes one output at a time; past them
+each owns `OUTPUTS` consecutive outputs, their sums in registers over the
+whole tap loop, on tiles of at most `REGISTER_TILE` samples
+(`register_layout`: the taps that fit in shared memory beside the tile
+stay there, all of them up to 27,872 at a 2048-sample tile, more are
+staged a chunk at a time). Shared memory bounds k at 55,824 taps at a
+2048-sample tile. The kernel repeats the plain version's float32
+operations in its order without FMA, so the two agree bitwise.
 """
 from __future__ import annotations
 
@@ -26,15 +29,18 @@ from pathlib import Path
 import torch
 
 from repro_torch.core.fir import fir_direct
-from repro_torch.kernels import _cuda, cast_output
+from repro_torch.kernels import _cuda, cast_output, staged_signal
 
 __all__ = ["fir_plain", "fir_cuda", "default_block_rows", "DTYPES",
-           "TAP_CHUNK"]
+           "TAP_CHUNK", "OUTPUTS", "REGISTER_TILE", "register_layout"]
 
 # the row dtypes the kernel takes, and their codes in the source
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
           torch.int8: 3, torch.uint8: 4, torch.int16: 5, torch.int32: 6}
-TAP_CHUNK = 64          # taps a block stages at once (kTapChunk)
+TAP_CHUNK = 64          # the one-output loop's taps (kTapChunk)
+OUTPUTS = 16            # outputs a thread owns past them (kOutputs)
+THREADS = 256           # the kernel's launch bound (kThreads)
+REGISTER_TILE = THREADS * OUTPUTS   # the most samples a tile takes there
 BLOCK_SAMPLES = 4096    # default samples per block: rows of one tile
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
@@ -46,8 +52,24 @@ _cuda.declare("fir", Path(__file__).resolve().parent / "csrc" / "fir.cu",
 })
 
 
-# 64-bit inputs narrow as the reference's arrays do with 64-bit types off
-_NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
+def register_layout(tile: int, k: int) -> dict:
+    """The register path's shared layout for a ``tile`` and k > `TAP_CHUNK`
+    taps, as `fir.cu` computes it: the tile it takes (at most
+    `REGISTER_TILE`), the lead that puts every window on a row boundary,
+    the pitch of the (`OUTPUTS`, pitch) interleaved tile, the taps kept in
+    shared memory at once (0: not one step fits) and the block's bytes."""
+    t = min(tile, REGISTER_TILE)
+    lead = OUTPUTS + (OUTPUTS - k % OUTPUTS) % OUTPUTS
+    pitch = -(-t // OUTPUTS) + (k + lead) // OUTPUTS
+    pitch += (2 - pitch) % 32
+    window = 4 * OUTPUTS * pitch
+    room = (_cuda.MAX_SMEM_BYTES - window) // 4 // OUTPUTS * OUTPUTS
+    want = -(-k // OUTPUTS) * OUTPUTS
+    capacity = 0 if room < OUTPUTS else min(want, room)
+    smem = window + 4 * (capacity or OUTPUTS) + \
+        (0 if capacity else _cuda.MAX_SMEM_BYTES)
+    return {"tile": t, "lead": lead, "pitch": pitch, "capacity": capacity,
+            "smem": smem}
 
 
 def _check(x: torch.Tensor, taps) -> tuple:
@@ -61,7 +83,7 @@ def _check(x: torch.Tensor, taps) -> tuple:
     if taps.ndim != 1 or taps.shape[0] < 1:
         raise ValueError(f"taps must be (k,) with k >= 1, got "
                          f"{tuple(taps.shape)}")
-    return x.to(_NARROW.get(x.dtype, x.dtype)), taps.contiguous()
+    return staged_signal(x), taps.contiguous()
 
 
 def fir_plain(x: torch.Tensor, taps) -> torch.Tensor:
@@ -83,7 +105,8 @@ def fir_cuda(x: torch.Tensor, taps, *, seq_block: int = 2048,
     """Launch the FIR kernel over the rows of a CUDA (R, S) array of one
     of `DTYPES` (float64 and int64 narrowed first). A block filters
     ``block_rows`` rows of one ``seq_block``-sample tile (default: as many
-    rows as fill `BLOCK_SAMPLES`)."""
+    rows as fill `BLOCK_SAMPLES`); past `TAP_CHUNK` taps a tile is at most
+    `REGISTER_TILE` samples."""
     x, taps = _check(x, taps)
     _cuda.check_cuda_input(x, tuple(DTYPES))
     if seq_block < 1 or (block_rows is not None and block_rows < 1):

@@ -30,8 +30,8 @@ does; ``filtered`` keeps the signal's dtype, through `cast_output` (in
 `repro_torch.kernels`, shared with the FIR): an integer ``filtered``
 is truncated toward zero and saturated at its dtype's range, as the
 reference's ``astype`` stores it. A float64 signal is narrowed to float32
-at every entry (`staged_signal`), as the reference's ``jnp.asarray``
-makes it with x64 off.
+and an int64 one to int32 at every entry (`staged_signal`), as the
+reference's ``jnp.asarray`` makes them with x64 off.
 """
 from __future__ import annotations
 

@@ -119,8 +119,8 @@ def frame_signal(signal, window: int, hop: int) -> torch.Tensor:
 
 def stream_signal(signal, device) -> torch.Tensor:
     """``signal`` as a 1-D tensor on ``device``, the stream entries' input.
-    float64 becomes float32, as the reference's ``jnp.asarray`` makes it
-    with x64 off; any other dtype is kept."""
+    float64 becomes float32 and int64 int32, as the reference's
+    ``jnp.asarray`` makes them with x64 off; any other dtype is kept."""
     sig = staged_signal(torch.as_tensor(signal))
     if sig.ndim != 1:
         raise ValueError(f"signal must be 1-D, got {tuple(sig.shape)}")

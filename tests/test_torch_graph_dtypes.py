@@ -20,7 +20,9 @@ What is compared, and why:
   `tests/test_torch_pipeline.py` and `tests/test_torch_asr.py`.
 A float64 signal: the reference's ``jnp.asarray`` narrows it to float32
 with x64 off, so every direct `graph_pipeline*` entry computes on it and
-returns ``filtered`` in float32; the port's entries do the same.
+returns ``filtered`` in float32; the port's entries do the same. An int64
+signal narrows to int32 the same way (its low 32 bits), and ``filtered``
+comes back int32 under the integer rules below.
 Within the port, a 16-bit call equals the float32 call on the widened
 signal bitwise, ``filtered`` rounded to the dtype.
 
@@ -399,3 +401,104 @@ def test_integer_stream_runtimes_equal_one_call(apps):
         assert sorted(got) == sorted(want)
         for k in want:
             assert torch.equal(got[k], want[k]), k
+
+
+# --------------------------------------------------------- int64 signals
+
+def _int64_signal(name: str, hop: int) -> np.ndarray:
+    """A seeded int64 signal of scale 3e9, past int32's range: the
+    reference's ``jnp.asarray`` keeps its low 32 bits (x64 off), so the
+    graphs see an int32 signal over the whole of that range."""
+    n = (N_FRAMES - 1) * hop + WINDOW
+    seed = 5 if name == "biosignal" else 6
+    return np.round(np.random.default_rng(seed).standard_normal(n) * 3e9) \
+        .astype(np.int64)
+
+
+@pytest.fixture(scope="module")
+def int64s(apps):
+    """Per graph: the int64 signal, and the difference of the two
+    packages' float32 filters of its narrowed, widened values."""
+    out = {}
+    for name, hop in GRAPHS.items():
+        japp, app = apps[name]
+        x = _int64_signal(name, hop)
+        wide = x.astype(np.int32).astype(np.float32)
+        jf = np.asarray(jops.graph_pipeline_stream(
+            name, japp, wide, window=WINDOW, hop=hop,
+            outputs=("filtered",))["filtered"])
+        tf = ops.graph_pipeline_stream(
+            name, app, torch.as_tensor(wide), window=WINDOW, hop=hop,
+            outputs=("filtered",))["filtered"].numpy()
+        np.testing.assert_allclose(tf, jf, rtol=0, atol=1e-6 * float(
+            np.abs(jf).max()))
+        out[name] = (x, np.abs(tf.astype(np.float64) - jf))
+    return out
+
+
+@pytest.mark.parametrize("entry", ["stream", "frames", "ring"])
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_int64_entry_narrows_as_the_reference(apps, int64s, name, entry):
+    """int64 in, int32 ``filtered`` out, as the reference stages it: the
+    port's call is its int32 call on the narrowed signal bitwise, and
+    against the reference ``filtered`` follows the integer rule (exact
+    wherever the float32 filters agree), class exactly, features,
+    margin and logmel within the float32 tolerances."""
+    japp, app = apps[name]
+    hop = GRAPHS[name]
+    x, gap = int64s[name]
+    tin = torch.as_tensor(_inputs(name, hop, entry, x))
+    assert tin.dtype == torch.int64
+    want = _call(jops, name, japp, tin.numpy(), hop, entry)
+    got = _call(ops, name, app, tin, hop, entry)
+    assert got["filtered"].dtype == torch.int32
+    assert np.asarray(want["filtered"]).dtype == np.int32
+    narrowed = _call(ops, name, app, tin.to(torch.int32), hop, entry)
+    for k in got:
+        assert torch.equal(got[k], narrowed[k]), k
+    g, w = _flat(got), _flat(want)
+    gf, wf = g.pop("filtered"), w.pop("filtered")
+    diff = np.abs(gf.astype(np.int64) - wf.astype(np.int64))
+    assert (diff <= np.floor(gap) + 1).all(), diff.max()
+    assert not diff[gap == 0].any()
+    assert (gap == 0).mean() > 0.25, name
+    assert_matches(g, w)
+
+
+def test_int64_stream_runtimes_narrow_as_one_call(apps):
+    """The stream runtimes (kernel- and host-framed, the column deal,
+    the resident ring) stage an int64 signal as int32 and give the one
+    int32 call's bits."""
+    _, app = apps["biosignal"]
+    x = torch.as_tensor(np.concatenate([_int64_signal("biosignal", 128)]
+                                       * 3))
+    want = ops.app_pipeline_stream(app, x.to(torch.int32), window=WINDOW,
+                                   hop=128)
+    assert want["filtered"].dtype == torch.int32
+    cfg = StreamConfig(window=WINDOW, hop=128, batch_windows=4)
+    runs = [BiosignalStream(app, cfg),
+            BiosignalStream(app, StreamConfig(window=WINDOW, hop=128,
+                                              batch_windows=4,
+                                              framing="host")),
+            BiosignalStream(app, StreamConfig(window=WINDOW, hop=128,
+                                              batch_windows=2, n_columns=3,
+                                              column_weights=(1, 0, 2))),
+            ResidentStream(app, cfg, ResidentConfig(ring_depth=2))]
+    for run in runs:
+        got = run.process(x)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    got = ops.app_pipeline_stream(app, x, window=WINDOW, hop=128,
+                                  n_columns=4, column_weights=(1, 1, 2, 4))
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_staged_signal_narrows_int64_to_its_low_32_bits():
+    x = np.array([3_000_000_000, -3_000_000_000, 2**31, -2**31 - 1, 7],
+                 np.int64)
+    got = staged_signal(torch.as_tensor(x))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), x.astype(np.int32))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jnp.asarray(x)))

@@ -46,9 +46,9 @@ from repro_torch.core.biosignal import make_app, synthetic_respiration
 from repro_torch.core.fir import lowpass_taps
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.fft.kernel import (FFT_TOL, fft_cuda, fft_plain,
-                                            four_step_model, four_step_table,
-                                            stockham_plan, stockham_table,
-                                            threads_per_row)
+                                            four_step_model, four_step_plan,
+                                            four_step_table, stockham_plan,
+                                            stockham_table, threads_per_row)
 from repro_torch.kernels.fft import kernel as fft_kernel
 from repro_torch.kernels.fir import kernel as fir_kernel
 from repro_torch.kernels.fir.kernel import fir_cuda, fir_plain
@@ -732,23 +732,23 @@ def test_graph_kernels_take_8bit_signals_on_card(card, name, dtype,
 
 @pytest.mark.cuda
 def test_graph_kernels_refuse_other_dtypes_on_card(card):
-    """What the launchers still refuse, before any launch: uint16 and
-    int64 signals (the reference takes neither as such: uint16 is queued,
-    int64 it narrows to int32); float64 is narrowed to float32 by the
-    entries, as the reference's jnp.asarray does, and computes."""
+    """What the launchers still refuse, before any launch: uint16 signals
+    (queued); float64 and int64 are narrowed to float32 and int32 by the
+    entries, as the reference's jnp.asarray does, and compute."""
     operands, graph, sig, window, hop, _ = _graph_case("asr", card)
     _cuda.reset_launches()
-    for dt in (torch.uint16, torch.int64):
-        with pytest.raises(ValueError, match="uint8"):
-            graph_stream_call(sig.to(dt), operands, graph=graph,
-                              window=window, hop=hop)
+    with pytest.raises(ValueError, match="uint8"):
+        graph_stream_call(sig.to(torch.uint16), operands, graph=graph,
+                          window=window, hop=hop)
     assert _cuda.LAUNCHES["asr_graph"]["stream"] == 0
-    got = graph_stream_call(sig.double(), operands, graph=graph,
-                            window=window, hop=hop)
-    want = graph_stream_call(sig, operands, graph=graph, window=window,
-                             hop=hop)
-    for k in want:
-        assert torch.equal(got[k], want[k]), k
+    wide = (sig.double() / sig.abs().max() * 3e9).round().long()
+    for narrow, x in ((sig, sig.double()), (wide.to(torch.int32), wide)):
+        got = graph_stream_call(x, operands, graph=graph, window=window,
+                                hop=hop)
+        want = graph_stream_call(narrow, operands, graph=graph,
+                                 window=window, hop=hop)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
 
 
 # ------------------------------------- the ASR kernel's map, on the CPU
@@ -1537,7 +1537,7 @@ def test_fir_kernel_takes_any_taps_and_dtype_on_card(card, dtype, k):
                                    torch.float16])
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("n,rows", [(16384, 3), (32768, 2), (65536, 2),
-                                    (1 << 20, 1), (1 << 21, 1)])
+                                    (1 << 17, 2), (1 << 20, 1), (1 << 21, 1)])
 def test_fft_four_step_matches_plain_on_card(card, dtype, inverse, n, rows):
     """Past 8192 points: two counted launches, within `FFT_TOL` of the
     plain radix-2 chain."""
@@ -1572,12 +1572,38 @@ def test_fft_tol_flags_the_four_step_without_its_twiddle_on_card(card,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [16384, 1 << 20, 1 << 26])
+@pytest.mark.parametrize("n", [16384, 1 << 17, 1 << 20, 1 << 23, 1 << 24,
+                               1 << 26])
 def test_fft_four_step_binding_agrees_with_the_host_table(card, n):
+    """The table, each pass's cluster and threads as `four_step_plan`
+    gives them, and shared memory a block can take (the skewed, padded
+    planes of 16 sub-lines: 34-135 KB)."""
     lib = _cuda.library("fft")
     assert lib.fft_four_step_table_size(n) == len(four_step_table(n))
-    for p in (0, 1):
-        assert lib.fft_four_step_smem_bytes(n, p) <= _cuda.MAX_SMEM_BYTES
+    for p, plan in enumerate(four_step_plan(n)):
+        assert lib.fft_four_step_cluster(n, p) == plan.cluster
+        assert lib.fft_four_step_threads(n, p) == plan.threads
+        smem = lib.fft_four_step_smem_bytes(n, p)
+        assert 2 * 4 * 16 * plan.sub < smem <= _cuda.MAX_SMEM_BYTES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1 << 23, 1 << 25])
+def test_fft_four_step_long_sub_lines_on_card(card, n):
+    """The sub-lines of 512 (2^23's columns) and 1024 points (2^25's
+    columns, two sweeps of 512 threads), clusters of 8, float32 both
+    ways, within `FFT_TOL` of the plain radix-2 chain."""
+    g = torch.Generator(device=card).manual_seed(n)
+    re = torch.randn(1, n, generator=g, device=card)
+    im = torch.randn(1, n, generator=g, device=card)
+    for inverse in (False, True):
+        _cuda.reset_launches()
+        got = fft_cuda(re, im, inverse=inverse)
+        assert _cuda.LAUNCHES["fft"] == {"rows": 0, "four_step_columns": 1,
+                                         "four_step_rows": 1}
+        _fft_close(got, fft_plain(re, im, inverse=inverse), torch.float32)
+    fft_kernel.device_twiddles.cache_clear()
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda
@@ -1662,3 +1688,161 @@ def test_tuned_calls_equal_untuned_on_card(card):
     log = autotune.search_log()
     assert log and all(v["clock"] == "cuda" for v in log.values())
     autotune.clear_cache()
+
+
+# ------------------------------- the FIR's register path, its edges
+
+def _largest_taps(tile: int) -> int:
+    """The most taps `fir_cuda` takes at ``tile`` (`register_layout`:
+    the tile and its halo beside one step of taps)."""
+    lo, hi = fir_kernel.TAP_CHUNK + 1, 1 << 17
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if fir_kernel.register_layout(tile, mid)["smem"] <= \
+                _cuda.MAX_SMEM_BYTES:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def test_fir_largest_taps_is_the_shared_memory_bound():
+    k = _largest_taps(2048)
+    assert 50_000 < k < 60_000
+    assert fir_kernel.register_layout(2048, k)["capacity"] >= \
+        fir_kernel.OUTPUTS
+    assert fir_kernel.register_layout(2048, k + 1)["capacity"] == 0
+    # all taps in shared memory up to tens of thousands at a 2048 tile
+    assert fir_kernel.register_layout(2048, 4096)["capacity"] == 4096
+    assert fir_kernel.register_layout(2048, 20_000)["capacity"] == 20_000
+    assert 0 < fir_kernel.register_layout(2048, k)["capacity"] < k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,k", [(2048, 65), (2048, 80), (1000, 255),
+                                    (4096, 2048), (64, 60_000), (5000, 300)])
+def test_fir_binding_agrees_with_the_host_layout(card, tile, k):
+    lib = _cuda.library("fir")
+    assert lib.fir_smem_bytes(tile, k) == \
+        fir_kernel.register_layout(tile, k)["smem"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("k", [65, 64 + 16, 127, 4096, "largest"])
+@pytest.mark.parametrize("shape,seq_block", [
+    ((3, 5000), 2048),     # rows of 2.4 tiles
+    ((2, 1000), 2048),     # a row that is not a multiple of 16 outputs
+    ((4, 13), 2048),       # rows shorter than a thread's 16 outputs
+    ((2, 3001), 1000),     # a tile edge inside a thread's outputs
+    ((1, 9000), 8192)])    # a tile past the 4096-sample register tile
+def test_fir_register_path_edges_on_card(card, dtype, k, shape, seq_block):
+    """Past 64 taps, where each thread owns 16 outputs: tap counts about
+    the register step (65, 80, 127), all taps in shared memory (4096) and
+    the most that fit beside the tile (staged a chunk at a time), ragged
+    rows and tiles; bitwise the plain version."""
+    if k == "largest":
+        k = _largest_taps(min(seq_block, shape[1], fir_kernel.REGISTER_TILE))
+        if shape[0] * shape[1] > 10_000:
+            pytest.skip("the plain version's 55,000 taps: one small case")
+    x = _fir_rows(shape, dtype, card, seed=shape[1])
+    taps = torch.randn(k, generator=torch.Generator().manual_seed(k)) / \
+        k ** 0.5
+    _cuda.reset_launches()
+    got = fir_cuda(x, taps, seq_block=seq_block)
+    assert _cuda.LAUNCHES["fir"]["rows"] == 1
+    assert torch.equal(got, fir_plain(x, taps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["biosignal", "asr"])
+def test_int64_signals_run_the_int32_kernels_on_card(card, name):
+    """An int64 signal past int32's range at every graph entry and the
+    FIR: narrowed to its low 32 bits where it is staged, as the
+    reference's jnp.asarray narrows it, then bitwise the int32 kernel's
+    on the narrowed signal (filtered int32)."""
+    operands, graph, sig, window, hop, _ = _graph_case(name, card)
+    x = (sig.double() / sig.abs().max() * 3e9).round().long()
+    assert x.dtype == torch.int64 and int(x.abs().max()) > 2 ** 31
+    x32 = x.to(torch.int32)
+    kw = dict(graph=graph)
+    frames = frame_signal(x, window, hop)
+    bw = 4
+    depth = min(3, frames.shape[0] // bw)
+    span, stride = ring_chunk_samples(window, hop, bw), bw * hop
+    ring = x[: (depth - 1) * stride + span].as_strided((depth, span),
+                                                       (stride, 1))
+    for call, a, b in (
+            (lambda s: graph_stream_call(s, operands, window=window, hop=hop,
+                                         **kw), x, x32),
+            (lambda f: graph_frames_call(f, operands, **kw), frames,
+             frames.to(torch.int32)),
+            (lambda r: graph_ring_call(r, operands, window=window, hop=hop,
+                                       **kw), ring, ring.to(torch.int32))):
+        got, want = call(a), call(b)
+        assert got["filtered"].dtype == torch.int32
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    taps = torch.as_tensor(lowpass_taps(11), device=card)
+    assert torch.equal(fir_cuda(x[None], taps), fir_cuda(x32[None], taps))
+
+
+def fir_register_walk(x: np.ndarray, taps: np.ndarray, seq_block: int,
+                      capacity: int | None = None) -> np.ndarray:
+    """`fir.cu`'s register path in numpy float32: each tile's samples from
+    k - 1 before it staged at sigma = s + lead into the (16, pitch)
+    interleaved tile (NaN where nothing is staged), thread g's 16 sums
+    over windows of 31 samples starting at column g + a - j0 / 16, taps a
+    staged chunk at a time (``capacity``: `register_layout`'s unless
+    given), each sum's taps in order, multiply then add, rounded as
+    float32."""
+    R, S = x.shape
+    k = len(taps)
+    lay = fir_kernel.register_layout(seq_block, k)
+    V, tile = fir_kernel.OUTPUTS, min(lay["tile"], S)
+    lead, pitch = lay["lead"], lay["pitch"]
+    cap = capacity or lay["capacity"]
+    a = (k + lead) // V - 1
+    y = np.zeros((R, S), np.float32)
+    m = np.arange(2 * V - 1)
+    for t0 in range(0, S, tile):
+        n = min(tile, S - t0)
+        groups = -(-n // V)
+        for r in range(R):
+            s = np.full(V * pitch, np.nan, np.float32)
+            i = np.arange(n + k - 1)
+            src = t0 - (k - 1) + i
+            sigma = i + lead
+            s[(sigma % V) * pitch + sigma // V] = np.where(
+                src >= 0, x[r, np.maximum(src, 0)], 0)
+            acc = np.zeros((groups, V), np.float32)
+            g = np.arange(groups)[:, None]
+            for c0 in range(0, k, cap):
+                kt = min(cap, k - c0)
+                for jj in range(0, kt, V):
+                    col = g + a - c0 // V - jj // V
+                    w = s[(m % V) * pitch + col + m // V]      # (groups, 31)
+                    for u in range(min(V, kt - jj)):
+                        t = np.float32(taps[c0 + jj + u])
+                        acc = acc + t * w[:, V - 1 - u: 2 * V - 1 - u]
+            y[r, t0: t0 + n] = acc.reshape(-1)[:n]
+    return y
+
+
+@pytest.mark.parametrize("k,shape,seq_block,capacity", [
+    (65, (2, 300), 2048, None), (80, (2, 1000), 128, None),
+    (127, (3, 13), 2048, None), (255, (2, 3001), 1000, None),
+    (200, (2, 700), 512, 48), (129, (1, 9000), 8192, 32)])
+def test_fir_register_walk_through_gives_the_plain_filter(k, shape,
+                                                          seq_block,
+                                                          capacity):
+    """The register path's layout and windows, walked through in numpy,
+    give `fir_plain`'s float32 output bitwise (the tile's unstaged words
+    are NaN, so a window that reached past the staged samples would show
+    in a stored output), also with the taps staged a few steps a chunk."""
+    rng = np.random.default_rng(k)
+    x = rng.standard_normal(shape).astype(np.float32)
+    taps = (rng.standard_normal(k) / np.sqrt(k)).astype(np.float32)
+    got = fir_register_walk(x, taps, seq_block, capacity)
+    want = fir_plain(torch.as_tensor(x), torch.as_tensor(taps)).numpy()
+    np.testing.assert_array_equal(got, want)

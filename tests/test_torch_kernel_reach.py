@@ -30,9 +30,11 @@ What is compared, and why:
   `tests/test_torch_graph_dtypes.py` for int16 and int32.
 
 The last section walks the FFT kernel's four-step transform (N past
-8192) through in numpy with the kernel's own line, block and address
-arithmetic and its host table, against `fft_plain`, so that a fault in
-that arithmetic shows without a card.
+8192) through in numpy with the kernel's own tile, cluster, block and
+address arithmetic and its host table, against `fft_plain`, so that a
+fault in that arithmetic shows without a card; the same arithmetic shows
+that every point is read and written once and that every strided global
+access moves runs of at least 32 bytes, from 2^14 to 2^26 points.
 """
 import re
 from pathlib import Path
@@ -54,9 +56,11 @@ from repro.kernels.rope.ops import rope as j_rope
 from repro_torch.core.biosignal import app_from_numpy
 from repro_torch.kernels import cast_output
 from repro_torch.kernels.fft import ops as fft_ops
-from repro_torch.kernels.fft.kernel import (FFT_TOL, MAX_N, ROW_MAX_N,
+from repro_torch.kernels.fft.kernel import (FFT_TOL, FOUR_STEP_BLOCK_POINTS,
+                                            FOUR_STEP_LINES, MAX_CLUSTER,
+                                            MAX_N, MAX_THREADS, ROW_MAX_N,
                                             four_step_model, four_step_plan,
-                                            four_step_table,
+                                            four_step_split, four_step_table,
                                             four_step_twiddles, fft_plain,
                                             stockham_table)
 from repro_torch.kernels.fir import ops as fir_ops
@@ -433,26 +437,48 @@ def _cu_const(name: str) -> int:
                          _FFT_CU.read_text()).group(1))
 
 
-@pytest.mark.parametrize("n,plan", [(16384, (128, 128)),
-                                    (32768, (256, 128)),
-                                    (1 << 20, (1024, 1024)),
-                                    (1 << 21, (2048, 1024)),
-                                    (1 << 26, (8192, 8192))])
+@pytest.mark.parametrize("n,plan", [
+    (16384, ((128, 1, 128, 128), (128, 1, 128, 128))),
+    (32768, ((256, 1, 256, 256), (128, 1, 128, 128))),
+    (1 << 17, ((512, 2, 256, 256), (256, 1, 256, 256))),
+    (1 << 20, ((1024, 4, 256, 256), (1024, 4, 256, 256))),
+    (1 << 21, ((2048, 8, 256, 256), (1024, 4, 256, 256))),
+    (1 << 24, ((4096, 8, 512, 512), (4096, 8, 512, 512))),
+    (1 << 26, ((8192, 8, 1024, 512), (8192, 8, 1024, 512)))])
 def test_four_step_plan(n, plan):
-    assert four_step_plan(n) == plan
-    n1, n2 = plan
-    assert n1 * n2 == n and n2 <= n1 <= ROW_MAX_N
+    """(line, cluster, sub-line, threads) of each pass: lines of N1 then
+    N2 points, a tile of 16 lines over clusters of blocks of at least
+    4096 points, at most 8 blocks."""
+    got = four_step_plan(n)
+    assert tuple(tuple(p) for p in got) == plan
+    p1, p2 = got
+    assert p1.line * p2.line == n and p2.line <= p1.line <= ROW_MAX_N
+    for p in got:
+        assert p.cluster * p.sub == p.line and p.cluster <= MAX_CLUSTER
+        assert FOUR_STEP_LINES * p.sub >= min(FOUR_STEP_BLOCK_POINTS,
+                                              FOUR_STEP_LINES * p.line)
+
+
+def test_one_2p20_row_fills_the_card():
+    """One row of 2^20 points: each pass launches 256 blocks, two for
+    each of the H100's 132 SMs (blocks of 8192 points made 128)."""
+    for p in four_step_plan(1 << 20):
+        blocks = (1 << 20) // (FOUR_STEP_LINES * p.sub)
+        assert blocks == 256 and blocks >= 132
 
 
 def test_four_step_bounds_match_the_source():
     assert ROW_MAX_N == 1 << _cu_const("kMaxLog")
     assert MAX_N == 1 << _cu_const("kMaxFourStepLog")
-    assert _cu_const("kFourStepPoints") == ROW_MAX_N
+    assert FOUR_STEP_LINES == _cu_const("kFourStepLines")
+    assert FOUR_STEP_BLOCK_POINTS == _cu_const("kFourStepBlockPoints")
+    assert MAX_CLUSTER == _cu_const("kMaxCluster")
+    assert MAX_THREADS == _cu_const("kMaxThreads")
 
 
 @pytest.mark.parametrize("n", [1 << 14, 1 << 20, 1 << 26])
 def test_four_step_twiddles_are_float64_cast_once(n):
-    n1, n2 = four_step_plan(n)
+    n1, n2 = (p.line for p in four_step_plan(n))
     fine, coarse = four_step_twiddles(n)
     j = np.arange(n1)
     np.testing.assert_array_equal(fine[:, 0], np.cos(-2 * np.pi * j / n)
@@ -462,6 +488,12 @@ def test_four_step_twiddles_are_float64_cast_once(n):
     j = np.arange(n2)
     np.testing.assert_array_equal(coarse[:, 0], np.cos(-2 * np.pi * j * n1 /
                                                        n).astype(np.float32))
+    for line in (n1, n2):
+        j = np.arange(line)
+        np.testing.assert_array_equal(
+            four_step_split(line), np.stack(
+                [np.cos(-2 * np.pi * j / line), np.sin(-2 * np.pi * j / line)],
+                axis=-1).astype(np.float32))
     # the product W_N^e = coarse[e // N1] fine[e % N1] over a sample of e,
     # against float64: two roundings of 2^-24 each, and the product's
     e = np.random.default_rng(0).integers(0, n, 4096)
@@ -469,62 +501,270 @@ def test_four_step_twiddles_are_float64_cast_once(n):
     assert np.abs(w - np.exp(-2j * np.pi * e / n)).max() < 4e-7
 
 
+# The kernel's address arithmetic (fft.cu, four_step_kernel), in numpy.
+# A pass is 2^(lg_k + lg_o - 4) blocks a row, block b the rank h = b mod
+# K of the cluster of tile b >> lg_k; the tile is the 16 lines c0 .. c0 +
+# 15 of row r. Thread t's access v is q = t + threads v.
+
+def _lg(x: int) -> int:
+    return x.bit_length() - 1
+
+
+def _geometry(n: int, second: bool) -> tuple:
+    """(pass plan, lg L, lg K, lg M, lg of the other factor)."""
+    p = four_step_plan(n)[int(second)]
+    lg = _lg(n)
+    lg_o = (lg + 1) // 2 if second else lg // 2
+    return p, _lg(p.line), _lg(p.cluster), _lg(p.sub), lg_o
+
+
+def _blocks(R: int, n: int, second: bool, blocks=None) -> tuple:
+    """(block, h, c0, base) of every block of the pass (or of ``blocks``),
+    each (B, 1, 1)."""
+    p, lg_l, lg_k, _, lg_o = _geometry(n, second)
+    lg_tiles = lg_o - _lg(FOUR_STEP_LINES)
+    b = np.arange(R << (lg_k + lg_tiles)) if blocks is None else \
+        np.asarray(blocks)
+    tile = b >> lg_k
+    c0 = (tile & ((1 << lg_tiles) - 1)) << _lg(FOUR_STEP_LINES)
+    base = (tile >> lg_tiles) << (lg_l + lg_o)
+    return tuple(a.reshape(-1, 1, 1).astype(np.int64)
+                 for a in (b, b & (p.cluster - 1), c0, base))
+
+
+def _q(p, per_thread: int) -> np.ndarray:
+    """q = t + threads v as (per_thread, threads)."""
+    return np.arange(p.threads)[None, :] + \
+        p.threads * np.arange(per_thread)[:, None]
+
+
+def four_step_units(n: int, R: int, second: bool, blocks=None) -> tuple:
+    """Each thread's units of the pass's load: (line c, point n), each
+    (B, units, threads), and the unit's width VU. Block h owns the points
+    n of h M / K .. (h + 1) M / K - 1 and loads n + m M (m < K) of the VU
+    lines c .. c + VU - 1: pass 1 VU of C consecutive columns at a point,
+    pass 2 a line at consecutive n across the warp."""
+    p, lg_l, lg_k, lm, lg_o = _geometry(n, second)
+    _, h, _, _ = _blocks(R, n, second, blocks)
+    C, M, K = FOUR_STEP_LINES, p.sub, p.cluster
+    nb = M // K
+    vu = 2 if K >= 8 else 4
+    q = _q(p, C * nb // vu // p.threads)[None]
+    if not second:
+        lv = _lg(C // vu)
+        c, pt = (q & ((1 << lv) - 1)) * vu, q >> lv
+    else:
+        c, pt = (q >> _lg(nb)) * vu, q & (nb - 1)
+    return c + 0 * h, h * nb + pt, vu
+
+
+def four_step_element(n: int, R: int, second: bool, c, pt, m: int,
+                      blocks=None):
+    """The element index of line c's point pt + m M of the block's tile."""
+    p, lg_l, _, _, lg_o = _geometry(n, second)
+    _, _, c0, base = _blocks(R, n, second, blocks)
+    point = pt + m * p.sub
+    if not second:
+        return base + (point << lg_o) + c0 + c
+    return base + _scratch_index(c0 + c, point, lg_o)
+
+
+def _scratch_index(k1, n2, lg_n1: int):
+    """The scratch's (16-point, 16-line) tiles: (k1, n2) at ((n2 >> 4)
+    N1 + k1) 16 + (n2 & 15)."""
+    return (((n2 >> 4) << lg_n1) + k1) * 16 + (n2 & 15)
+
+
+def four_step_in(n: int, R: int, second: bool, blocks=None) -> tuple:
+    """Each access of the pass's load in the kernel's order (unit, share
+    m, and in pass 2 line e of the unit): (first element g (B, steps,
+    threads), elements an access): pass 1 a vector of VU columns, pass 2
+    one float of a line."""
+    c, pt, vu = four_step_units(n, R, second, blocks)
+    K = four_step_plan(n)[int(second)].cluster
+    steps = []
+    for u in range(c.shape[1]):
+        for m in range(K):
+            for e in (range(vu) if second else (0,)):
+                steps.append(four_step_element(
+                    n, R, second, c[:, u:u + 1] + e, pt[:, u:u + 1], m,
+                    blocks))
+    return np.concatenate(steps, axis=1), (1 if second else vu)
+
+
+def four_step_out(n: int, R: int, second: bool, elem: int,
+                  blocks=None) -> tuple:
+    """Each access of the pass's store: (first element g, line c, point
+    k' of the block's share, k = K k' + h, elements VE): pass 1 to the
+    float32 scratch's tiles (`_scratch_index`), pass 2 to the
+    ``elem``-byte output at k1 + N1 k2; C consecutive lines a point,
+    16-byte vectors."""
+    p, lg_l, lg_k, lm, lg_o = _geometry(n, second)
+    _, h, c0, base = _blocks(R, n, second, blocks)
+    C, M = FOUR_STEP_LINES, p.sub
+    ve = 16 // (elem if second else 4)
+    lv = _lg(C // ve)
+    q = _q(p, C * M // ve // p.threads)
+    kp, c = q >> lv, (q & ((1 << lv) - 1)) * ve
+    k = (kp << lg_k) + h
+    if not second:
+        return base + _scratch_index(k, c0 + c, lg_l), c, kp, k, ve
+    return base + (k << lg_o) + c0 + c, c, kp, k, ve
+
+
+def _tables(n: int) -> dict:
+    """The host table at the kernel's offsets, as complex arrays."""
+    p1, p2 = four_step_plan(n)
+    table = four_step_table(n) @ np.array([1, 1j])
+    o = len(stockham_table(p1.sub)) + len(stockham_table(p2.sub))
+    out = {}
+    for name, size in (("split1", p1.line), ("split2", p2.line),
+                       ("fine", p1.line), ("coarse", p2.line)):
+        out[name] = table[o: o + size]
+        o += size
+    assert o == len(table)
+    return out
+
+
 def four_step_walk(re: np.ndarray, im: np.ndarray, inverse: bool) -> tuple:
-    """The kernel's two passes in numpy: blocks of 8192 points, LINES =
-    8192 / L lines each, line l of block b the global line L = b LINES +
-    l; the kernel's base, c0 and address arithmetic for every point;
-    line transforms by `fft_plain`; the inter-pass factor from the host
-    table at the kernel's offsets, coarse[e >> lg1] fine[e & (N1 - 1)]."""
+    """The kernel's two passes in numpy: each block's load by the
+    kernel's addresses into its share of its tile's 16 lines, the
+    cluster's radix-K step over its blocks' shares with the table's
+    W_L^j, the M-point transforms by `fft_plain`, and the store by the
+    kernel's addresses (pass 1 times the inter-pass factor coarse[e >>
+    lg N1] fine[e & (N1 - 1)], e = n2 k1, at a vector's first column, and
+    times fine[k1] for each next one); every point read and written
+    once."""
     if inverse:
         re, im = im, re
     R, n = re.shape
-    lg = n.bit_length() - 1
-    lg1, lg2 = (lg + 1) // 2, lg // 2
-    table = four_step_table(n)
-    t1, t2 = len(stockham_table(1 << lg1)), len(stockham_table(1 << lg2))
-    fine = table[t1 + t2: t1 + t2 + (1 << lg1)] @ [1, 1j]
-    coarse = table[t1 + t2 + (1 << lg1):] @ [1, 1j]
-    assert len(coarse) == 1 << lg2
-    points = _cu_const("kFourStepPoints")
+    tab = _tables(n)
     src = (re + 1j * im).astype(np.complex64).ravel()
 
-    def one_pass(data, LG, lg_lines, second):
-        lines = points >> LG
-        n_lines = R << lg_lines
-        L = np.arange(n_lines)[:, None]                # global line
-        line0 = (L // lines) * lines
-        base = (line0 >> lg_lines) << (LG + lg_lines)
-        c0 = line0 & ((1 << lg_lines) - 1)
-        l = L - line0
-        p = np.arange(1 << LG)[None, :]
-        if second:                      # in: q = l L + p past the block's
-            g_in = base + (c0 << LG) + (l << LG) + p
-        else:
-            g_in = base + (p << lg_lines) + c0 + l
-        x = data[g_in]
-        yr, yi = fft_plain(torch.as_tensor(x.real.copy()),
-                           torch.as_tensor(x.imag.copy()))
-        y = (yr.numpy() + 1j * yi.numpy()).astype(np.complex64)
+    def one_pass(data, second):
+        p, lg_l, lg_k, lm, lg_o = _geometry(n, second)
+        C, M, K = FOUR_STEP_LINES, p.sub, p.cluster
+        c, pt, vu = four_step_units(n, R, second)
+        nb = c.shape[0]
+        seen = np.zeros(R * n, int)
+        # each unit's VU lines x K shares, then the radix-K step over the
+        # shares and W_L^(n j)
+        x = np.zeros(c.shape + (vu, K), np.complex64)
+        for e in range(vu):
+            for m in range(K):
+                g = four_step_element(n, R, second, c + e, pt, m)
+                x[..., e, m] = data[g]
+                np.add.at(seen, g.ravel(), 1)
+        assert (seen == 1).all(), "a pass reads every point once"
+        split = tab["split2" if second else "split1"]
+        y = np.fft.fft(x, axis=-1) * split[pt[..., None, None] *
+                                           np.arange(K)]
+        # y_j[n] to block (tile, j) at (line c + e, n): every point once
+        share = np.zeros((nb, C, M), np.complex64)
+        hits = np.zeros((nb, C, M), int)
+        bi = np.arange(nb)[:, None, None]
+        for j in range(K):
+            dest = np.broadcast_to((bi // K) * K + j, c.shape)
+            for e in range(vu):
+                share[dest, c + e, pt] = y[..., e, j]
+                np.add.at(hits, (dest.ravel(), (c + e).ravel(),
+                                 pt.ravel()), 1)
+        assert (hits == 1).all(), "each sub-line point stored once"
+        fr, fi = fft_plain(torch.as_tensor(share.real.reshape(-1, M).copy()),
+                           torch.as_tensor(share.imag.reshape(-1, M).copy()))
+        y = (fr.numpy() + 1j * fi.numpy()).astype(np.complex64) \
+            .reshape(nb, C, M)
+        g, c, kp, k, ve = four_step_out(n, R, second, 4)
+        _, _, c0, _ = _blocks(R, n, second)
         out = np.zeros(R * n, np.complex64)
         hits = np.zeros(R * n, int)
-        if second:
-            g_out = base + c0 + l + (p << lg_lines)
-        else:
-            e = (c0 + l) * p
-            assert e.max() < n
-            y = y * (coarse[e >> LG] * fine[e & ((1 << LG) - 1)])
-            g_out = base + (p << lg_lines) + c0 + l
-        out[g_out] = y
-        np.add.at(hits, g_out.ravel(), 1)
+        if not second:
+            # W_N^(n2 k1) at the vector's first column, then times
+            # fine[k1] = W_N^k1 a column
+            ex = (c0 + c) * k
+            assert ex.max() < n
+            w = (tab["coarse"][ex >> lg_l] *
+                 tab["fine"][ex & ((1 << lg_l) - 1)]).astype(np.complex64)
+        for e in range(ve):
+            v = y[bi, c + e, kp]
+            if not second:
+                if e:
+                    w = (w * tab["fine"][k]).astype(np.complex64)
+                v = v * w
+            out[g + e] = v
+            np.add.at(hits, (g + e).ravel(), 1)
         assert (hits == 1).all(), "a pass writes every point once"
         return out
 
-    mid = one_pass(src, lg1, lg2, False)
-    x = one_pass(mid, lg2, lg1, True).reshape(R, n)
+    mid = one_pass(src, False)
+    x = one_pass(mid, True).reshape(R, n)
     if inverse:
         x = x / n
         return x.imag.astype(np.float32), x.real.astype(np.float32)
     return x.real.astype(np.float32), x.imag.astype(np.float32)
+
+
+@pytest.mark.parametrize("lg", range(14, 27))
+def test_four_step_reads_and_writes_every_point_once(lg):
+    """Over one row of N = 2^14 .. 2^26: each pass's loads read every
+    point once and its stores write every point once, by the kernel's
+    address arithmetic (a bitmap, blocks a chunk at a time)."""
+    n = 1 << lg
+    for second in (False, True):
+        p = four_step_plan(n)[int(second)]
+        nb = n // (FOUR_STEP_LINES * p.sub)
+        for side in (four_step_in, four_step_out):
+            hit = np.zeros(n, bool)
+            count = 0
+            for b0 in range(0, nb, 512):
+                blocks = np.arange(b0, min(nb, b0 + 512))
+                g, *_, ve = side(n, 1, second, blocks) \
+                    if side is four_step_in else side(n, 1, second, 4, blocks)
+                idx = (g[..., None] + np.arange(ve)).ravel()
+                assert idx.min() >= 0 and idx.max() < n
+                hit[idx] = True
+                count += idx.size
+            assert count == n and hit.all(), (lg, second, side.__name__)
+
+
+def _runs(g: np.ndarray, ve: int, elem: int) -> np.ndarray:
+    """Byte lengths of the contiguous runs each warp's access covers
+    (lanes 32 t .. 32 t + 31 of one step v), over g (B, steps, threads)."""
+    lo = (g * elem).reshape(g.shape[0], g.shape[1], -1, 32)
+    lo = np.sort(lo, axis=-1)
+    hi = lo + ve * elem
+    lengths = []
+    for row_lo, row_hi in zip(lo.reshape(-1, 32), hi.reshape(-1, 32)):
+        start, end = row_lo[0], row_hi[0]
+        for a, b in zip(row_lo[1:], row_hi[1:]):
+            if a > end:
+                lengths.append(end - start)
+                start = a
+            end = max(end, b)
+        lengths.append(end - start)
+    return np.array(lengths)
+
+
+@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("lg", range(14, 27))
+def test_four_step_strided_sides_move_32_contiguous_bytes(lg, elem):
+    """Each warp's access on every side -- pass 1's load of the input and
+    store of the scratch, pass 2's load of the scratch and store of the
+    output -- covers runs of at least 32 contiguous bytes of a plane
+    (float32 or a 16-bit type; the scratch is float32). Over the first,
+    a middle and the last block of a pass, and two rows (the address
+    arithmetic is affine in the block)."""
+    n, R = 1 << lg, 2
+    for second in (False, True):
+        p = four_step_plan(n)[int(second)]
+        nb = R * n // (FOUR_STEP_LINES * p.sub)
+        blocks = sorted({0, 1, nb // 2 + 1, nb - 1})
+        g, ve = four_step_in(n, R, second, blocks)
+        runs = _runs(g, ve, 4 if second else elem)
+        assert runs.min() >= 32, (second, runs.min())
+        g, *_, ve = four_step_out(n, R, second, elem, blocks)
+        runs = _runs(g, ve, elem if second else 4)
+        assert runs.min() >= 32, (second, runs.min())
 
 
 @pytest.mark.parametrize("inverse", [False, True])

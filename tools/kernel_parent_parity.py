@@ -12,21 +12,29 @@ The parents are sources with the current C interface of the symbols they
 have (the FFT's and the FIR's launchers, both graph launchers with their
 dtype codes 0-4). Each is built beside the kernel (`kernels._cuda.build`)
 and run through the port's own entries with its library in place of the
-kernel's, on the card:
+kernel's, on the card (the FFT's four-step with the table layout of the
+parent's source, `parent_four_step_table`, where it has no clusters):
 * the FFT at every N from 2 to 8192, float32 and bfloat16, both ways, 61
   rows (301 at N 2), and at `asr_staged`'s shape (359,997 x 256);
 * the FIR in float32 and bfloat16 at 1, 2, 11 and 64 taps on 5 rows of
-  5,000 over 2,048-sample tiles, and at `asr_staged`'s shape (the hour's
-  359,997 x 512 frames, 2 taps);
+  5,000 over 2,048-sample tiles, at 65, 255 and 2048 taps (the register
+  path; both are bitwise the plain version), and at `asr_staged`'s shape
+  (the hour's 359,997 x 512 frames, 2 taps);
 * both graphs on float32, bfloat16, float16, int16 and int32 signals at
   their three entries (the integers near full scale), a stream at an odd
   hop and a ring whose slots start off 16 bytes, and in float32 the whole
   day (window 2048, hop 512) and hour (window 512, hop 160) in one stream
   call, every output.
-Every output must be bitwise the parent's. Then the FFT and FIR at
-`asr_staged`'s shapes and each graph's 8- or 32-frame stream dispatch are
-timed with the parent, the kernel, the kernel and the parent (CUDA events
-behind a device sleep). Needs a CUDA card and nvcc; prints one line a
+Every output must be bitwise the parent's. Then, timed with the parent,
+the kernel, the kernel and the parent (CUDA events behind a device
+sleep): the FFT and FIR at `asr_staged`'s shapes, the FIR at
+`pipeline_staged`'s (the day's 10,797 x 2048 frames, 11 taps) and past 64
+taps over the day's frames (65, 255 and 2048 taps, float32), the
+four-step FFT over one 2^20 row and 64 rows of 2^20 in float32, bfloat16
+and float16 and one row each of 2^24, 2^14 and 2^17 in float32, each with
+max |diff|
+/ max |plain| of both against the plain version, and each graph's 8- or
+32-frame stream dispatch. Needs a CUDA card and nvcc; prints one line a
 group and writes ``build/kernel_parent_parity.json``.
 """
 from __future__ import annotations
@@ -34,6 +42,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import ctypes
+import functools
 import json
 import sys
 from pathlib import Path
@@ -66,6 +75,27 @@ def parent_library(kernel: str, source: Path) -> ctypes.CDLL:
     return lib
 
 
+def parent_four_step_table(n: int):
+    """The four-step table of a source without clusters for N = n: the line
+    transforms' `stockham_table` of N1 = 2^ceil(lg/2) and N2 =
+    2^floor(lg/2) points, then W_N^j (j < N1) and W_N^(j N1) (j < N2),
+    float32 from float64."""
+    import numpy as np
+
+    from repro_torch.kernels.fft.kernel import stockham_table
+
+    lg = n.bit_length() - 1
+    n1, n2 = 1 << (lg + 1) // 2, 1 << lg // 2
+
+    def unit(j, m):
+        ang = -2.0 * np.pi * j / m
+        return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(
+            np.float32)
+    return np.concatenate([stockham_table(n1), stockham_table(n2),
+                           unit(np.arange(n1), n),
+                           unit(np.arange(n2) * n1, n)])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent-dir", type=Path, required=True,
@@ -78,7 +108,8 @@ def main(argv=None) -> int:
     from repro_torch.core.biosignal import make_app, synthetic_respiration
     from repro_torch.core.fir import lowpass_taps
     from repro_torch.kernels import _cuda
-    from repro_torch.kernels.fft.kernel import fft_cuda
+    from repro_torch.kernels.fft import kernel as fft_kernel
+    from repro_torch.kernels.fft.kernel import fft_cuda, fft_plain
     from repro_torch.kernels.fir.kernel import fir_cuda
     from repro_torch.kernels.pipeline import cuda as pcuda
     from repro_torch.kernels.pipeline.asr import make_asr_frontend
@@ -104,11 +135,21 @@ def main(argv=None) -> int:
     parents = {k: parent_library(k, args.parent_dir / f)
                for k, f in SOURCES.items()}
     real = _cuda.library
+    real_table = fft_kernel.device_four_step_table
+    # a source without clusters (none exported) lays its table out as
+    # `parent_four_step_table`
+    old_layout = not hasattr(parents["fft"], "fft_four_step_cluster")
+
+    @functools.lru_cache(maxsize=None)
+    def parent_table(n, device):
+        return torch.as_tensor(parent_four_step_table(n), device=device)
 
     def use(which: str) -> None:
         lib = (lambda k: parents.get(k) or real(k)) if which == "parent" \
             else real
         _cuda.library = pcuda.library = lib
+        fft_kernel.device_four_step_table = parent_table if \
+            which == "parent" and old_layout else real_table
 
     def same(fn) -> bool:
         use("parent")
@@ -149,7 +190,7 @@ def main(argv=None) -> int:
     # ---- FIR: the parent's dtypes and tap counts
     bad, n_cases = [], 0
     for dtype in (torch.float32, torch.bfloat16):
-        for k in (1, 2, 11, 64):
+        for k in (1, 2, 11, 64, 65, 255, 2048):
             x = torch.randn(5, 5000, generator=g, device=dev).to(dtype)
             taps = torch.as_tensor(lowpass_taps(max(k, 2))[:k], device=dev)
             n_cases += 1
@@ -163,7 +204,8 @@ def main(argv=None) -> int:
     if not same(lambda: fir_cuda(frames, app.fir_taps)):
         bad.append("fir asr_staged shape")
     report["cases"]["fir"] = {"cases": n_cases, "not_bitwise": bad}
-    print(f"fir: {n_cases} cases (float32/bfloat16 x 1/2/11/64 taps, and "
+    print(f"fir: {n_cases} cases (float32/bfloat16 x 1/2/11/64/65/255/2048 "
+          f"taps, and "
           f"the hour's 359,997 x 512 frames, 2 taps): bitwise the parent's "
           f"in {n_cases - len(bad)} [{card}]", flush=True)
     # ---- both graphs: the parent's five dtypes at the three entries
@@ -217,24 +259,71 @@ def main(argv=None) -> int:
           f"output): bitwise the parent's in {n_cases - len(bad)} [{card}]",
           flush=True)
     # ---- times in turns: parent, kernel, kernel, parent
-    timed = {"fft asr_staged (359,997 x 256)": lambda: fft_cuda(hr, hi),
+    day_frames = frame_signal(day, WINDOW, HOP)
+    timed = {"fft asr_staged (359,997 x 256)": (lambda: fft_cuda(hr, hi),
+                                                20),
              "fir asr_staged (359,997 x 512, 2 taps)":
-                 lambda: fir_cuda(frames, app.fir_taps), **streams}
-    for name, fn in timed.items():
+                 (lambda: fir_cuda(frames, app.fir_taps), 20),
+             "fir pipeline_staged (10,797 x 2048, 11 taps)":
+                 (lambda: fir_cuda(day_frames, bio.fir_taps), 20)}
+    for k in (65, 255, 2048):
+        taps = torch.as_tensor(lowpass_taps(
+            k, cutoff=0.02 if k == 255 else min(0.4, 8.0 / k)), device=dev)
+        timed[f"fir day frames (10,797 x 2048, {k} taps)"] = (
+            lambda taps=taps: fir_cuda(day_frames, taps), 10)
+    timed.update({name: (fn, 200) for name, fn in streams.items()})
+    for name, (fn, reps) in timed.items():
         times = []
         for which in ("parent", "kernel", "kernel", "parent"):
             use(which)
-            times.append((which, event_ms(fn, 20 if "asr_staged" in name
-                                          else 200)))
+            times.append((which, event_ms(fn, reps)))
         use("kernel")
         report["times"][name] = times
         print(f"time {name}: " + ", ".join(f"{w} {t:.5f}" for w, t in times)
               + f" ms [{card}]", flush=True)
+    del hr, hi, frames, audio
+    # ---- the four-step in turns, each with its distance to the plain
+    # version (max |diff| / max |plain|; the two are not bitwise)
+    for dname in ("float32", "bfloat16", "float16"):
+        dtype = getattr(torch, dname)
+        for n, rows in ((1 << 20, 1), (1 << 20, 64), (1 << 24, 1),
+                        (1 << 14, 1), (1 << 17, 1)):
+            if n != 1 << 20 and dtype != torch.float32:
+                continue
+            name = f"fft four-step {dname} {rows} x {n}"
+            xr = torch.randn(rows, n, generator=g, device=dev).to(dtype)
+            xi = torch.randn(rows, n, generator=g, device=dev).to(dtype)
+            want = fft_plain(xr, xi)
+            fft_kernel.device_twiddles.cache_clear()
+            scale = max(float(w.float().abs().max()) for w in want)
+            err = {}
+            for which in ("parent", "kernel"):
+                use(which)
+                got = fft_cuda(xr, xi)
+                err[which] = max(float((a.float() - b.float()).abs().max())
+                                 for a, b in zip(got, want)) / scale
+                del got
+            del want
+            times = []
+            for which in ("parent", "kernel", "kernel", "parent"):
+                use(which)
+                times.append((which, event_ms(lambda: fft_cuda(xr, xi),
+                                              10)))
+            use("kernel")
+            report["times"][name] = times
+            report["cases"].setdefault("fft four-step", {})[name] = err
+            print(f"time {name}: " + ", ".join(
+                f"{w} {t:.5f}" for w, t in times) + " ms; max |diff| / max "
+                f"|plain| parent {err['parent']:.3e}, kernel "
+                f"{err['kernel']:.3e} [{card}]", flush=True)
+            del xr, xi
+            torch.cuda.empty_cache()
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "kernel_parent_parity.json").write_text(json.dumps(report,
                                                               indent=1))
-    bad = [c for v in report["cases"].values() for c in v["not_bitwise"]]
+    bad = [c for v in report["cases"].values()
+           for c in v.get("not_bitwise", ())]
     if bad:
         print(f"NOT bitwise the parent's: {bad}", file=sys.stderr)
         return 1
